@@ -1,0 +1,111 @@
+"""Frozen VGG19 encoder emitting the annotation grid.
+
+Port of the VGG19 path of sat_tpu/models/encoder.py: torchvision's
+vgg19.features without the final max-pool, (B, S, S, 3) NHWC images ->
+(B, (S/16)^2, 512), flattened in NHWC row-major order like the reference's
+permute(0, 2, 3, 1).view(B, -1, C). The public functions keep the JAX
+package's NHWC layout; inside, the convs run on an NCHW view, which is
+channels-last in memory. The conv module names are torchvision's
+(`features.{idx}`), so a torchvision state_dict loads as it is.
+
+Convolutions are F.conv2d, as sat_tpu left them to XLA. The grid is f32;
+on the card cuDNN runs f32 convs in TF32 unless
+`torch.backends.cudnn.allow_tf32` is off, which exact-parity callers set.
+ResNet152, DenseNet161, bf16 compute and sat_tpu's space-to-depth first
+conv (a TPU-lane trick) are not ported.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+# torchvision vgg19.features layout; 'M' = maxpool. The final 'M' (feature
+# index 36) is dropped per the reference.
+VGG19_CFG = [64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
+             512, 512, 512, 512, "M", 512, 512, 512, 512]
+
+
+def vgg19_layer_plan():
+    """[('conv', torchvision_feature_index, out_ch) | ('pool',)] sequence."""
+    plan, idx = [], 0
+    for entry in VGG19_CFG:
+        if entry == "M":
+            plan.append(("pool",))
+            idx += 1
+        else:
+            plan.append(("conv", idx, entry))
+            idx += 2  # Conv2d + ReLU
+    return plan
+
+
+class VGG19(nn.Module):
+    def __init__(self):
+        super().__init__()
+        convs, cin = {}, 3
+        for op in vgg19_layer_plan():
+            if op[0] == "conv":
+                _, idx, cout = op
+                convs[str(idx)] = nn.Conv2d(cin, cout, 3, padding=1)
+                cin = cout
+        self.features = nn.ModuleDict(convs)
+
+
+def _not_ported(network: str):
+    return NotImplementedError(
+        f"encoder {network!r} is not ported yet (ROADMAP.md, Queue 1: "
+        f"ResNet152 and DenseNet161 encoders); only vgg19 is")
+
+
+def build_encoder(network: str) -> nn.Module:
+    if network != "vgg19":
+        raise _not_ported(network)
+    return VGG19()
+
+
+def init_encoder_params(network: str,
+                        generator: torch.Generator) -> dict[str, np.ndarray]:
+    """Random VGG19 parameters in sat_tpu's layout (`conv{idx}/w` HWIO,
+    `conv{idx}/b`), drawn like sat_tpu's init (Kaiming normal on fan-out,
+    zero bias) from `generator`."""
+    if network != "vgg19":
+        raise _not_ported(network)
+    out, cin = {}, 3
+    for op in vgg19_layer_plan():
+        if op[0] == "conv":
+            _, idx, cout = op
+            std = math.sqrt(2.0 / (3 * 3 * cout))
+            out[f"conv{idx}/w"] = (torch.randn((3, 3, cin, cout),
+                                               generator=generator)
+                                   * std).numpy()
+            out[f"conv{idx}/b"] = np.zeros((cout,), np.float32)
+            cin = cout
+    return out
+
+
+def vgg19_forward(enc: VGG19, x: torch.Tensor) -> torch.Tensor:
+    """x (B, H, W, 3) NHWC -> (B, H/16, W/16, 512) NHWC."""
+    x = x.permute(0, 3, 1, 2)
+    for op in vgg19_layer_plan():
+        if op[0] == "pool":
+            x = F.max_pool2d(x, kernel_size=2, stride=2)
+        else:
+            x = F.relu(enc.features[str(op[1])](x))
+    return x.permute(0, 2, 3, 1)
+
+
+@torch.inference_mode()
+def encoder_forward(enc: nn.Module, network: str, images) -> torch.Tensor:
+    """images (B, S, S, 3) NHWC -> annotation grid (B, L, C) float32, on the
+    encoder's device. (sat_tpu's bf16 `compute_dtype` is not ported yet.)"""
+    if network != "vgg19":
+        raise _not_ported(network)
+    dev = next(enc.parameters()).device
+    images = torch.as_tensor(images, dtype=torch.float32, device=dev)
+    x = vgg19_forward(enc, images)
+    B, H, W, C = x.shape
+    return x.reshape(B, H * W, C).float()

@@ -1,0 +1,60 @@
+"""Exact top-k over the flat beam-candidate rows: CUDA kernel + plain form.
+
+Port of sat_tpu/ops/topk.py. The beam's token parity rests on the order of
+`lax.top_k`, which the JAX package's Pallas kernel reproduces and so does
+this one:
+  - entries ordered by value, descending; the lower index wins a tie;
+  - NaN ranks as -inf (its value comes back as -inf);
+  - an all -inf row gives indices 0..k-1.
+`torch.topk` documents no order among equal values, so it is not the plain
+form: that is a stable descending sort after NaN -> -inf.
+
+The kernel (csrc/topk.cu) replaces sat_tpu/ops/topk.py::_topk_kernel; its
+source note gives the bound and the design. `topk` runs the plain form for
+CPU tensors only; for a CUDA tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sat_tpu_torch.ops import _kernels
+
+
+def topk_plain(x: torch.Tensor, k: int):
+    """(values (B, k) f32, indices (B, k) int64), in lax.top_k's order."""
+    x = torch.where(torch.isnan(x), float("-inf"), x)
+    values, indices = torch.sort(x, dim=1, descending=True, stable=True)
+    return values[:, :k].contiguous(), indices[:, :k].contiguous()
+
+
+def topk(x: torch.Tensor, k: int):
+    """Exact top-k of each row of x (B, N) f32: (values (B, k) f32,
+    indices (B, k) int64), the same values and indices as `topk_plain`."""
+    if x.dim() != 2:
+        raise ValueError(f"topk wants (B, N), got shape {tuple(x.shape)}")
+    B, N = x.shape
+    if not 0 < k <= N or B < 1:
+        raise ValueError(f"topk needs B >= 1 and 0 < k <= N, got B={B}, "
+                         f"N={N}, k={k}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"topk is float32-only, got {x.dtype}")
+    if x.device.type == "cpu":
+        return topk_plain(x, k)
+    if x.device.type != "cuda":
+        raise ValueError(f"topk runs on cuda or cpu tensors, got {x.device}")
+    if not x.is_contiguous():
+        raise ValueError("topk wants a contiguous input")
+    values = torch.empty((B, k), dtype=torch.float32, device=x.device)
+    indices = torch.empty((B, k), dtype=torch.int64, device=x.device)
+    lib = _kernels.library()
+    with torch.cuda.device(x.device):
+        rc = lib.sat_topk_f32(x.data_ptr(), values.data_ptr(),
+                              indices.data_ptr(), B, N, k,
+                              torch.cuda.current_stream().cuda_stream)
+    _kernels.check_launch("topk", rc)
+    topk.launches += 1
+    return values, indices
+
+
+topk.launches = 0   # kernel launches; CPU calls do not count

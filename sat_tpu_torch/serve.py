@@ -1,0 +1,550 @@
+#!/usr/bin/env python
+"""Captioning server on the port: dynamic micro-batching over the batched
+beam (or greedy) caption step.
+
+Port of serve.py. Requests are newline-delimited JSON over TCP:
+
+    {"id": "r1", "path": "/abs/image.jpg"}\\n
+->  {"id": "r1", "caption": "a dog runs", "score": ..., "completed": true}\\n
+
+or `{"id": "r2", "cached": 3}` for row 3 (modulo the pool size) of the
+image pool decoded at startup from --preload-images. Concurrent requests
+are coalesced into one batch (up to --max-batch, waiting at most
+--batch-window-ms for stragglers) and decoded by one caption step
+(sat_tpu_torch.engine.serving.build_caption_step). PyTorch runs eagerly and
+compiles nothing per shape, so batches run at their own size, unpadded.
+
+    python -m sat_tpu_torch.serve --model model/model_vgg19_8.npz \\
+        --encoder-weights vgg19.npz --port 8765 --max-batch 32
+
+The flags are serve.py's for beam and greedy decode; --device (default
+cuda) is added. Sampling's flags (--temperature, --top-k, --top-p, --seed)
+and --bert-vocab come with sample decode and BERT, and are rejected until
+then. Flags for what the port does not have yet (--decode sample,
+--fast-topk, --bf16-decode, --mesh-data > 1, --no-pallas-topk, BERT
+checkpoints) raise at startup.
+
+Shutdown: SIGTERM/SIGINT, or a client line {"cmd": "shutdown"}.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import queue
+import socket
+import threading
+import time
+
+import numpy as np
+import torch
+
+from sat_tpu_torch.config import Config
+from sat_tpu_torch.data.transforms import load_and_preprocess_image
+from sat_tpu_torch.device import resolve_device
+
+
+class CaptionServer:
+    """Socket front end + micro-batching loop around one caption fn.
+
+    Testable in-process: `start()` binds an ephemeral port (`.port`),
+    `stop()` shuts the loop down. `stats` counts requests/batches/errors so
+    tests can assert coalescing happened.
+    """
+
+    def __init__(self, caption_fn, image_size: int, decode_tokens,
+                 max_batch: int = 32, batch_window_ms: float = 5.0,
+                 host: str = "127.0.0.1", port: int = 0,
+                 request_ttl_s: float = 60.0, image_pool=None,
+                 overlap: bool = True):
+        self._caption_fn = caption_fn     # (B,S,S,3) f32 -> dict of tensors
+        self._image_size = image_size
+        # Pre-decoded (N, S, S, 3) f32 rows for `{"cached": idx}` requests;
+        # None = cached requests are rejected.
+        self._image_pool = image_pool
+        # One-behind pipelining of the batch loop (see _dispatch_batch).
+        self._overlap = overlap
+        self._decode_tokens = decode_tokens   # token row -> list of words
+        self._max_batch = max(1, max_batch)
+        self._window_s = batch_window_ms / 1e3
+        self._ttl_s = request_ttl_s
+        self._host, self._port = host, port
+        self._requests: "queue.Queue" = queue.Queue()
+        self._stop = threading.Event()
+        self._threads: list[threading.Thread] = []
+        self._sock: socket.socket | None = None
+        self._t_start = time.monotonic()
+        self._stats_lock = threading.Lock()
+        self.stats = {"requests": 0, "batches": 0, "errors": 0, "expired": 0,
+                      "captioned": 0}
+        # End-to-end (enqueue -> reply) latencies of recent successful
+        # captions, seconds; bounded so a long-lived daemon's stats cost
+        # stays O(1).
+        self._latencies: "collections.deque[float]" = collections.deque(
+            maxlen=1024)
+
+    def _count(self, key: str, n: int = 1) -> None:
+        with self._stats_lock:   # += on a dict int is not atomic
+            self.stats[key] += n
+
+    # -- lifecycle -----------------------------------------------------------
+
+    @property
+    def port(self) -> int:
+        if self._sock is None:
+            raise RuntimeError("server not started")
+        return self._sock.getsockname()[1]
+
+    def start(self) -> None:
+        self._sock = socket.create_server((self._host, self._port))
+        self._sock.settimeout(0.2)
+        for target in (self._accept_loop, self._batch_loop):
+            t = threading.Thread(target=target, daemon=True)
+            t.start()
+            self._threads.append(t)
+
+    def stop(self) -> None:
+        self._stop.set()
+        for t in list(self._threads):
+            t.join(timeout=10)
+        if self._sock is not None:
+            self._sock.close()
+
+    def serve_forever(self) -> None:
+        try:
+            while not self._stop.is_set():
+                time.sleep(0.2)
+        except KeyboardInterrupt:
+            pass
+        finally:
+            self.stop()
+
+    def snapshot(self) -> dict:
+        """stats plus uptime, queue depth and latency percentiles (ms)."""
+        with self._stats_lock:   # consistent snapshot vs the batch loop
+            snap = dict(self.stats)
+            lats = sorted(self._latencies)
+        snap["uptime_s"] = round(time.monotonic() - self._t_start, 1)
+        snap["queue_depth"] = self._requests.qsize()   # advisory
+        if lats:
+            def pct(p):
+                return round(
+                    lats[min(len(lats) - 1, int(p * len(lats)))] * 1e3, 2)
+            snap["latency_samples"] = len(lats)
+            snap["latency_p50_ms"] = pct(0.50)
+            snap["latency_p95_ms"] = pct(0.95)
+            snap["latency_p99_ms"] = pct(0.99)
+        return snap
+
+    # -- socket side ---------------------------------------------------------
+
+    def _accept_loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                conn, _ = self._sock.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            # daemon client threads exit on _stop within the socket timeout
+            threading.Thread(target=self._client_loop, args=(conn,),
+                             daemon=True).start()
+
+    def _client_loop(self, conn: socket.socket) -> None:
+        conn.settimeout(0.2)
+        send_lock = threading.Lock()
+        buf = b""
+        with conn:
+            while not self._stop.is_set():
+                try:
+                    chunk = conn.recv(65536)
+                except socket.timeout:
+                    continue
+                except OSError:
+                    return
+                if not chunk:
+                    return
+                buf += chunk
+                while b"\n" in buf:
+                    line, buf = buf.split(b"\n", 1)
+                    if line.strip():
+                        self._handle_line(line, conn, send_lock)
+
+    def _pool_row(self, req: dict):
+        """The pool row a `{"cached": idx}` request names, or an error
+        string. Checked per request, so one bad index fails only its own
+        request, never the batch it would have joined."""
+        if self._image_pool is None:
+            return None, ("no image pool (start with --preload-images to "
+                          "serve cached requests)")
+        idx = req["cached"]
+        if isinstance(idx, bool) or not isinstance(idx, int):
+            return None, f"'cached' must be an integer, got {idx!r}"
+        return self._image_pool[idx % len(self._image_pool)], None
+
+    def _handle_line(self, line: bytes, conn, send_lock) -> None:
+        sent = []
+
+        def reply(obj):
+            if sent:   # exactly one reply per request line
+                return
+            sent.append(True)
+            data = (json.dumps(obj) + "\n").encode()
+            with send_lock:
+                try:
+                    conn.sendall(data)
+                except OSError:
+                    pass
+
+        try:
+            req = json.loads(line)
+        except json.JSONDecodeError:
+            self._count("errors")
+            reply({"error": "malformed JSON"})
+            return
+        if not isinstance(req, dict):
+            self._count("errors")
+            reply({"error": "request must be a JSON object"})
+            return
+        if req.get("cmd") == "shutdown":
+            reply({"ok": "shutting down"})
+            self._stop.set()
+            return
+        if req.get("cmd") == "stats":
+            reply(self.snapshot())
+            return
+        image = None
+        if "cached" in req:
+            image, err = self._pool_row(req)
+            if err is not None:
+                self._count("errors")
+                reply({"id": req.get("id"), "error": err})
+                return
+        elif "path" not in req:
+            self._count("errors")
+            reply({"id": req.get("id"), "error": "missing 'path'"})
+            return
+        self._count("requests")
+        t0 = time.monotonic()
+
+        def timed_reply(obj, _reply=reply):
+            # successful captions feed the latency ring
+            if "caption" in obj:
+                with self._stats_lock:
+                    self.stats["captioned"] += 1
+                    self._latencies.append(time.monotonic() - t0)
+            _reply(obj)
+
+        self._requests.put((req, image, timed_reply, t0))
+
+    # -- device side ---------------------------------------------------------
+
+    def _take(self, deadline):
+        """Pop one queued request before `deadline`, expiring entries older
+        than the TTL (their clients have long timed out)."""
+        while True:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                raise queue.Empty
+            req, image, reply, t = self._requests.get(timeout=remaining)
+            if self._ttl_s and time.monotonic() - t > self._ttl_s:
+                self._count("expired")
+                reply({"id": req.get("id"), "error": "expired in queue"})
+                continue
+            return req, image, reply
+
+    def _gather_batch(self, first_wait: float = 0.2):
+        """Block for the first request (up to `first_wait`), then coalesce
+        stragglers for up to the batching window or until the batch is
+        full."""
+        try:
+            first = self._take(time.monotonic() + first_wait)
+        except queue.Empty:
+            return []
+        batch = [first]
+        deadline = time.monotonic() + self._window_s
+        while len(batch) < self._max_batch:
+            try:
+                batch.append(self._take(deadline))
+            except queue.Empty:
+                break
+        return batch
+
+    def _load_images(self, batch):
+        """Every request's image; returns (imgs, live) with load failures
+        already answered."""
+        out_imgs, live = [], []
+        for req, image, reply in batch:
+            if image is None:
+                try:
+                    image = load_and_preprocess_image(req["path"],
+                                                      self._image_size)
+                except Exception as e:
+                    self._count("errors")
+                    reply({"id": req.get("id"), "error": f"load failed: {e}"})
+                    continue
+            out_imgs.append(image)
+            live.append((req, reply))
+        return out_imgs, live
+
+    def _dispatch_batch(self, batch):
+        """Load images and launch the caption step; returns a finalize
+        closure that copies the results to the host and answers the
+        clients (None when every request failed at load time). CUDA work is
+        asynchronous, so the batch loop gathers the next batch before it
+        finalizes this one."""
+        imgs, live = self._load_images(batch)
+        if not live:
+            return None
+        n = len(live)
+        arr = np.stack(imgs).astype(np.float32)
+        try:
+            out = self._caption_fn(arr)
+        except Exception as e:
+            self._count("errors", n)
+            for req, reply in live:
+                reply({"id": req.get("id"), "error": f"decode failed: {e}"})
+            return None
+
+        def finalize() -> None:
+            try:
+                # only what the replies need (skips the alphas); errors of
+                # asynchronous device work surface here
+                host = {k: out[k].cpu().numpy()
+                        for k in ("tokens", "length", "score", "found")}
+            except Exception as e:
+                self._count("errors", n)
+                for req, reply in live:
+                    reply({"id": req.get("id"),
+                           "error": f"decode failed: {e}"})
+                return
+            self._count("batches")
+            for i, (req, reply) in enumerate(live):
+                try:
+                    words = self._decode_tokens(host["tokens"][i],
+                                                int(host["length"][i]),
+                                                bool(host["found"][i]))
+                    reply({"id": req.get("id"),
+                           "caption": " ".join(words),
+                           "score": float(host["score"][i]),
+                           "completed": bool(host["found"][i])})
+                except Exception as e:  # one bad row must not kill the loop
+                    self._count("errors")
+                    reply({"id": req.get("id"), "error": f"postproc: {e}"})
+
+        return finalize
+
+    def _batch_loop(self) -> None:
+        pending = None   # finalize closure of the batch still in flight
+        while not self._stop.is_set():
+            # while a batch is in flight, wait only one batching window for
+            # new work before flushing its replies
+            batch = self._gather_batch(
+                self._window_s if pending is not None else 0.2)
+            nxt = None
+            if batch:
+                try:
+                    nxt = self._dispatch_batch(batch)
+                    if not self._overlap and nxt is not None:
+                        nxt()
+                        nxt = None
+                except Exception as e:
+                    # The batch consumer must never die: answer everyone
+                    # still waiting and keep serving.
+                    self._count("errors", len(batch))
+                    for req, _, reply in batch:
+                        reply({"id": req.get("id"),
+                               "error": f"server error: {e}"})
+            if pending is not None:
+                try:
+                    pending()   # answers its own errors; guard regardless
+                except Exception:
+                    pass
+            pending = nxt
+        if pending is not None:   # drain the in-flight batch on shutdown
+            try:
+                pending()
+            except Exception:
+                pass
+
+
+def load_model(model_path: str, model_config_path: str | None = None,
+               encoder_weights: str | None = None, device="cuda"):
+    """Config, decoder config, encoder and decoder modules on `device`, and
+    the word dict, from a sat_tpu checkpoint directory (port of
+    generate_caption.py::load_model for vanilla vocabularies): the decoder
+    `.npz`, `model_config.json` beside it (or at `model_config_path`) and
+    `<cfg.data>/word_dict.json`. Without `encoder_weights` the encoder is
+    randomly initialized from a fixed seed, which is not sat_tpu's random
+    init: captions then mean nothing."""
+    from sat_tpu_torch.compat.jax_params import (decoder_from_jax,
+                                                 encoder_from_jax)
+    from sat_tpu_torch.engine.checkpoint import load_decoder_checkpoint
+    from sat_tpu_torch.models.decoder import DecoderConfig, init_decoder_params
+    from sat_tpu_torch.models.encoder import init_encoder_params
+
+    dev = resolve_device(device)
+    if model_config_path is None:
+        candidate = os.path.join(os.path.dirname(model_path) or ".",
+                                 "model_config.json")
+        if os.path.exists(candidate):
+            model_config_path = candidate
+    if model_config_path is None:
+        raise ValueError("no model_config.json beside the model; pass "
+                         "--model-config")
+    cfg = Config.from_model_config(model_config_path)
+    if cfg.bert:
+        raise NotImplementedError(
+            "BERT checkpoints are not ported yet (ROADMAP.md, Queue 1)")
+    with open(os.path.join(cfg.data, "word_dict.json")) as f:
+        word_dict = json.load(f)
+    dcfg = DecoderConfig(vocab_size=len(word_dict),
+                         encoder_dim=cfg.encoder_dim, use_ado=cfg.ado,
+                         use_attention=cfg.attention)
+    gen = torch.Generator().manual_seed(0)
+    if encoder_weights:
+        with np.load(encoder_weights) as data:
+            enc_flat = {k: data[k] for k in data.files}
+    else:
+        print("WARNING: no --encoder-weights given; encoder uses random "
+              "init — captions will be meaningless")
+        enc_flat = init_encoder_params(cfg.network, gen)
+    dec_flat = load_decoder_checkpoint(model_path,
+                                       init_decoder_params(dcfg, gen),
+                                       strict=False)
+    encoder = encoder_from_jax(enc_flat, cfg.network, dev)
+    decoder = decoder_from_jax(dec_flat, dcfg, dev)
+    return cfg, dcfg, encoder, decoder, word_dict
+
+
+def load_image_pool(preload: str, image_size: int, count: int) -> np.ndarray:
+    """Decode up to `count` images of a file or directory once, for
+    `{"cached": idx}` requests."""
+    if os.path.isdir(preload):
+        paths = sorted(os.path.join(preload, p) for p in os.listdir(preload))
+        paths = [p for p in paths if os.path.isfile(p)]
+    else:
+        paths = [preload]
+    rows = []
+    for p in paths:
+        if len(rows) >= count:
+            break
+        try:
+            rows.append(load_and_preprocess_image(p, image_size))
+        except (OSError, ValueError):
+            continue   # non-image files in the dir are fine to skip
+    if not rows:
+        raise SystemExit(f"--preload-images {preload}: no decodable images "
+                         f"found")
+    return np.stack(rows).astype(np.float32)
+
+
+def build_server(args) -> CaptionServer:
+    from sat_tpu_torch.engine.evaluate import build_token_dict, decode_caption
+    from sat_tpu_torch.engine.serving import build_caption_step
+
+    if getattr(args, "pallas_topk", None) is False:
+        raise NotImplementedError(
+            "--no-pallas-topk (sat_tpu's lax.top_k A/B arm) has no "
+            "counterpart: the port's beam always uses its exact top-k")
+    mesh_data = getattr(args, "mesh_data", 1)
+    if mesh_data != 1:
+        raise NotImplementedError(
+            "--mesh-data is not ported yet (ROADMAP.md, Queue 1: mesh "
+            "serving)")
+    cfg, dcfg, encoder, decoder, word_dict = load_model(
+        args.model, args.model_config, encoder_weights=args.encoder_weights,
+        device=args.device)
+    decode_mode = args.decode
+    step = build_caption_step(cfg.network, dcfg, args.beam_size,
+                              fast_topk=args.fast_topk, bf16=args.bf16_decode,
+                              decode=decode_mode, device=args.device)
+    token_dict = build_token_dict(word_dict)
+
+    def caption_fn(arr):
+        return step(encoder, decoder, arr)
+
+    def decode_tokens(tokens, length, found):
+        # Beam keeps the reference fallback: no completed sentence -> [0].
+        # Greedy rows carry their (possibly truncated) tokens either way.
+        if decode_mode == "beam" and not found:
+            row = [0]
+        else:
+            row = tokens[:length + 1].tolist()
+        return decode_caption(row, word_dict, token_dict)
+
+    image_pool = None
+    if args.preload_images:
+        image_pool = load_image_pool(args.preload_images, cfg.image_size,
+                                     max(1, args.preload_count))
+        print(f"preloaded {len(image_pool)} images into the cached-request "
+              f"pool")
+
+    return CaptionServer(caption_fn, cfg.image_size, decode_tokens,
+                         max_batch=args.max_batch,
+                         batch_window_ms=args.batch_window_ms,
+                         host=args.host, port=args.port,
+                         request_ttl_s=args.request_ttl_s,
+                         image_pool=image_pool, overlap=args.overlap)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        description="Captioning server (PyTorch/CUDA port)")
+    parser.add_argument("--model", type=str, required=True)
+    parser.add_argument("--model-config", type=str, default=None)
+    parser.add_argument("--encoder-weights", type=str, default=None)
+    parser.add_argument("--beam-size", type=int, default=5)
+    parser.add_argument("--decode", choices=["beam", "greedy", "sample"],
+                        default="beam",
+                        help="decoding strategy (greedy = argmax; sample is "
+                             "not ported yet)")
+    parser.add_argument("--fast-topk", action="store_true", default=False)
+    parser.add_argument("--pallas-topk", action=argparse.BooleanOptionalAction,
+                        default=None,
+                        help="accepted for serve.py's flag set: the beam "
+                             "always runs the exact top-k kernel")
+    parser.add_argument("--bf16-decode", action="store_true", default=False)
+    parser.add_argument("--host", type=str, default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=8765)
+    parser.add_argument("--max-batch", type=int, default=32)
+    parser.add_argument("--batch-window-ms", type=float, default=5.0)
+    parser.add_argument("--mesh-data", type=int, default=1)
+    parser.add_argument("--request-ttl-s", type=float, default=60.0,
+                        help="drop queued requests older than this; 0 "
+                             "disables")
+    parser.add_argument("--preload-images", type=str, default=None,
+                        help="image file or directory to pre-decode into "
+                             "the cached-request pool at startup")
+    parser.add_argument("--preload-count", type=int, default=32,
+                        help="max images decoded into the pool")
+    parser.add_argument("--no-overlap", action="store_false", dest="overlap",
+                        default=True,
+                        help="disable one-behind batch pipelining")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="cuda (default) or cpu")
+    return parser
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    server = build_server(args)
+    server.start()
+    print(f"captioning server listening on {args.host}:{server.port} "
+          f"(max_batch={args.max_batch}, window={args.batch_window_ms}ms, "
+          f"device={args.device})")
+
+    import signal
+
+    def _term(signum, frame):
+        server._stop.set()
+
+    signal.signal(signal.SIGTERM, _term)
+    server.serve_forever()
+    print(f"server stopped; stats: {server.stats}")
+
+
+if __name__ == "__main__":
+    main()

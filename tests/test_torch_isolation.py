@@ -1,0 +1,93 @@
+"""The port stands alone: it imports neither jax nor sat_tpu, and its entry
+points refuse to run on the CPU unless asked to."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from tests.test_torch_common import to_np  # noqa: F401  (one torch thread)
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "sat_tpu"}
+
+# The CPU slice at toy size, in a fresh interpreter: tests/conftest.py has
+# already imported jax into this one.
+_SLICE = r"""
+import sys
+import numpy as np
+import torch
+import sat_tpu_torch.serve  # noqa: F401
+from sat_tpu_torch.compat.jax_params import decoder_from_jax, encoder_from_jax
+from sat_tpu_torch.engine.serving import build_caption_step
+from sat_tpu_torch.models.decoder import DecoderConfig, init_decoder_params
+from sat_tpu_torch.models.encoder import init_encoder_params
+
+torch.set_num_threads(1)
+gen = torch.Generator().manual_seed(0)
+dcfg = DecoderConfig(vocab_size=30, encoder_dim=512, use_ado=True,
+                     use_attention=True)
+dec = decoder_from_jax(init_decoder_params(dcfg, gen), dcfg, device="cpu")
+enc = encoder_from_jax(init_encoder_params("vgg19", gen), "vgg19",
+                       device="cpu")
+images = np.random.default_rng(0).normal(size=(2, 32, 32, 3)).astype(
+    np.float32)
+out = build_caption_step("vgg19", dcfg, 3, device="cpu")(enc, dec, images)
+assert out["tokens"].shape == (2, 52), out["tokens"].shape
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "sat_tpu"))
+assert not bad, bad
+print("ISOLATED")
+"""
+
+
+def test_cpu_slice_runs_without_jax_or_sat_tpu():
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p))
+    proc = subprocess.run([sys.executable, "-c", _SLICE], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "ISOLATED" in proc.stdout
+
+
+def _port_files():
+    files = sorted((REPO / "sat_tpu_torch").rglob("*.py"))
+    return files + [REPO / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_sat_tpu_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots = [a.name.split(".")[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots = [(node.module or "").split(".")[0]]
+        else:
+            continue
+        assert not FORBIDDEN & set(roots), f"{path}:{node.lineno} {roots}"
+
+
+def test_entry_points_default_to_cuda():
+    """Without device=, an entry point on a host with no CUDA raises instead
+    of quietly running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the default device is usable")
+    from sat_tpu_torch.compat.jax_params import decoder_from_jax
+    from sat_tpu_torch.engine.serving import build_caption_step
+    from sat_tpu_torch.models.decoder import (DecoderConfig,
+                                              init_decoder_params)
+    from sat_tpu_torch.serve import build_parser
+
+    dcfg = DecoderConfig(vocab_size=10, encoder_dim=512)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_caption_step("vgg19", dcfg, 3)
+    flat = init_decoder_params(dcfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        decoder_from_jax(flat, dcfg)
+    assert build_parser().parse_args(["--model", "m.npz"]).device == "cuda"
