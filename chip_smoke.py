@@ -26,6 +26,18 @@ no result line is printed:
   5. serve   — a checkpoint directory on disk, the port's build_server +
                CaptionServer on an ephemeral port, 16 concurrent requests
                and the kernels' launch counts in serving them
+  6. train   — the flagship decoder (tf + ado + attention) in bank
+               training at B = 64, captions (64, 27), a device bank of 512
+               random feature grids: one step on the card against the same
+               step on the CPU (dropout 0); each step's attention launches
+               with remat on and off; ms per step and rows/s both ways; a
+               profile of one step; the loss falling over 20 steps on one
+               batch
+  7. entry   — a synthetic dataset on disk (128 train and 64 val rows of
+               224 px PNGs, a 2633-word vocabulary) through
+               `python -m sat_tpu_torch.train`'s main for one epoch; its
+               checkpoint loaded by the port's server code, which captions
+               one image
 
 Then come the `{"kernels": [...]}` line, the card's name and power limit as
 nvidia-smi gives them, and last `{"ok": true, "device": {...}}`. Details go
@@ -35,7 +47,9 @@ to <out>/chip_smoke.json.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
+import math
 import os
 import socket
 import statistics
@@ -46,6 +60,10 @@ import threading
 import time
 
 B, BEAM, VOCAB, SIZE, STEPS = 128, 5, 2633, 224, 51
+TRAIN_B, CAP_LEN, BANK_U, BANK_N = 64, 27, 512, 1024
+T = CAP_LEN - 1            # decoder steps of a training caption
+L, E, D = 196, 512, 512    # VGG19 grid, embedding and annotation widths
+PARITY_LR = 1e-3           # tests/test_train_parity.py's learning rate
 STOP_IDS = (1, 102)        # the vanilla beam's completion ids
 EOS_BOOST = 0.6            # added to the <eos> logit bias (make_weights)
 
@@ -79,15 +97,16 @@ def card_peaks(name: str) -> dict:
 
 def reset_launches() -> None:
     """Zero every kernel wrapper's launch count."""
-    from sat_tpu_torch.ops.fused_attention import attention_fwd
+    from sat_tpu_torch.ops.fused_attention import attention_bwd, attention_fwd
     from sat_tpu_torch.ops.topk import topk
-    topk.launches = attention_fwd.launches = 0
+    topk.launches = attention_fwd.launches = attention_bwd.launches = 0
 
 
 def read_launches() -> dict:
-    from sat_tpu_torch.ops.fused_attention import attention_fwd
+    from sat_tpu_torch.ops.fused_attention import attention_bwd, attention_fwd
     from sat_tpu_torch.ops.topk import topk
-    return {"topk": topk.launches, "attention_fwd": attention_fwd.launches}
+    return {"topk": topk.launches, "attention_fwd": attention_fwd.launches,
+            "attention_bwd": attention_bwd.launches}
 
 
 def time_ms(fn, clock_hz: float, reps: int = 100, warmup: int = 10) -> float:
@@ -209,7 +228,6 @@ def phase_kernels(dev, gen) -> list[dict]:
         "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
 
     # ---- fused attention forward, R = BEAM (dedup beam) and R = 1
-    L, E, D = 196, 512, 512
     errs = {}
     for R in (BEAM, 1):
         keys = torch.randn((B, L, E), generator=gen).cuda()
@@ -253,11 +271,107 @@ def phase_kernels(dev, gen) -> list[dict]:
         "bound_parts_ms": {"bytes": t_bytes * 1e3,
                            "f32": flops / peaks["f32_s"] * 1e3,
                            "sfu": (tanh + B * BEAM * L) / sfu_s * 1e3}})
+    rows.append(attention_bwd_row(peaks, sfu_s, hz, gen))
     emit({"phase": "kernels", "peaks": peaks,
           "checks": {"topk": "bit-exact on random and adversarial rows",
-                     "attention_fwd": errs},
+                     "attention_fwd": errs,
+                     "attention_bwd": rows[-1]["errors"]},
           "ms": {r["name"]: r["ms"] for r in rows}})
     return rows
+
+
+def attention_bwd_row(peaks, sfu_s, hz, gen) -> dict:
+    """The backward kernel at the training shape (B = 64, R = 1) against
+    its plain form, with dfeats asked and not; its times (the main path
+    does not ask for dfeats: bank features need no gradient) and bound;
+    the forward at R = 1 at the same shape."""
+    import torch
+    from sat_tpu_torch.ops.fused_attention import (attention_bwd,
+                                                   attention_bwd_plain,
+                                                   attention_fwd,
+                                                   attention_plain)
+    Bt = TRAIN_B
+    keys = torch.randn((Bt, L, E), generator=gen).cuda()
+    feats = torch.rand((Bt, L, D), generator=gen).cuda()
+    u_h = torch.randn((Bt, E), generator=gen).cuda()
+    v = (torch.randn((E,), generator=gen) / E ** 0.5).cuda()
+    b_v = torch.randn((1,), generator=gen).cuda()
+    dctx = torch.randn((Bt, D), generator=gen).cuda()
+    dalpha = torch.randn((Bt, L), generator=gen).cuda()
+    _, alpha = attention_plain(keys, feats, u_h, v, b_v)
+    args = (keys, feats, u_h, v, alpha, dctx, dalpha)
+    g = torch.bmm(feats, dctx[:, :, None])[:, :, 0] + dalpha
+    de_max = (alpha * (g - (alpha * g).sum(1, keepdim=True))).abs().max()
+    errors = {}
+    for want in (True, False):
+        got = attention_bwd(*args, want_dfeats=want)
+        ref = attention_bwd_plain(*args, want_dfeats=want)
+        torch.cuda.synchronize()
+        check((got[1] is None) == (not want), "attention_bwd: dfeats "
+              f"returned {got[1] is not None}, asked {want}")
+        err = {}
+        for name, a, b in zip(("dkeys", "dfeats", "du_h"), got, ref):
+            if b is None:
+                continue
+            err[name] = (a - b).abs().max().item()
+            check(err[name] <= 1e-5,
+                  f"attention_bwd: {name} max err {err[name]} > 1e-5")
+        # dv and db_v are sums over B*L = 12,544 terms, taken in another
+        # order than the plain form's: error <= 1e-4 of their size. db_v
+        # is zero in exact arithmetic (sum_l de = 0 for each image), so its
+        # size is that of the terms it sums, max |de|.
+        for name, a, b, size in (("dv", got[3], ref[3], ref[3].abs().max()),
+                                 ("db_v", got[4], ref[4], de_max)):
+            err[name] = (a - b).abs().max().item()
+            check(err[name] <= 1e-4 * size.item(),
+                  f"attention_bwd: {name} max err {err[name]} > 1e-4 x "
+                  f"{size.item()}")
+        errors["dfeats" if want else "no_dfeats"] = err
+
+    def parts(with_dfeats: bool) -> dict:
+        n_le, n_ld = Bt * L * E, Bt * L * D
+        bytes_ = 4 * (2 * n_le + n_ld + 2 * Bt * E + 2 * Bt * L + Bt * D
+                      + 2 * E + 1 + (n_ld if with_dfeats else 0))
+        # per (b, l, e): add, square, subtract, two products, the du_h add
+        # and the dv multiply-add; per (b, l, d): the g multiply-add, and
+        # the dfeats product when asked
+        flops = 8 * n_le + (3 if with_dfeats else 2) * n_ld
+        return {"bytes": bytes_ / peaks["bytes_s"] * 1e3,
+                "f32": flops / peaks["f32_s"] * 1e3,
+                "sfu": n_le / sfu_s * 1e3}
+
+    main_parts, dfeats_parts = parts(False), parts(True)
+    bound_by = ("bytes" if main_parts["bytes"] >= main_parts["f32"]
+                else "operations")
+    fwd = (keys, feats, u_h, v, b_v, 1)
+    fwd_bytes = 4 * (Bt * L * (E + D) + Bt * (E + D + L) + E + 1)
+    fwd_flops = 2 * Bt * L * E + 2 * Bt * L * D
+    return {
+        "name": "attention_bwd", "route": "cuda",
+        "source": "sat_tpu_torch/ops/csrc/attention_bwd.cu",
+        "replaces": "sat_tpu/ops/fused_attention.py:107",
+        "shape": f"keys/feats ({Bt}, {L}, {E}), R=1, dfeats not asked",
+        "max_abs_err": max(max(e.values()) for e in errors.values()),
+        "errors": errors,
+        "ms": time_ms(lambda: attention_bwd(*args, want_dfeats=False), hz),
+        "plain_ms": time_ms(
+            lambda: attention_bwd_plain(*args, want_dfeats=False), hz),
+        "library_ms": None,
+        "bound_ms": max(main_parts["bytes"], main_parts["f32"]),
+        "bound_by": bound_by, "bound_parts_ms": main_parts,
+        "with_dfeats": {
+            "ms": time_ms(lambda: attention_bwd(*args), hz),
+            "bound_ms": max(dfeats_parts["bytes"], dfeats_parts["f32"]),
+            "bound_parts_ms": dfeats_parts},
+        "forward_r1": {
+            "ms": time_ms(lambda: attention_fwd(*fwd), hz),
+            "plain_ms": time_ms(lambda: attention_plain(*fwd), hz),
+            "bound_ms": max(fwd_bytes / peaks["bytes_s"],
+                            fwd_flops / peaks["f32_s"]) * 1e3,
+            "bound_parts_ms": {
+                "bytes": fwd_bytes / peaks["bytes_s"] * 1e3,
+                "f32": fwd_flops / peaks["f32_s"] * 1e3,
+                "sfu": (Bt * L * E + Bt * L) / sfu_s * 1e3}}}
 
 
 def make_weights(seed: int):
@@ -315,9 +429,10 @@ def phase_main(dcfg, dec_flat, worst_flat, enc_flat, images) -> dict:
     wall_s = time.perf_counter() - t0
     launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    for name, n in launches.items():
-        check(n == STEPS, f"{name}: {n} launches in the main path, "
-                          f"expected {STEPS}")
+    check(launches == {"topk": STEPS, "attention_fwd": STEPS,
+                       "attention_bwd": 0},
+          f"main path launches {launches}, expected {STEPS} of topk and "
+          f"attention_fwd and no attention_bwd")
     tokens = out["tokens"].cpu().numpy()
     check(tokens.shape == (B, 1 + STEPS), f"tokens shape {tokens.shape}")
     check(not out["found"].any().item(),
@@ -352,12 +467,14 @@ def phase_main(dcfg, dec_flat, worst_flat, enc_flat, images) -> dict:
         torch.cuda.synchronize()
         counts = read_launches()
         if decode == "greedy":       # all 51 steps, argmax and no top-k
-            check(counts == {"topk": 0, "attention_fwd": STEPS},
+            check(counts == {"topk": 0, "attention_fwd": STEPS,
+                             "attention_bwd": 0},
                   f"greedy: launches {counts}, expected attention_fwd "
-                  f"{STEPS} and topk 0")
+                  f"{STEPS} and no topk or attention_bwd")
         else:                        # one of each a step, until all complete
             check(counts["topk"] == counts["attention_fwd"]
-                  and 1 <= counts["topk"] <= STEPS,
+                  and 1 <= counts["topk"] <= STEPS
+                  and counts["attention_bwd"] == 0,
                   f"beam: launches {counts}, expected equal counts in "
                   f"1..{STEPS}")
         c = build_caption_step("vgg19", dcfg, BEAM, decode=decode,
@@ -505,7 +622,8 @@ def phase_serve(dcfg, dec_flat, enc_flat) -> dict:
     # each batch runs the beam: one top-k and one attention launch a step,
     # 1..51 steps until its beams complete
     check(launches["topk"] == launches["attention_fwd"]
-          and stats["batches"] <= launches["topk"] <= STEPS * stats["batches"],
+          and stats["batches"] <= launches["topk"] <= STEPS * stats["batches"]
+          and launches["attention_bwd"] == 0,
           f"serve: launches {launches} for {stats['batches']} batches, "
           f"expected equal counts in 1..{STEPS} per batch")
     for i in range(n):
@@ -518,6 +636,226 @@ def phase_serve(dcfg, dec_flat, enc_flat) -> dict:
            "latency_p50_ms": stats.get("latency_p50_ms"),
            "latency_p99_ms": stats.get("latency_p99_ms"),
            "nonempty_captions": sum(bool(c) for c in captions)}
+    emit(res)
+    return res
+
+
+def make_captions(gen, rows: int):
+    """(rows, CAP_LEN) int32 captions as the data prep writes them:
+    <start>, 8 to 25 words, <eos>, then <pad>."""
+    import torch
+    from sat_tpu_torch import constants
+    caps = torch.full((rows, CAP_LEN), constants.PAD, dtype=torch.int32)
+    caps[:, 0] = constants.START
+    for i, n in enumerate(torch.randint(8, CAP_LEN - 1, (rows,),
+                                        generator=gen).tolist()):
+        caps[i, 1:n + 1] = torch.randint(4, VOCAB, (n,), generator=gen,
+                                         dtype=torch.int32)
+        caps[i, n + 1] = constants.EOS
+    return caps
+
+
+def phase_train(seed: int) -> dict:
+    """Bank training of the flagship decoder at full width on the card."""
+    import dataclasses
+
+    import torch
+    from sat_tpu_torch.compat.jax_params import (decoder_from_jax,
+                                                 decoder_to_jax)
+    from sat_tpu_torch.models.decoder import DecoderConfig, init_decoder_params
+    from sat_tpu_torch.parallel.train_step import (init_train_state,
+                                                   make_bank_train_step)
+
+    gen = torch.Generator().manual_seed(seed + 2)
+    # dropout 0.5 and remat_scan on: the training defaults
+    dcfg = DecoderConfig(vocab_size=VOCAB, encoder_dim=D, use_tf=True,
+                         use_ado=True, use_attention=True)
+    flat = init_decoder_params(dcfg, gen)
+    bank = torch.rand((BANK_U, L, D), generator=gen)
+    caps = make_captions(gen, BANK_N)
+    batches = [(torch.randint(0, BANK_U, (TRAIN_B,), generator=gen),
+                torch.randint(0, BANK_N, (TRAIN_B,), generator=gen))
+               for _ in range(8)]
+    bank_gpu, caps_gpu = bank.cuda(), caps.cuda()
+    batches_gpu = [(i.cuda(), r.cuda()) for i, r in batches]
+
+    # (a) one step from the same params, card (kernels) against CPU (plain
+    # forms), dropout 0
+    exact = dataclasses.replace(dcfg, dropout_rate=0.0)
+    after = {}
+    for device, fb, cb, (ii, ri) in (("cpu", bank, caps, batches[0]),
+                                     ("cuda", bank_gpu, caps_gpu,
+                                      batches_gpu[0])):
+        state = init_train_state(decoder_from_jax(flat, exact, device,
+                                                  trainable=True))
+        state, m = make_bank_train_step(exact, 1.0)(state, fb, cb, ii, ri,
+                                                    PARITY_LR, None)
+        after[device] = (float(m["loss"]), decoder_to_jax(state.decoder))
+    (cpu_loss, cpu_p), (gpu_loss, gpu_p) = after["cpu"], after["cuda"]
+    loss_rel = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
+    check(loss_rel <= 1e-5, f"train: card loss {gpu_loss} vs CPU {cpu_loss}")
+    param_err = {}
+    for name, ref in cpu_p.items():
+        err = float(abs(gpu_p[name] - ref).max())
+        param_err[name] = err
+        # The score bias's true gradient is zero: Adam turns its rounding
+        # noise into a +-lr step of either sign (tests/test_train_parity.py)
+        bound = 2.05 * PARITY_LR if name == "attention/v/b" else 3e-4
+        check(err <= bound, f"train: {name} differs by {err} > {bound} "
+                            f"after one step")
+    parity = {"loss_cpu": cpu_loss, "loss_gpu": gpu_loss,
+              "loss_rel_err": loss_rel, "lr": PARITY_LR,
+              "max_param_err": max(v for k, v in param_err.items()
+                                   if k != "attention/v/b"),
+              "param_err": param_err}
+
+    # (b, c) launches per step and step times, remat on and off
+    state = init_train_state(decoder_from_jax(flat, dcfg, "cuda",
+                                              trainable=True))
+    dgen = torch.Generator(device="cuda").manual_seed(seed)
+    steps = {"remat": make_bank_train_step(dcfg, 1.0),
+             "no_remat": make_bank_train_step(
+                 dataclasses.replace(dcfg, remat_scan=False), 1.0)}
+    next_batch = itertools.cycle(batches_gpu)
+
+    def run(mode: str, n: int, lr: float = 1e-4, fixed=None):
+        nonlocal state
+        losses = []
+        for _ in range(n):
+            ii, ri = fixed or next(next_batch)
+            state, m = steps[mode](state, bank_gpu, caps_gpu, ii, ri, lr,
+                                   dgen)
+            losses.append(m["loss"])
+        return losses
+
+    launches = {}
+    for mode, fwd in (("remat", 2 * T), ("no_remat", T)):
+        reset_launches()
+        run(mode, 1)
+        torch.cuda.synchronize()
+        launches[mode] = read_launches()
+        check(launches[mode] == {"topk": 0, "attention_fwd": fwd,
+                                 "attention_bwd": T},
+              f"train ({mode}): launches {launches[mode]}, expected "
+              f"attention_fwd {fwd}, attention_bwd {T}, topk 0")
+    for mode in steps:
+        run(mode, 3)                                   # warm-up
+    n_timed = 20
+    timing = {m: {"ms_per_step": [], "peak_mem_gb": []} for m in steps}
+    for mode in ("remat", "no_remat", "no_remat", "remat"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run(mode, n_timed)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / n_timed
+        timing[mode]["ms_per_step"].append(ms)
+        timing[mode]["peak_mem_gb"].append(
+            torch.cuda.max_memory_allocated() / 1e9)
+    for t in timing.values():
+        t["mean_ms"] = statistics.mean(t["ms_per_step"])
+        t["rows_per_s"] = TRAIN_B * 1e3 / t["mean_ms"]
+
+    # (d) one default step under the profiler
+    profile = profile_run(lambda: run("remat", 1))
+
+    # (e) 20 steps on one batch lower the loss
+    state = init_train_state(decoder_from_jax(flat, dcfg, "cuda",
+                                              trainable=True))
+    losses = [float(x) for x in run("remat", 20, lr=1e-3,
+                                    fixed=batches_gpu[0])]
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"train: the loss did not fall on a fixed batch: {losses}")
+    res = {"phase": "train", "batch": TRAIN_B, "caption_len": CAP_LEN,
+           "bank_images": BANK_U, "bank_mb": bank.numel() * 4 / 1e6,
+           "parity": parity, "launches": launches, "timing": timing,
+           "ms_per_step": timing["remat"]["mean_ms"],
+           "rows_per_s": timing["remat"]["rows_per_s"],
+           "peak_mem_gb": max(timing["remat"]["peak_mem_gb"]),
+           "fixed_batch_losses": losses, "profile": profile}
+    emit({k: v for k, v in res.items() if k not in ("parity", "profile")}
+         | {"parity": {k: v for k, v in parity.items()
+                       if k != "param_err"}})
+    return res
+
+
+def phase_entry(enc_flat) -> dict:
+    """`python -m sat_tpu_torch.train` for one epoch on a dataset on disk,
+    then its checkpoint through the port's server code."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from PIL import Image
+    from sat_tpu_torch.data.transforms import load_and_preprocess_image
+    from sat_tpu_torch.engine.evaluate import decode_caption
+    from sat_tpu_torch.engine.serving import build_caption_step
+    from sat_tpu_torch.serve import load_model
+    from sat_tpu_torch.train import main as train_main
+
+    gen = torch.Generator().manual_seed(7)
+    rng = np.random.default_rng(7)
+    with tempfile.TemporaryDirectory() as root:
+        words = ["<start>", "<eos>", "<unk>", "<pad>"] + [
+            f"w{i}" for i in range(4, VOCAB)]
+        with open(os.path.join(root, "word_dict.json"), "w") as f:
+            json.dump({w: i for i, w in enumerate(words)}, f)
+        os.makedirs(os.path.join(root, "imgs"))
+        for split, images in (("train", 64), ("val", 32)):
+            paths = []
+            for i in range(images):        # two caption rows an image
+                path = os.path.join(root, "imgs", f"{split}_{i:03d}.png")
+                Image.fromarray(rng.integers(0, 256, (SIZE, SIZE, 3),
+                                             np.uint8)).save(path)
+                paths += [path, path]
+            with open(os.path.join(root, f"{split}_img_paths.json"), "w") as f:
+                json.dump(paths, f)
+            with open(os.path.join(root, f"{split}_captions.json"), "w") as f:
+                json.dump(make_captions(gen, len(paths)).tolist(), f)
+        enc_path = os.path.join(root, "vgg19.npz")
+        np.savez(enc_path, **enc_flat)
+        ckpt_dir = os.path.join(root, "model")
+        argv = ["--data", root, "--tf", "--ado", "--attention",
+                "--cache-features", "--epochs", "1", "--batch-size",
+                str(TRAIN_B), "--log-interval", "1", "--checkpoint-dir",
+                ckpt_dir, "--encoder-weights", enc_path]
+        out = io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            val = train_main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        log = out.getvalue()
+        for line in ("Train Batch: [1/2]", "EvalMode.VALIDATION Batch: [0/1]",
+                     "EvalMode.VALIDATION Epoch: 1"):
+            check(line in log, f"entry: no {line!r} in the training output")
+        # two train batches of 2T forward and T backward launches, one
+        # validation batch of T forward
+        check(launches == {"topk": 0, "attention_fwd": 5 * T,
+                           "attention_bwd": 2 * T},
+              f"entry: launches {launches}")
+        model = os.path.join(ckpt_dir, "model_vgg19_1.npz")
+        check(os.path.exists(model), "entry: no checkpoint written")
+        check(math.isfinite(val["loss"]), f"entry: validation {val}")
+        cfg, dcfg, enc, dec, word_dict = load_model(
+            model, encoder_weights=enc_path, device="cuda")
+        image = load_and_preprocess_image(
+            os.path.join(root, "imgs", "val_000.png"), cfg.image_size)
+        cap = build_caption_step("vgg19", dcfg, BEAM, device="cuda")(
+            enc, dec, image[None])
+        tokens = cap["tokens"][0].cpu().numpy()
+        check(tokens.shape == (1 + STEPS,)
+              and bool(torch.isfinite(cap["alphas"]).all()),
+              f"entry: caption of shape {tokens.shape}")
+        row = (tokens[:int(cap["length"][0]) + 1].tolist()
+               if bool(cap["found"][0]) else [0])
+        caption = " ".join(decode_caption(row, word_dict))
+    res = {"phase": "entry", "seconds": seconds, "launches": launches,
+           "validation": val, "caption": caption,
+           "log_tail": log.splitlines()[-6:]}
     emit(res)
     return res
 
@@ -536,9 +874,16 @@ def main():
     dcfg, dec_flat, worst_flat, enc_flat, images = make_weights(args.seed)
     main_res = phase_main(dcfg, dec_flat, worst_flat, enc_flat, images)
     serve = phase_serve(dcfg, dec_flat, enc_flat)
+    train = phase_train(args.seed)
+    entry = phase_entry(enc_flat)
 
+    # each kernel's launches on its path: serving for topk and the forward
+    # (its train-step count is in the train phase), one default train step
+    # for the backward
     for row in kernels:
-        row["launches"] = main_res["launches"][row["name"]]
+        row["launches"] = (train["launches"]["remat"] if row["name"]
+                           == "attention_bwd" else main_res["launches"])[
+            row["name"]]
     summary = {"kernels": [{k: row[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
@@ -547,7 +892,8 @@ def main():
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"device": dev, "build_seconds": build["seconds"],
                    "build_log": build["log"], "kernels": kernels,
-                   "main": main_res, "serve": serve}, f, indent=1)
+                   "main": main_res, "serve": serve, "train": train,
+                   "entry": entry}, f, indent=1)
     emit(summary)
     print(dev["card"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,18 +1,23 @@
 """sat_tpu_torch — the PyTorch and CUDA port of sat_tpu for NVIDIA Hopper.
 
-The serving path of sat_tpu, rebuilt on PyTorch with hand-written CUDA
-kernels for sm_90a: a frozen VGG19 encoder emits the (B, 196, 512)
-annotation grid, and the batched beam search decodes it with the
-soft-attention LSTM decoder. The package mirrors sat_tpu's layout, so each
-module's counterpart sits under the same path:
+The serving and training paths of sat_tpu, rebuilt on PyTorch with
+hand-written CUDA kernels for sm_90a: a frozen VGG19 encoder emits the
+(B, 196, 512) annotation grid, which the batched beam search decodes, or
+on which the soft-attention LSTM decoder trains. The package mirrors
+sat_tpu's layout, so each module's counterpart sits under the same path:
 
-  sat_tpu_torch.models  — encoder / attention / decoder / beam search
-  sat_tpu_torch.ops     — LSTM cell and the CUDA kernels (exact top-k,
-                          fused attention forward) with their plain forms
-  sat_tpu_torch.engine  — caption step, checkpoint loading, token decoding
-  sat_tpu_torch.compat  — sat_tpu parameter archives -> the port's modules
-  sat_tpu_torch.data    — image preprocessing
-  sat_tpu_torch.serve   — the captioning server (python -m sat_tpu_torch.serve)
+  sat_tpu_torch.models   — encoder / attention / decoder / beam search
+  sat_tpu_torch.ops      — LSTM cell and the CUDA kernels (exact top-k,
+                           fused attention forward and backward) with
+                           their plain forms
+  sat_tpu_torch.parallel — the train and eval steps (one device)
+  sat_tpu_torch.engine   — caption step, the training loop, checkpoints,
+                           token decoding
+  sat_tpu_torch.utils    — metrics and loss, meters, metric logging
+  sat_tpu_torch.compat   — sat_tpu parameter archives <-> the port's modules
+  sat_tpu_torch.data     — image preprocessing, caption dataset and loader
+  sat_tpu_torch.serve    — the captioning server (python -m sat_tpu_torch.serve)
+  sat_tpu_torch.train    — the training CLI (python -m sat_tpu_torch.train)
 
 The port imports torch and never jax or sat_tpu. Entry points run on the
 card (device="cuda") unless the caller asks for the CPU; on CPU tensors

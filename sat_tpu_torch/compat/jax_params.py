@@ -1,4 +1,4 @@
-"""sat_tpu parameters -> the port's modules.
+"""sat_tpu parameters <-> the port's modules.
 
 The input is a flat `{name: np.ndarray}` dict with the `/`-joined names
 that `sat_tpu.engine.checkpoint.tree_save_npz` writes (and `np.load` reads
@@ -12,7 +12,10 @@ back), e.g. `attention/U/w`, `lstm/w_ih`, `ado/f_out/b`, `conv0/w`:
 
 The result is the reference's state_dict schema (decoder) and
 torchvision's (VGG19), loaded strictly into the port's modules. The modules
-come back in eval mode, frozen, on the requested device.
+come back in eval mode on the requested device, frozen unless a trainer
+asks for a trainable decoder. `decoder_to_jax` is the inverse for the
+decoder: the flat archive names and layout that sat_tpu's checkpoint
+loader reads.
 """
 
 from __future__ import annotations
@@ -66,18 +69,38 @@ def encoder_state_dict(flat: dict, network: str) -> dict:
     return sd
 
 
-def _frozen(module: torch.nn.Module, sd: dict, device) -> torch.nn.Module:
+def _load(module: torch.nn.Module, sd: dict, device,
+          trainable: bool = False) -> torch.nn.Module:
     module.load_state_dict(sd, strict=True)
-    module.requires_grad_(False)
+    module.requires_grad_(trainable)
     return module.eval().to(resolve_device(device))
 
 
-def decoder_from_jax(flat: dict, cfg: DecoderConfig,
-                     device="cuda") -> Decoder:
-    return _frozen(Decoder(cfg), decoder_state_dict(flat, cfg), device)
+def decoder_from_jax(flat: dict, cfg: DecoderConfig, device="cuda",
+                     trainable: bool = False) -> Decoder:
+    return _load(Decoder(cfg), decoder_state_dict(flat, cfg), device,
+                 trainable)
+
+
+def decoder_to_jax(dec: Decoder) -> dict[str, np.ndarray]:
+    """The decoder's weights as sat_tpu's flat archive: `/`-joined names,
+    (in, out) linears, float32 numpy arrays on the host."""
+    sd = {k: v.detach().cpu().numpy() for k, v in dec.state_dict().items()}
+    linears = dict(_DECODER_LINEARS)
+    if dec.cfg.use_ado:
+        linears.update(_ADO_LINEARS)
+    flat = {"embedding": sd["embedding.weight"]}
+    for tname, jname in linears.items():
+        flat[f"{jname}/w"] = np.ascontiguousarray(sd[f"{tname}.weight"].T)
+        flat[f"{jname}/b"] = sd[f"{tname}.bias"]
+    flat["lstm/w_ih"] = np.ascontiguousarray(sd["lstm.weight_ih"].T)
+    flat["lstm/w_hh"] = np.ascontiguousarray(sd["lstm.weight_hh"].T)
+    flat["lstm/b_ih"] = sd["lstm.bias_ih"]
+    flat["lstm/b_hh"] = sd["lstm.bias_hh"]
+    return flat
 
 
 def encoder_from_jax(flat: dict, network: str,
                      device="cuda") -> torch.nn.Module:
-    return _frozen(build_encoder(network), encoder_state_dict(flat, network),
-                   device)
+    return _load(build_encoder(network), encoder_state_dict(flat, network),
+                 device)

@@ -1,1 +1,2 @@
-"""Image preprocessing (transforms.py)."""
+"""Image preprocessing (transforms.py), caption dataset and batch loader
+(dataset.py)."""

@@ -1,2 +1,2 @@
-"""Caption step, checkpoint loading and token decoding (mirrors
-sat_tpu.engine for the serving path)."""
+"""Caption step, training loop, checkpoints and token decoding (mirrors
+sat_tpu.engine for the serving and training paths)."""

@@ -1,6 +1,6 @@
-"""Read-only loader for sat_tpu's `.npz` parameter archives.
+"""sat_tpu's `.npz` parameter archives: reading and writing.
 
-Port of the loading half of sat_tpu/engine/checkpoint.py. An archive is a
+Port of the `.npz` tier of sat_tpu/engine/checkpoint.py. An archive is a
 flat `.npz` of `/`-joined parameter names in (in, out) layout, as
 `tree_save_npz` writes it. The rules are sat_tpu's `tree_load_npz`:
 
@@ -10,12 +10,19 @@ flat `.npz` of `/`-joined parameter names in (in, out) layout, as
     dtype that differs raises ValueError.
 
 A template here is the flat dict of the expected arrays, e.g. the output of
-`init_decoder_params`. Writing checkpoints from the port is not ported yet.
+`init_decoder_params`. `save_decoder_checkpoint` writes the per-epoch
+decoder archive `model_{network}_{epoch}.npz`, which sat_tpu's
+`load_decoder_checkpoint` reads strictly. The Orbax train-state tier
+(optimizer moments, resume) is not ported yet.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+
+from sat_tpu_torch.compat.jax_params import decoder_to_jax
 
 
 def tree_load_npz(path: str, template: dict, strict: bool = True) -> dict:
@@ -50,3 +57,22 @@ def load_decoder_checkpoint(path: str, template: dict,
             "reference .pth checkpoints are not ported yet; convert with "
             "sat_tpu or pass the .npz")
     return tree_load_npz(path, template, strict=strict)
+
+
+def tree_save_npz(path: str, flat: dict) -> None:
+    """Write a flat `{name: array}` dict. The write is atomic (a temporary
+    file, then a rename): a crash never leaves a truncated archive under
+    the published name."""
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **flat)
+    os.replace(tmp, path)
+
+
+def save_decoder_checkpoint(checkpoint_dir: str, network: str, epoch: int,
+                            decoder) -> str:
+    """`<checkpoint_dir>/model_{network}_{epoch}.npz` from the port's
+    decoder module, in sat_tpu's names and layout."""
+    os.makedirs(checkpoint_dir, exist_ok=True)
+    path = os.path.join(checkpoint_dir, f"model_{network}_{epoch}.npz")
+    tree_save_npz(path, decoder_to_jax(decoder))
+    return path

@@ -1,6 +1,6 @@
-"""Soft-attention LSTM caption decoder (inference).
+"""Soft-attention LSTM caption decoder.
 
-Port of sat_tpu/models/decoder.py for decoding. The module's names are the
+Port of sat_tpu/models/decoder.py. The module's names are the
 reference Decoder's (reference decoder.py:40-66), so a reference
 `state_dict()` loads with no mapping:
 
@@ -12,8 +12,10 @@ reference Decoder's (reference decoder.py:40-66), so a reference
   deep_output               — E -> V simple head
   f_h, f_z, f_out           — advanced deep output head, only when use_ado
 
-Dropout is off: it only acts in training. `decoder_forward` (the training
-unroll) and BERT embeddings are not ported yet.
+`decode_step` is one step of decoding; `decoder_forward` is the training
+and evaluation unroll over a caption, teacher-forced or autoregressive,
+with dropout on h before the output head when training. BERT embeddings
+and the bf16 attention tanh are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -25,21 +27,31 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from sat_tpu_torch import constants
-from sat_tpu_torch.models.attention import Attention, soft_attention
+from sat_tpu_torch.models.attention import (Attention,
+                                           precompute_attention_keys,
+                                           soft_attention)
 from sat_tpu_torch.ops.lstm import lstm_cell
 
 
 @dataclass(frozen=True)
 class DecoderConfig:
-    """The inference subset of sat_tpu's DecoderConfig: teacher forcing
-    and dropout act only in training, which is not ported yet."""
+    """sat_tpu's DecoderConfig. `fused_attention` is accepted for sat_tpu's
+    flag set: the port's attention always runs its kernels. `remat_scan`
+    recomputes each step's forward in the backward pass
+    (torch.utils.checkpoint) instead of saving its activations."""
     vocab_size: int
     encoder_dim: int
+    use_tf: bool = False
     use_ado: bool = False
     use_bert: bool = False
     use_attention: bool = False
+    dropout_rate: float = 0.5
+    fused_attention: bool = False
+    bf16_attention: bool = False
+    remat_scan: bool = True
 
     @property
     def embedding_size(self) -> int:
@@ -54,13 +66,19 @@ class DecoderConfig:
         return constants.BERT_VOCAB_SIZE if self.use_bert else self.vocab_size
 
 
+def _check_ported(cfg: DecoderConfig) -> None:
+    if cfg.use_bert:
+        raise NotImplementedError(
+            "BERT embeddings are not ported yet (ROADMAP.md, Queue 1: BERT)")
+    if cfg.bf16_attention:
+        raise NotImplementedError(
+            "bf16_attention is not ported yet (ROADMAP.md, Queue 1: bf16)")
+
+
 class Decoder(nn.Module):
     def __init__(self, cfg: DecoderConfig):
         super().__init__()
-        if cfg.use_bert:
-            raise NotImplementedError(
-                "BERT embeddings are not ported yet (ROADMAP.md, Queue 1: "
-                "still to port)")
+        _check_ported(cfg)
         E, D, V = cfg.embedding_size, cfg.encoder_dim, cfg.effective_vocab_size
         self.cfg = cfg
         self.embedding = nn.Embedding(V, E)
@@ -138,17 +156,30 @@ def _advanced_deep_output(dec: Decoder, h: torch.Tensor, context: torch.Tensor,
     return F.relu(dec.f_out(h_t + z_t + token_emb))
 
 
-def decode_step(dec: Decoder, features: torch.Tensor, keys: torch.Tensor,
-                h: torch.Tensor, c: torch.Tensor, token_emb: torch.Tensor,
-                rows_per_image: int = 1):
-    """One decode timestep (reference decoder.py:96-125).
+def _dropout_keep(shape, rate: float, generator, device):
+    """The keep mask of dropout, Bernoulli(1 - rate) drawn from `generator`
+    (a torch.Generator on `device`), or None when dropout is off."""
+    if generator is None or rate <= 0.0:
+        return None
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
 
-    features: (B, L, D) annotation grid; keys: its precomputed W-projection;
-    h, c, token_emb: (B*R, ...) for R = rows_per_image hidden rows per image
-    (1 is sat_tpu's decode_step; the beam size is its _decode_step_shared,
-    which reads each image's grid once for all its beams).
-    Returns (h', c', logits (B*R, V), alpha (B*R, L), context (B*R, D)).
-    """
+
+def _apply_keep(x: torch.Tensor, keep, rate: float) -> torch.Tensor:
+    if keep is None:
+        return x
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
+def _dropout(x: torch.Tensor, rate: float, generator) -> torch.Tensor:
+    """sat_tpu's _dropout with an explicit torch.Generator: masks differ
+    from jax.random's, so parity runs set rate 0."""
+    return _apply_keep(x, _dropout_keep(x.shape, rate, generator, x.device),
+                       rate)
+
+
+def _recur(dec: Decoder, features, keys, h, c, token_emb, rows_per_image=1):
+    """Attention, β-gate and LSTM cell of one step:
+    (h', c', alpha, context)."""
     L = features.shape[1]
     R = rows_per_image
     if dec.cfg.use_attention:
@@ -158,11 +189,98 @@ def decode_step(dec: Decoder, features: torch.Tensor, keys: torch.Tensor,
         alpha = features.new_full((features.shape[0] * R, L), 1.0 / L)
         context = features.mean(dim=1).repeat_interleave(R, dim=0)
         gated_context = context
-
     x = torch.cat([token_emb, gated_context], dim=-1)
     h, c = lstm_cell(dec.lstm, x, h, c)
+    return h, c, alpha, context
+
+
+def _head(dec: Decoder, h, context, token_emb):
     if dec.cfg.use_ado:
-        logits = _advanced_deep_output(dec, h, context, token_emb)
-    else:
-        logits = dec.deep_output(h)
+        return _advanced_deep_output(dec, h, context, token_emb)
+    return dec.deep_output(h)
+
+
+def decode_step(dec: Decoder, features: torch.Tensor, keys: torch.Tensor,
+                h: torch.Tensor, c: torch.Tensor, token_emb: torch.Tensor,
+                rows_per_image: int = 1, dropout_keep=None,
+                dropout_rate: float = 0.0):
+    """One decode timestep (reference decoder.py:96-125).
+
+    features: (B, L, D) annotation grid; keys: its precomputed W-projection;
+    h, c, token_emb: (B*R, ...) for R = rows_per_image hidden rows per image
+    (1 is sat_tpu's decode_step; the beam size is its _decode_step_shared,
+    which reads each image's grid once for all its beams). `dropout_keep`
+    (a bool mask of h's shape, or None) drops h before the output head at
+    `dropout_rate`, as sat_tpu does in training.
+    Returns (h', c', logits (B*R, V), alpha (B*R, L), context (B*R, D)).
+    """
+    h, c, alpha, context = _recur(dec, features, keys, h, c, token_emb,
+                                  rows_per_image)
+    logits = _head(dec, _apply_keep(h, dropout_keep, dropout_rate), context,
+                   token_emb)
     return h, c, logits, alpha, context
+
+
+def _ar_step(dec, features, keys, h, c, prev_emb, keep, rate):
+    h, c, logits, alpha, _ = decode_step(dec, features, keys, h, c, prev_emb,
+                                         dropout_keep=keep, dropout_rate=rate)
+    return h, c, embed_tokens(dec, logits.argmax(dim=1)), logits, alpha
+
+
+def decoder_forward(dec: Decoder, cfg: DecoderConfig, features: torch.Tensor,
+                    captions: torch.Tensor, generator=None,
+                    train: bool = False):
+    """Full unroll over T = caption_length - 1 steps (sat_tpu's
+    decoder_forward). Teacher-forced (cfg.use_tf): step t consumes the
+    ground-truth token t, the loop carries only (h, c), and the output head
+    runs once over (B, T, E) after it. Otherwise autoregressive: step t
+    consumes the embedding of the argmax of step t-1's logits, from the
+    start token. With `train` and a `generator` (on the features' device),
+    dropout acts on h before the head; the autoregressive branch draws all
+    T masks before the loop and passes each into its step, so a recomputed
+    step redraws nothing. With cfg.remat_scan and autograd on, each step
+    runs under torch.utils.checkpoint.
+
+    Returns (preds (B, T, V), alphas (B, T, L)).
+    """
+    _check_ported(cfg)
+    B = features.shape[0]
+    T = captions.shape[1] - 1
+    captions = captions.long()
+    h, c = init_lstm_state(dec, features)
+    keys = precompute_attention_keys(dec.attention, features)
+    gen = generator if train else None
+    remat = cfg.remat_scan and torch.is_grad_enabled()
+
+    def run(fn, *args):
+        if remat:
+            return checkpoint(fn, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        return fn(*args)
+
+    if cfg.use_tf:
+        token_embs = embed_tokens(dec, captions[:, :T])          # (B, T, E)
+        hs, ctxs, alphas = [], [], []
+        for t in range(T):
+            h, c, alpha, context = run(_recur, dec, features, keys, h, c,
+                                       token_embs[:, t])
+            hs.append(h)
+            ctxs.append(context)
+            alphas.append(alpha)
+        h_do = _dropout(torch.stack(hs, dim=1), cfg.dropout_rate, gen)
+        preds = _head(dec, h_do, torch.stack(ctxs, dim=1), token_embs)
+        return preds, torch.stack(alphas, dim=1)
+
+    start = torch.full((B,), cfg.start_token, dtype=torch.long,
+                       device=features.device)
+    prev_emb = embed_tokens(dec, start)
+    keeps = [_dropout_keep(h.shape, cfg.dropout_rate, gen, h.device)
+             for _ in range(T)]
+    preds, alphas = [], []
+    for t in range(T):
+        h, c, prev_emb, logits, alpha = run(_ar_step, dec, features, keys, h,
+                                            c, prev_emb, keeps[t],
+                                            cfg.dropout_rate)
+        preds.append(logits)
+        alphas.append(alpha)
+    return torch.stack(preds, dim=1), torch.stack(alphas, dim=1)

@@ -100,12 +100,18 @@ def vgg19_forward(enc: VGG19, x: torch.Tensor) -> torch.Tensor:
 
 @torch.inference_mode()
 def encoder_forward(enc: nn.Module, network: str, images) -> torch.Tensor:
-    """images (B, S, S, 3) NHWC -> annotation grid (B, L, C) float32, on the
-    encoder's device. (sat_tpu's bf16 `compute_dtype` is not ported yet.)"""
+    """images (B, S, S, 3) NHWC -> annotation grid (B, L, C) float32,
+    contiguous, on the encoder's device. (sat_tpu's bf16 `compute_dtype` is
+    not ported yet.)
+
+    The grid is a view of the last conv's output, whose memory format the
+    convolution picks (on the card it varied with the batch size), so it is
+    made contiguous here: the attention kernels take only contiguous
+    features."""
     if network != "vgg19":
         raise _not_ported(network)
     dev = next(enc.parameters()).device
     images = torch.as_tensor(images, dtype=torch.float32, device=dev)
     x = vgg19_forward(enc, images)
     B, H, W, C = x.shape
-    return x.reshape(B, H * W, C).float()
+    return x.reshape(B, H * W, C).float().contiguous()

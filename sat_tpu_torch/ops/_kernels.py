@@ -41,6 +41,10 @@ SIGNATURES = {
     # stream
     "sat_attention_fwd_f32": (_P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _P),
+    # keys, feats, u_h, v, alpha, dctx, dalpha, dkeys, dfeats (or null),
+    # du_h, dv_part, dbv_part, images, L, E, D, stream
+    "sat_attention_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _P, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -1,8 +1,8 @@
-"""Fused soft-attention forward: CUDA kernel + plain form.
+"""Fused soft attention, forward and backward: CUDA kernels + plain forms.
 
-Port of the forward half of sat_tpu/ops/fused_attention.py. Computes the
-middle of the attention block, between the two projections that stay plain
-matmuls (keys = W a + b_W, once per image; u_h = U h + b_U, each step):
+Port of sat_tpu/ops/fused_attention.py. Computes the middle of the
+attention block, between the two projections that stay plain matmuls
+(keys = W a + b_W, once per image; u_h = U h + b_U, each step):
 
     att   = tanh(keys + u_h)        (B, R, L, E), never stored by the kernel
     e     = att . v + b_v           (B, R, L)
@@ -20,8 +20,15 @@ bound and the design. In sat_tpu the kernel was opt-in because XLA already
 fused the plain graph; eager PyTorch fuses nothing, so on the card the
 kernel is the default and the plain form writes the whole tanh tensor.
 `attention_fwd` runs the plain form for CPU tensors only; for CUDA tensors
-it launches the kernel or raises. The backward kernel (training) is not
-ported yet.
+it launches the kernel or raises.
+
+Training differentiates the block at R = 1 through `FusedAttention`, the
+counterpart of sat_tpu's custom VJP (`fused_attention_trainable`): its
+forward is `attention_fwd` and saves only the inputs and alpha; its
+backward is `attention_bwd` (csrc/attention_bwd.cu, replacing
+`_attention_bwd_kernel`), which recomputes the tanh instead of reading a
+saved (B, L, E) tensor. `attention_bwd` too runs its plain form for CPU
+tensors only, so the CPU tests drive the same autograd wiring.
 """
 
 from __future__ import annotations
@@ -91,3 +98,107 @@ def attention_fwd(keys, feats, u_h, v, b_v, rows_per_image: int = 1):
 
 
 attention_fwd.launches = 0   # kernel launches; CPU calls do not count
+
+
+def _bwd_check(keys, feats, u_h, v, alpha, dctx, dalpha):
+    if keys.dim() != 3 or feats.dim() != 3:
+        raise ValueError("attention_bwd wants keys (B, L, E) and feats "
+                         "(B, L, D)")
+    B, L, E = keys.shape
+    D = feats.shape[2]
+    want = {"feats": (feats, (B, L, D)), "u_h": (u_h, (B, E)),
+            "v": (v, (E,)), "alpha": (alpha, (B, L)),
+            "dctx": (dctx, (B, D)), "dalpha": (dalpha, (B, L))}
+    bad = {k: tuple(t.shape) for k, (t, shape) in want.items()
+           if tuple(t.shape) != shape}
+    if B < 1 or bad:
+        raise ValueError(f"attention_bwd shapes do not agree with keys "
+                         f"{tuple(keys.shape)}: {bad}")
+    return B, L, E, D
+
+
+def attention_bwd_plain(keys, feats, u_h, v, alpha, dctx, dalpha,
+                        want_dfeats: bool = True):
+    """The VJP of `attention_plain` at R = 1, by plain tensor ops:
+    (dkeys (B, L, E), dfeats (B, L, D) or None, du_h (B, E), dv (E,),
+    db_v (1,)). The tanh is recomputed from keys and u_h."""
+    _bwd_check(keys, feats, u_h, v, alpha, dctx, dalpha)
+    att = torch.tanh(keys + u_h[:, None, :])                     # (B, L, E)
+    dfeats = alpha[:, :, None] * dctx[:, None, :] if want_dfeats else None
+    g = torch.bmm(feats, dctx[:, :, None])[:, :, 0] + dalpha       # (B, L)
+    de = alpha * (g - (alpha * g).sum(dim=1, keepdim=True))       # (B, L)
+    dpre = (de[:, :, None] * v) * (1.0 - att * att)
+    dv = (att * de[:, :, None]).sum(dim=(0, 1))
+    return dpre, dfeats, dpre.sum(dim=1), dv, de.sum().reshape(1)
+
+
+def attention_bwd(keys, feats, u_h, v, alpha, dctx, dalpha,
+                  want_dfeats: bool = True):
+    """As `attention_bwd_plain`; on CUDA tensors one kernel launch, with
+    dfeats neither computed nor written unless `want_dfeats`."""
+    B, L, E, D = _bwd_check(keys, feats, u_h, v, alpha, dctx, dalpha)
+    tensors = (keys, feats, u_h, v, alpha, dctx, dalpha)
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError("attention_bwd is float32-only")
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"attention_bwd inputs on several devices: {devices}")
+    dev = keys.device
+    if dev.type == "cpu":
+        return attention_bwd_plain(keys, feats, u_h, v, alpha, dctx, dalpha,
+                                   want_dfeats)
+    if dev.type != "cuda":
+        raise ValueError(f"attention_bwd runs on cuda or cpu tensors, "
+                         f"got {dev}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("attention_bwd wants contiguous inputs")
+    f32 = {"dtype": torch.float32, "device": dev}
+    dkeys = torch.empty((B, L, E), **f32)
+    dfeats = torch.empty((B, L, D), **f32) if want_dfeats else None
+    du_h = torch.empty((B, E), **f32)
+    dv_part = torch.empty((B, E), **f32)      # one partial per image, summed
+    dbv_part = torch.empty((B,), **f32)       # below in a fixed order
+    lib = _kernels.library()
+    with torch.cuda.device(dev):
+        rc = lib.sat_attention_bwd_f32(
+            keys.data_ptr(), feats.data_ptr(), u_h.data_ptr(), v.data_ptr(),
+            alpha.data_ptr(), dctx.data_ptr(), dalpha.data_ptr(),
+            dkeys.data_ptr(), dfeats.data_ptr() if want_dfeats else None,
+            du_h.data_ptr(), dv_part.data_ptr(), dbv_part.data_ptr(),
+            B, L, E, D, torch.cuda.current_stream().cuda_stream)
+    _kernels.check_launch("attention_bwd", rc)
+    attention_bwd.launches += 1
+    return dkeys, dfeats, du_h, dv_part.sum(dim=0), dbv_part.sum().reshape(1)
+
+
+attention_bwd.launches = 0   # kernel launches; CPU calls do not count
+
+
+class FusedAttention(torch.autograd.Function):
+    """(ctx (B, D), alpha (B, L)) = attention_fwd(keys, feats, u_h, v, b_v)
+    at R = 1, differentiable in all five inputs. Saved for the backward:
+    the inputs and alpha (sat_tpu's `_fat_fwd` residuals), never the tanh.
+    dfeats is computed only when feats needs a gradient; in bank training
+    the features are data and it is skipped."""
+
+    @staticmethod
+    def forward(ctx, keys, feats, u_h, v, b_v):
+        out, alpha = attention_fwd(keys, feats, u_h, v, b_v, 1)
+        ctx.save_for_backward(keys, feats, u_h, v, alpha)
+        return out, alpha
+
+    @staticmethod
+    def backward(ctx, dctx, dalpha):
+        keys, feats, u_h, v, alpha = ctx.saved_tensors
+        dkeys, dfeats, du_h, dv, db_v = attention_bwd(
+            keys, feats, u_h, v, alpha, dctx.contiguous(),
+            dalpha.contiguous(), want_dfeats=ctx.needs_input_grad[1])
+        return dkeys, dfeats, du_h, dv, db_v
+
+
+def fused_soft_attention(attn, features, hidden, keys):
+    """Port of sat_tpu's `fused_soft_attention`: u_h = U h + b_U, then the
+    differentiable fused block. `attn` is the port's Attention module."""
+    u_h = attn.U(hidden)
+    return FusedAttention.apply(keys, features, u_h, attn.v.weight.view(-1),
+                                attn.v.bias)

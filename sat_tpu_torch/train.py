@@ -1,0 +1,47 @@
+"""Training CLI of the port.
+
+    python -m sat_tpu_torch.train [train.py's flags] [--device cpu]
+
+The flags are train.py's (the reference's argparse surface plus sat_tpu's
+extensions); `--device` picks the card (cuda, the default) or the CPU,
+where every kernel runs its plain PyTorch form. A flag whose path is not
+ported yet raises NotImplementedError naming its ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import random
+
+import numpy as np
+import torch
+
+from sat_tpu_torch.config import (build_arg_parser, config_from_args,
+                                  unported_options)
+from sat_tpu_torch.device import resolve_device
+
+
+def set_seed(seed: int) -> None:
+    """Host-side seeding (reference train.py:37-43); the Trainer seeds its
+    own generators from the same value."""
+    np.random.seed(seed)
+    random.seed(seed)
+    torch.manual_seed(seed)
+
+
+def main(argv=None) -> dict:
+    args = build_arg_parser().parse_args(argv)
+    cfg = config_from_args(args)
+    unported = unported_options(cfg, explicit_perform_test=bool(
+        args.perform_test))
+    if unported:
+        raise NotImplementedError(
+            "not ported yet (ROADMAP.md, Queue 1): " + ", ".join(
+                f"{flag} ({item})" for flag, item in unported))
+    device = resolve_device(args.device)
+    set_seed(cfg.seed)
+    from sat_tpu_torch.engine.loop import run_training
+    return run_training(cfg, device=device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,107 @@
+"""Token-level metrics and the reference's loss.
+
+Port of sat_tpu/utils/metrics.py, with the reference's quirks kept:
+ - sequence_accuracy masks padding (reference utils.py:44-80);
+ - the cross-entropy keeps PAD tokens and drops only the final timestep of
+   every row (reference train.py:149-151);
+ - the doubly-stochastic attention regularizer is
+   alpha_c * mean((1 - sum_t alpha)^2) (reference train.py:154).
+
+`row_mask` (B,) bool marks the real rows of a padded batch; None means all
+rows are real. Top-k membership follows `lax.top_k`'s order (value
+descending, lower index first among equal values), so that ties, which the
+ado head's ReLU'd logits have in plenty, count as they do in sat_tpu:
+the target is in the top k when fewer than k entries come before it.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def _in_top_k(preds: torch.Tensor, targets: torch.Tensor, k: int):
+    """(...,) bool: targets (...) among the k first of preds (..., V) in
+    lax.top_k's order."""
+    t = targets.long()[..., None]
+    tv = preds.gather(-1, t)
+    idx = torch.arange(preds.shape[-1], device=preds.device)
+    before = (preds > tv) | ((preds == tv) & (idx < t))
+    return before.sum(dim=-1) < k
+
+
+def legacy_accuracy(preds: torch.Tensor, targets: torch.Tensor,
+                    k: int) -> torch.Tensor:
+    """The reference's original top-k accuracy (reference utils.py:22-42):
+    hits over (N, V) preds and (N,) targets, times 100 / N. Not used by the
+    training loop."""
+    return _in_top_k(preds, targets, k).sum() * (100.0 / targets.shape[0])
+
+
+def sequence_accuracy(preds: torch.Tensor, targets: torch.Tensor, k: int,
+                      ignore_index: int = 0,
+                      row_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Top-k token accuracy over non-padding positions, as a percentage.
+    preds (B, T, V) logits, targets (B, T) ids; 0.0 when every position is
+    padding."""
+    correct = _in_top_k(preds, targets, k)
+    mask = targets != ignore_index
+    if row_mask is not None:
+        mask = mask & row_mask[:, None]
+    total = mask.sum()
+    hits = (correct & mask).sum()
+    return torch.where(total > 0, hits * 100.0 / total.clamp(min=1),
+                       torch.zeros((), device=preds.device))
+
+
+def calculate_caption_lengths(captions: torch.Tensor, skip_ids,
+                              row_mask: torch.Tensor | None = None):
+    """Count of tokens not in `skip_ids` over the whole batch (reference
+    utils.py:101-107)."""
+    skip = torch.as_tensor(skip_ids, device=captions.device)
+    mask = ~(captions[..., None] == skip).any(dim=-1)
+    if row_mask is not None:
+        mask = mask & row_mask[:, None]
+    return mask.sum()
+
+
+def reference_packed_cross_entropy(preds: torch.Tensor, targets: torch.Tensor,
+                                   row_mask: torch.Tensor | None = None):
+    """Mean cross-entropy over the first T-1 timesteps of every row (the
+    reference packs each row with length `len(row) - 1`)."""
+    t_keep = preds.shape[1] - 1
+    logits = preds[:, :t_keep].reshape(-1, preds.shape[-1])
+    labels = targets[:, :t_keep].reshape(-1).long()
+    nll = -F.log_softmax(logits, dim=-1).gather(1, labels[:, None])[:, 0]
+    if row_mask is None:
+        return nll.mean()
+    w = row_mask.to(nll.dtype).repeat_interleave(t_keep)
+    return (nll * w).sum() / w.sum().clamp(min=1.0)
+
+
+def attention_regularization(alphas: torch.Tensor, alpha_c: float,
+                             row_mask: torch.Tensor | None = None):
+    """Doubly-stochastic attention penalty (reference train.py:154);
+    alphas (B, T, L)."""
+    sq = (1.0 - alphas.sum(dim=1)) ** 2                   # (B, L)
+    if row_mask is None:
+        return alpha_c * sq.mean()
+    w = row_mask.to(sq.dtype)[:, None]
+    return alpha_c * (sq * w).sum() / (w.sum() * sq.shape[1]).clamp(min=1.0)
+
+
+def repetition_penalty(preds: torch.Tensor, ignore_ids, beta: float = 1.0,
+                       row_mask: torch.Tensor | None = None):
+    """Penalty on consecutive repeated argmax tokens (reference
+    train.py:357-384), off unless Config.rep_penalty_beta is set."""
+    pred_tokens = preds.argmax(dim=2)                              # (B, T)
+    shifted = torch.cat([pred_tokens[:, :1], pred_tokens[:, :-1]], dim=1)
+    repetitions = (pred_tokens == shifted).float()
+    mask = torch.ones_like(repetitions, dtype=torch.bool)
+    for idx in ignore_ids:
+        mask &= shifted != idx
+    masked = repetitions[:, 1:] * mask[:, 1:].float()
+    if row_mask is None:
+        return (masked.sum() / pred_tokens.shape[0]) * beta
+    w = row_mask.float()
+    return ((masked * w[:, None]).sum() / w.sum().clamp(min=1.0)) * beta

@@ -10,7 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from sat_tpu_torch.ops.fused_attention import attention_fwd, attention_plain
+from sat_tpu_torch.ops.fused_attention import (FusedAttention, attention_bwd,
+                                               attention_bwd_plain,
+                                               attention_fwd, attention_plain)
 from sat_tpu_torch.ops.topk import topk, topk_plain
 
 pytestmark = pytest.mark.cuda
@@ -97,3 +99,127 @@ def test_beam_on_the_card_matches_the_cpu(cuda):
         assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), name
     np.testing.assert_allclose(gpu.alphas.cpu().numpy(), cpu.alphas.numpy(),
                                atol=1e-5)
+
+
+def _bwd_inputs(seed, B, L, E, D, device):
+    g = torch.Generator().manual_seed(seed)
+    keys = torch.randn((B, L, E), generator=g)
+    feats = torch.rand((B, L, D), generator=g)
+    u_h = torch.randn((B, E), generator=g)
+    v = torch.randn((E,), generator=g) / E ** 0.5
+    b_v = torch.randn((1,), generator=g)
+    dctx = torch.randn((B, D), generator=g)
+    dalpha = torch.randn((B, L), generator=g)
+    _, alpha = attention_plain(keys, feats, u_h, v, b_v)
+    return [t.to(device) for t in (keys, feats, u_h, v, b_v, alpha, dctx,
+                                   dalpha)]
+
+
+def _assert_sum_close(got, want, size=None):
+    """dv and db_v sum B*L terms in another order than the plain form:
+    held at 1e-4 of their size. db_v is zero in exact arithmetic (sum_l de
+    = 0 for each image), so its size is that of its terms, max |de|."""
+    size = want.abs().max().item() if size is None else size
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=1e-4 * size)
+
+
+def _de_max(feats, alpha, dctx, dalpha) -> float:
+    g = torch.bmm(feats, dctx[:, :, None])[:, :, 0] + dalpha
+    return (alpha * (g - (alpha * g).sum(1, keepdim=True))).abs().max().item()
+
+
+@pytest.mark.parametrize("want_dfeats", [True, False],
+                         ids=["dfeats", "no-dfeats"])
+@pytest.mark.parametrize("B,L,E,D", [(1, 5, 16, 8), (3, 9, 64, 48),
+                                     (64, 196, 512, 512),
+                                     (5, 196, 768, 512), (7, 600, 40, 1100)])
+def test_attention_bwd_kernel_matches_plain(cuda, B, L, E, D, want_dfeats):
+    keys, feats, u_h, v, _, alpha, dctx, dalpha = _bwd_inputs(
+        B * L, B, L, E, D, cuda)
+    args = (keys, feats, u_h, v, alpha, dctx, dalpha)
+    before = attention_bwd.launches
+    got = attention_bwd(*args, want_dfeats=want_dfeats)
+    assert attention_bwd.launches == before + 1
+    want = attention_bwd_plain(*args, want_dfeats=want_dfeats)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dkeys", "dfeats", "du_h"), got, want):
+        if w is None:
+            assert g is None and not want_dfeats
+            continue
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   atol=1e-5, err_msg=name)
+    _assert_sum_close(got[3], want[3])
+    _assert_sum_close(got[4], want[4], _de_max(feats, alpha, dctx, dalpha))
+
+
+@pytest.mark.parametrize("feats_grad", [True, False])
+def test_fused_attention_grads_on_the_card(cuda, feats_grad):
+    """FusedAttention (forward and backward kernels) against PyTorch
+    autograd of the plain forward, on the card."""
+    keys, feats, u_h, v, b_v, alpha, dctx, dalpha = _bwd_inputs(
+        3, 16, 196, 512, 512, cuda)
+    de_max = _de_max(feats, alpha, dctx, dalpha)
+    leaves = [keys, feats, u_h, v, b_v]
+    for i, t in enumerate(leaves):
+        t.requires_grad_(i != 1 or feats_grad)
+    inputs = [t for t in leaves if t.requires_grad]
+    want = torch.autograd.grad(attention_plain(*leaves), inputs,
+                               (dctx, dalpha))
+    fwd0, bwd0 = attention_fwd.launches, attention_bwd.launches
+    got = torch.autograd.grad(FusedAttention.apply(*leaves), inputs,
+                              (dctx, dalpha))
+    assert (attention_fwd.launches - fwd0, attention_bwd.launches - bwd0) \
+        == (1, 1)
+    for t, g, w in zip(inputs, got, want):
+        if t is b_v:
+            _assert_sum_close(g, w, de_max)
+        elif t is v:
+            _assert_sum_close(g, w)
+        else:
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                       atol=1e-5)
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_bank_train_step_on_the_card_matches_the_cpu(cuda, remat):
+    """One Adam step of the flagship decoder at small width, card against
+    CPU, and the attention launches of one step: T forward (2T under
+    remat, whose checkpointed steps run again in the backward) and T
+    backward."""
+    import dataclasses
+
+    from sat_tpu_torch.compat.jax_params import (decoder_from_jax,
+                                                 decoder_to_jax)
+    from sat_tpu_torch.models.decoder import DecoderConfig, init_decoder_params
+    from sat_tpu_torch.parallel.train_step import (init_train_state,
+                                                   make_bank_train_step)
+
+    cfg = DecoderConfig(vocab_size=300, encoder_dim=64, use_tf=True,
+                        use_ado=True, use_attention=True, dropout_rate=0.0)
+    cfg = dataclasses.replace(cfg, remat_scan=remat)
+    flat = init_decoder_params(cfg, torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    feat_bank = torch.rand((10, 49, 64), generator=g)
+    caps_bank = torch.randint(4, 300, (12, 9), generator=g)
+    caps_bank[:, 0] = 0
+    img_idx = torch.randint(0, 10, (6,), generator=g)
+    row_idx = torch.randint(0, 12, (6,), generator=g)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state = init_train_state(decoder_from_jax(flat, cfg, dev,
+                                                  trainable=True))
+        fwd0, bwd0 = attention_fwd.launches, attention_bwd.launches
+        state, m = make_bank_train_step(cfg, 1.0)(
+            state, feat_bank.to(dev), caps_bank.to(dev), img_idx.to(dev),
+            row_idx.to(dev), 1e-3, None)
+        out[dev] = (float(m["loss"]), decoder_to_jax(state.decoder),
+                    attention_fwd.launches - fwd0,
+                    attention_bwd.launches - bwd0)
+    T = caps_bank.shape[1] - 1
+    assert out["cpu"][2:] == (0, 0)
+    assert out["cuda"][2:] == ((2 if remat else 1) * T, T)
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    for name, w in out["cpu"][1].items():
+        np.testing.assert_allclose(out["cuda"][1][name], w, atol=3e-4,
+                                   err_msg=name)

@@ -53,6 +53,24 @@ def test_grid_is_nhwc_row_major(vgg_pair):
         np.testing.assert_array_equal(grid[l], fmap[l // 2, l % 2])
 
 
+@pytest.mark.parametrize("layout", ["nhwc", "nchw-permuted"])
+def test_grid_is_contiguous(vgg_pair, layout):
+    """Whatever memory format the convolutions pick (an NCHW-contiguous
+    input keeps it to the end), the grid comes out contiguous, as the
+    attention kernels require on the card."""
+    _, enc = vgg_pair
+    img = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(1, 3, 32, 32)).astype(np.float32))
+    nhwc = img.permute(0, 2, 3, 1)
+    x = nhwc.contiguous() if layout == "nhwc" else nhwc
+    grid = port_forward(enc, "vgg19", x)
+    assert grid.is_contiguous()
+    # the two memory formats sum the convs in other orders
+    np.testing.assert_allclose(
+        to_np(grid), to_np(port_forward(enc, "vgg19", nhwc.contiguous())),
+        rtol=1e-4, atol=1e-4)
+
+
 def test_init_params_have_sat_tpu_names_and_shapes(vgg_pair):
     params, _ = vgg_pair
     mine = port_init("vgg19", torch.Generator().manual_seed(0))

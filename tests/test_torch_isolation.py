@@ -46,12 +46,56 @@ print("ISOLATED")
 
 
 def test_cpu_slice_runs_without_jax_or_sat_tpu():
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p))
-    proc = subprocess.run([sys.executable, "-c", _SLICE], cwd=REPO, env=env,
+    proc = subprocess.run([sys.executable, "-c", _SLICE], cwd=REPO,
+                          env=_subprocess_env(),
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "ISOLATED" in proc.stdout
+
+
+# The training CLI at toy size, in a fresh interpreter, on a dataset made
+# beforehand; argv[1] is the dataset, argv[2] the checkpoint directory.
+_TRAIN = r"""
+import os
+import sys
+import torch
+from sat_tpu_torch.train import main
+
+torch.set_num_threads(1)
+data, out = sys.argv[1], sys.argv[2]
+res = main(["--data", data, "--checkpoint-dir", out, "--image-size", "32",
+            "--batch-size", "4", "--epochs", "1", "--log-interval", "1",
+            "--tf", "--ado", "--attention", "--cache-features",
+            "--device", "cpu"])
+assert os.path.exists(os.path.join(out, "model_vgg19_1.npz"))
+assert res["loss"] > 0, res
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "sat_tpu"))
+assert not bad, bad
+print("ISOLATED")
+"""
+
+
+def _subprocess_env():
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p))
+
+
+def test_training_cli_runs_without_jax_or_sat_tpu(tmp_path):
+    from sat_tpu.data import generate_json_data
+    from tests._synth import build_synth_dataset
+
+    data = str(tmp_path / "data")
+    build_synth_dataset(data, n_train=4, n_val=2, n_test=1, caps_per_img=2,
+                        image_size=32)
+    generate_json_data(f"{data}/dataset.json", data, 2, 1, 10)
+    proc = subprocess.run(
+        [sys.executable, "-c", _TRAIN, data, str(tmp_path / "model")],
+        cwd=REPO, env=_subprocess_env(), capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "ISOLATED" in proc.stdout
+    assert "Train Batch: [1/2]" in proc.stdout   # 8 rows, 4 a batch
 
 
 def _port_files():
@@ -79,6 +123,7 @@ def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA: the default device is usable")
     from sat_tpu_torch.compat.jax_params import decoder_from_jax
+    from sat_tpu_torch.config import Config
     from sat_tpu_torch.engine.serving import build_caption_step
     from sat_tpu_torch.models.decoder import (DecoderConfig,
                                               init_decoder_params)
@@ -91,3 +136,9 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         decoder_from_jax(flat, dcfg)
     assert build_parser().parse_args(["--model", "m.npz"]).device == "cuda"
+    from sat_tpu_torch.engine.loop import Trainer
+    from sat_tpu_torch.train import main
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--data", "nowhere"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(Config(data="nowhere"))

@@ -1,0 +1,171 @@
+"""The port's Trainer against sat_tpu's on the synthetic dataset of
+tests/_synth.py: both start from one decoder archive (`--model`) and one
+encoder archive (`--encoder-weights`) made by sat_tpu's initializers, run
+with dropout 0, and must log the same epoch meters and write the same
+model_config.json. The port's checkpoint loads strictly in sat_tpu and in
+the port's server. All on the CPU with the kernels' plain forms.
+
+Tolerances: losses atol 5e-5, rtol 1e-5 (tests/test_train_parity.py);
+accuracies atol 1e-3 points (a percentage over a few dozen tokens: one
+flipped token would move it by more than 1)."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from sat_tpu.config import Config as JaxConfig
+from sat_tpu.data import generate_json_data
+from sat_tpu.engine.checkpoint import load_decoder_checkpoint
+from sat_tpu.models.decoder import DecoderConfig as JaxDecoderConfig
+from sat_tpu.models.decoder import init_decoder_params as jax_init_decoder
+from sat_tpu.models.encoder import init_encoder_params as jax_init_encoder
+
+from sat_tpu_torch.config import Config
+from sat_tpu_torch.engine.loop import Trainer, step_lr
+from tests._synth import build_synth_dataset
+from tests.test_torch_common import flat
+
+SIZE = 32          # VGG19 grid 2 x 2
+
+
+@pytest.fixture(scope="module")
+def data(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("trainer_data"))
+    build_synth_dataset(root, n_train=6, n_val=3, n_test=2, caps_per_img=2,
+                        image_size=SIZE)
+    generate_json_data(f"{root}/dataset.json", root, 2, 1, 10)
+    with open(f"{root}/word_dict.json") as f:
+        vocab = len(json.load(f))
+    jcfg = JaxDecoderConfig(vocab_size=vocab, encoder_dim=512, use_tf=True,
+                            use_ado=True, use_attention=True)
+    model = os.path.join(root, "base.npz")
+    np.savez(model, **flat(jax_init_decoder(jax.random.PRNGKey(3), jcfg)))
+    enc = os.path.join(root, "vgg19.npz")
+    np.savez(enc, **flat(jax_init_encoder(jax.random.PRNGKey(4), "vgg19")))
+    return {"root": root, "model": model, "enc": enc}
+
+
+def _config_kwargs(data, out, **kw):
+    os.makedirs(out, exist_ok=True)
+    args = dict(data=data["root"], image_size=SIZE, batch_size=4, epochs=2,
+                tf=True, ado=True, attention=True, log_interval=1, seed=7,
+                lr=1e-3, step_size=1, perform_test=False, dropout_rate=0.0,
+                model=data["model"], encoder_weights=data["enc"],
+                checkpoint_dir=os.path.join(out, "model"),
+                log_jsonl=os.path.join(out, "metrics.jsonl"))
+    args.update(kw)
+    return args
+
+
+def _rows(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _assert_meters_match(got_rows, want_rows):
+    assert len(got_rows) == len(want_rows)
+    for got, want in zip(got_rows, want_rows):
+        keys = sorted(k for k in want if k in got and k != "time")
+        assert keys == sorted(k for k in got if k != "time"), (got, want)
+        for k in keys:
+            tol = (dict(atol=5e-5, rtol=1e-5) if "loss" in k
+                   else dict(atol=1e-3))
+            np.testing.assert_allclose(got[k], want[k], err_msg=k, **tol)
+
+
+def test_fit_matches_sat_tpu(data, tmp_path):
+    from sat_tpu.engine.loop import Trainer as JaxTrainer
+
+    jax_out, port_out = str(tmp_path / "jax"), str(tmp_path / "port")
+    jax_cfg = JaxConfig(**_config_kwargs(data, jax_out, cache_features=True))
+    port_cfg = Config(**_config_kwargs(data, port_out, cache_features=True))
+    JaxTrainer(jax_cfg).fit()
+    trainer = Trainer(port_cfg, device="cpu")
+    assert trainer.use_bank
+    trainer.fit()
+
+    want = [r for r in _rows(jax_cfg.log_jsonl) if "table" not in r]
+    for r in want:          # BLEU is not ported
+        for k in [k for k in r if "bleu" in k]:
+            del r[k]
+    _assert_meters_match(_rows(port_cfg.log_jsonl), want)
+    for name in ("model_config.json", "sat_config.json"):
+        with open(os.path.join(jax_cfg.checkpoint_dir, name)) as f:
+            ref = f.read()
+        with open(os.path.join(port_cfg.checkpoint_dir, name)) as f:
+            got = f.read()
+        if name == "sat_config.json":   # paths of the two runs differ
+            ref = ref.replace(jax_out, port_out)
+        assert got == ref, name
+    assert trainer.state.step == 2 * 3          # 6 rows / 4 a batch, 2 epochs
+
+
+@pytest.mark.parametrize("mode", ["host-gather", "images"])
+def test_other_feature_paths_match_the_bank(data, tmp_path, mode):
+    """Off the bank (cache over budget, or no cache at all) the port logs
+    the same meters as through its bank."""
+    extra = ({"cache_features": True, "feature_bank_hbm_gb": 0.0}
+             if mode == "host-gather" else {"cache_features": False})
+    bank = Config(**_config_kwargs(data, str(tmp_path / "bank"), epochs=1,
+                                   cache_features=True))
+    other = Config(**_config_kwargs(data, str(tmp_path / mode), epochs=1,
+                                    **extra))
+    Trainer(bank, device="cpu").fit()
+    trainer = Trainer(other, device="cpu")
+    assert not trainer.use_bank
+    trainer.fit()
+    _assert_meters_match(_rows(other.log_jsonl), _rows(bank.log_jsonl))
+
+
+def test_checkpoint_loads_in_sat_tpu_and_the_port_server(data, tmp_path):
+    from sat_tpu_torch.engine.serving import build_caption_step
+    from sat_tpu_torch.serve import load_model
+
+    cfg = Config(**_config_kwargs(data, str(tmp_path), epochs=1,
+                                  cache_features=True, dropout_rate=0.5))
+    trainer = Trainer(cfg, device="cpu")
+    trainer.fit()
+    path = os.path.join(cfg.checkpoint_dir, "model_vgg19_1.npz")
+    jcfg = JaxDecoderConfig(vocab_size=trainer.dcfg.vocab_size,
+                            encoder_dim=512, use_tf=True, use_ado=True,
+                            use_attention=True)
+    template = jax_init_decoder(jax.random.PRNGKey(0), jcfg)
+    loaded = flat(load_decoder_checkpoint(path, template, strict=True))
+    sd = trainer.state.decoder.state_dict()
+    np.testing.assert_array_equal(loaded["embedding"],
+                                  sd["embedding.weight"].numpy())
+    np.testing.assert_array_equal(loaded["lstm/w_hh"],
+                                  sd["lstm.weight_hh"].numpy().T)
+
+    _, dcfg, enc, dec, _ = load_model(path, encoder_weights=data["enc"],
+                                      device="cpu")
+    img = np.random.default_rng(0).normal(size=(1, SIZE, SIZE, 3)).astype(
+        np.float32)
+    out = build_caption_step("vgg19", dcfg, 3, device="cpu")(enc, dec, img)
+    assert out["tokens"].shape == (1, 52)
+    for name, p in dec.state_dict().items():
+        torch.testing.assert_close(p, sd[name], rtol=0, atol=0, msg=name)
+
+
+def test_step_lr_matches_sat_tpu():
+    from sat_tpu.engine.loop import step_lr as jax_step_lr
+    for epoch in range(1, 12):
+        assert step_lr(1e-3, epoch, 5) == jax_step_lr(1e-3, epoch, 5)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--bert"], ["--bert-vocab", "v.txt"], ["--mesh-data", "2"],
+    ["--mesh-model", "2"], ["--resume"], ["--keep-checkpoints", "2"],
+    ["--steps-per-dispatch", "2"], ["--bf16-attention"], ["--bf16-encoder"],
+    ["--bank-dtype", "bfloat16"], ["--perform-test"], ["--wandb"],
+    ["--profile-dir", "p"], ["--feature-cache-dir", "c"], ["--debug-nans"]],
+    ids=lambda f: f[0])
+def test_unported_training_flags_raise(flags):
+    from sat_tpu_torch.train import main
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        main(["--data", "nowhere", "--device", "cpu"] + flags)
