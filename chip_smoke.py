@@ -15,8 +15,15 @@ no result line is printed:
   2. build   — nvcc builds ops/csrc/*.cu; build seconds, ptxas report
   3. kernels — each kernel against its plain PyTorch form at the main
                path's shapes (top-k bit-exact, also on adversarial rows;
-               attention ctx atol 1e-5, alpha atol 1e-6, at R = 5 and R = 1),
-               and the times of kernel, plain form and library call
+               attention ctx atol 1e-5, alpha atol 1e-6, at R = 5 and R = 1;
+               the backward's bounds), two launches of each attention
+               kernel bit-identical, and the times of kernel, plain form
+               and library call: warm (back to back) and, for the attention
+               kernels, cold (a 128 MB write before each call evicts the
+               L2), each beside its bound; the forward at the beam's
+               R = 5, B = 128, training's R = 1, B = 64 and greedy's R = 1,
+               B = 128; the issue time of the precise tanhf, counted from
+               cuobjdump's SASS of a probe kernel
   4. main    — the worst case (stop-token logits pinned to -1e9, so every
                beam runs all 51 steps) through build_caption_step; every
                kernel's launch count in that run; encoder and decode times
@@ -109,18 +116,35 @@ def read_launches() -> dict:
             "attention_bwd": attention_bwd.launches}
 
 
-def time_ms(fn, clock_hz: float, reps: int = 100, warmup: int = 10) -> float:
+_SCRATCH = []
+
+
+def evict_l2() -> None:
+    """Write 128 MB, more than twice the card's 50 MB L2, so that the next
+    call reads its inputs from device memory."""
+    import torch
+    if not _SCRATCH:
+        _SCRATCH.append(torch.empty(32 * 2 ** 20, device="cuda"))
+    _SCRATCH[0].zero_()
+
+
+def time_ms(fn, clock_hz: float, reps: int = 100, warmup: int = 10,
+            cold: bool = False) -> float:
     """Median device time of one call of `fn`: `reps` calls after `warmup`,
     each between a pair of CUDA events. A sleep kernel queued first keeps
     the device behind the host while the calls are enqueued, so each pair
     brackets the call's kernels and not the host's time to launch them
-    (which, for a kernel of some microseconds, is the longer)."""
+    (which, for a kernel of some microseconds, is the longer). `cold`
+    evicts the L2 before each call, outside its pair of events."""
     import torch
+    pre = evict_l2 if cold else (lambda: None)
     for _ in range(warmup):
+        pre()
         fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
+        pre()
         fn()
     enqueue_s = time.perf_counter() - t0
     torch.cuda.synchronize()
@@ -128,11 +152,61 @@ def time_ms(fn, clock_hz: float, reps: int = 100, warmup: int = 10) -> float:
                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     torch.cuda._sleep(int(2 * enqueue_s * clock_hz))
     for start, end in events:
+        pre()
         start.record()
         fn()
         end.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+TANH_PROBE = r"""
+extern "C" __global__ void probe(const float* x, float* y) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  y[i] = %s;
+}
+"""
+
+
+def tanhf_instructions() -> dict:
+    """SASS instructions of one precise tanhf on sm_90a: a probe kernel
+    y[i] = tanhf(x[i]) less the same kernel with y[i] = x[i], both built
+    by nvcc as the kernels are (-O3) and listed by cuobjdump -sass; NOPs
+    are not counted."""
+    import re
+
+    from sat_tpu_torch.ops import _kernels
+    try:
+        nvcc = _kernels.nvcc_path()
+        cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+        counts = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            for name, expr in (("tanhf", "tanhf(x[i])"), ("copy", "x[i]")):
+                src = os.path.join(tmp, f"{name}.cu")
+                with open(src, "w") as f:
+                    f.write(TANH_PROBE % expr)
+                cubin = os.path.join(tmp, f"{name}.cubin")
+                subprocess.run([nvcc, *_kernels.ARCH_FLAGS, "-O3", "-cubin",
+                                "-o", cubin, src], check=True,
+                               capture_output=True, timeout=120)
+                sass = subprocess.run([cuobjdump, "-sass", cubin], check=True,
+                                      capture_output=True, text=True,
+                                      timeout=60).stdout
+                ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+([^;]+);", sass)
+                counts[name] = sum(1 for op in ops
+                                   if not op.split()[0].startswith("NOP"))
+    except (OSError, RuntimeError, subprocess.SubprocessError) as err:
+        return {"instructions": None, "error": f"not measured: {err}"}
+    return {"instructions": counts["tanhf"] - counts["copy"],
+            "probe_instructions": counts}
+
+
+def shares(row: dict) -> dict:
+    """bound_ms over the warm and the cold time."""
+    out = {"bound_share": row["bound_ms"] / row["ms"]}
+    if row.get("cold_ms"):
+        out["bound_share_cold"] = row["bound_ms"] / row["cold_ms"]
+    return out
 
 
 # ------------------------------------------------------------------ phases
@@ -227,17 +301,18 @@ def phase_kernels(dev, gen) -> list[dict]:
         "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
 
+    rows[-1].update(shares(rows[-1]))
+
     # ---- fused attention forward, R = BEAM (dedup beam) and R = 1
-    errs = {}
+    tanh_instr = tanhf_instructions()
+    # issue slots: 4 warp schedulers of 32 lanes on each SM, a clock each
+    issue_s = 128 * dev["sms"] * hz
+    errs, determinism, variants = {}, {}, {}
     for R in (BEAM, 1):
-        keys = torch.randn((B, L, E), generator=gen).cuda()
-        feats = torch.rand((B, L, D), generator=gen).cuda()
-        u_h = torch.randn((B * R, E), generator=gen).cuda()
-        v = (torch.randn((E,), generator=gen) / E ** 0.5).cuda()
-        b_v = torch.randn((1,), generator=gen).cuda()
-        args = (keys, feats, u_h, v, b_v, R)
+        args = fwd_inputs(gen, B, R)
         ctx, alpha = attention_fwd(*args)
         pctx, palpha = attention_plain(*args)
+        again = attention_fwd(*args)
         torch.cuda.synchronize()
         e_ctx = (ctx - pctx).abs().max().item()
         e_alpha = (alpha - palpha).abs().max().item()
@@ -245,57 +320,101 @@ def phase_kernels(dev, gen) -> list[dict]:
         check(e_ctx <= 1e-5, f"attention R={R}: ctx max err {e_ctx} > 1e-5")
         check(e_alpha <= 1e-6,
               f"attention R={R}: alpha max err {e_alpha} > 1e-6")
-        if R == BEAM:
-            timed = args
-    bytes_ = 4 * (B * L * (E + D) + B * BEAM * (E + D + L) + E + 1)
-    tanh = B * BEAM * L * E
-    flops = 2 * tanh + 2 * B * BEAM * L * D     # score add+fma, context fma
-    t_bytes = bytes_ / peaks["bytes_s"]
-    # The bound takes the published f32 rate; the special-function units'
-    # time for the tanh and exp (16 results per SM a clock) is reported
-    # beside it, since it is the nearer limit after the bytes.
-    t_ops = flops / peaks["f32_s"]
+        determinism[R] = all(map(torch.equal, (ctx, alpha), again))
+        check(determinism[R], f"attention R={R}: two launches differ")
+    for key, Bx, R in (("r5_b128", B, BEAM), ("r1_b64", TRAIN_B, 1),
+                       ("r1_b128", B, 1)):
+        args = fwd_inputs(gen, Bx, R)
+        parts = fwd_bound_parts(Bx, R, peaks, sfu_s)
+        if tanh_instr["instructions"]:
+            parts["tanhf_instr"] = (Bx * R * L * E * tanh_instr["instructions"]
+                                    / issue_s * 1e3)
+        t_bytes, t_ops = parts["bytes"], parts["f32"]
+        var = {"shape": f"keys/feats ({Bx}, {L}, {E}), u_h ({Bx * R}, {E}), "
+                        f"R={R}",
+               "ms": time_ms(lambda: attention_fwd(*args), hz),
+               "cold_ms": time_ms(lambda: attention_fwd(*args), hz,
+                                  cold=True),
+               "plain_ms": time_ms(lambda: attention_plain(*args), hz),
+               **stream_ms(lambda: (args[0].sum(), args[1].sum()), hz),
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bound_parts_ms": parts}
+        var.update(shares(var))
+        variants[key] = var
+    main_fwd = variants["r5_b128"]
     rows.append({
         "name": "attention_fwd", "route": "cuda",
         "source": "sat_tpu_torch/ops/csrc/attention_fwd.cu",
         "replaces": "sat_tpu/ops/fused_attention.py:42",
-        "shape": f"keys/feats ({B}, {L}, {E}), u_h ({B * BEAM}, {E}), "
-                 f"R={BEAM}",
+        "shape": main_fwd["shape"],
         "max_abs_err": max(max(e.values()) for e in errs.values()),
-        "errors_by_R": errs,
-        "ms": time_ms(lambda: attention_fwd(*timed), hz),
-        "plain_ms": time_ms(lambda: attention_plain(*timed), hz),
-        "library_ms": None,
-        "bound_ms": max(t_bytes, t_ops) * 1e3,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bound_parts_ms": {"bytes": t_bytes * 1e3,
-                           "f32": flops / peaks["f32_s"] * 1e3,
-                           "sfu": (tanh + B * BEAM * L) / sfu_s * 1e3}})
-    rows.append(attention_bwd_row(peaks, sfu_s, hz, gen))
+        "errors_by_R": errs, "bit_identical_by_R": determinism,
+        "library_ms": None, "tanhf": tanh_instr, "variants": variants,
+        **{k: main_fwd[k] for k in ("ms", "cold_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "bound_parts_ms",
+                                    "bound_share", "bound_share_cold")}})
+    rows.append(attention_bwd_row(peaks, sfu_s, issue_s, tanh_instr, hz, gen))
+    _SCRATCH.clear()          # the later phases' peak memory excludes it
     emit({"phase": "kernels", "peaks": peaks,
           "checks": {"topk": "bit-exact on random and adversarial rows",
                      "attention_fwd": errs,
-                     "attention_bwd": rows[-1]["errors"]},
-          "ms": {r["name"]: r["ms"] for r in rows}})
+                     "attention_fwd_bit_identical": determinism,
+                     "attention_bwd": rows[-1]["errors"],
+                     "attention_bwd_bit_identical": True},
+          "tanhf_instructions": tanh_instr["instructions"],
+          "ms": {r["name"]: r["ms"] for r in rows},
+          "cold_ms": {r["name"]: r.get("cold_ms") for r in rows},
+          "attention_fwd_ms": {k: (v["ms"], v["cold_ms"], v["stream_ms"],
+                                   v["stream_cold_ms"])
+                               for k, v in variants.items()}})
     return rows
 
 
-def attention_bwd_row(peaks, sfu_s, hz, gen) -> dict:
+def stream_ms(fn, hz) -> dict:
+    """A yardstick beside the bound: the time PyTorch takes to move the
+    kernel's main bytes once (a sum reads a tensor, a copy reads one and
+    writes one), warm and cold."""
+    return {"stream_ms": time_ms(fn, hz),
+            "stream_cold_ms": time_ms(fn, hz, cold=True)}
+
+
+def fwd_inputs(gen, Bx: int, R: int):
+    """attention_fwd's arguments at the main path's widths, on the card."""
+    import torch
+    keys = torch.randn((Bx, L, E), generator=gen).cuda()
+    feats = torch.rand((Bx, L, D), generator=gen).cuda()
+    u_h = torch.randn((Bx * R, E), generator=gen).cuda()
+    v = (torch.randn((E,), generator=gen) / E ** 0.5).cuda()
+    b_v = torch.randn((1,), generator=gen).cuda()
+    return keys, feats, u_h, v, b_v, R
+
+
+def fwd_bound_parts(Bx: int, R: int, peaks, sfu_s) -> dict:
+    """The forward's least times in ms: its bytes (inputs read once,
+    outputs written once) over the memory rate, its f32 operations (score
+    add and multiply-add, context multiply-add) over the f32 rate, and,
+    beside them, its tanh and exp over the special-function units (16
+    results per SM a clock)."""
+    bytes_ = 4 * (Bx * L * (E + D) + Bx * R * (E + D + L) + E + 1)
+    tanh = Bx * R * L * E
+    flops = 2 * tanh + 2 * Bx * R * L * D
+    return {"bytes": bytes_ / peaks["bytes_s"] * 1e3,
+            "f32": flops / peaks["f32_s"] * 1e3,
+            "sfu": (tanh + Bx * R * L) / sfu_s * 1e3}
+
+
+def attention_bwd_row(peaks, sfu_s, issue_s, tanh_instr, hz, gen) -> dict:
     """The backward kernel at the training shape (B = 64, R = 1) against
-    its plain form, with dfeats asked and not; its times (the main path
-    does not ask for dfeats: bank features need no gradient) and bound;
-    the forward at R = 1 at the same shape."""
+    its plain form, with dfeats asked and not, and two launches against
+    each other; its times, warm and cold (the main path does not ask for
+    dfeats: bank features need no gradient), and bound."""
     import torch
     from sat_tpu_torch.ops.fused_attention import (attention_bwd,
                                                    attention_bwd_plain,
-                                                   attention_fwd,
                                                    attention_plain)
     Bt = TRAIN_B
-    keys = torch.randn((Bt, L, E), generator=gen).cuda()
-    feats = torch.rand((Bt, L, D), generator=gen).cuda()
-    u_h = torch.randn((Bt, E), generator=gen).cuda()
-    v = (torch.randn((E,), generator=gen) / E ** 0.5).cuda()
-    b_v = torch.randn((1,), generator=gen).cuda()
+    keys, feats, u_h, v, b_v, _ = fwd_inputs(gen, Bt, 1)
     dctx = torch.randn((Bt, D), generator=gen).cuda()
     dalpha = torch.randn((Bt, L), generator=gen).cuda()
     _, alpha = attention_plain(keys, feats, u_h, v, b_v)
@@ -306,9 +425,13 @@ def attention_bwd_row(peaks, sfu_s, hz, gen) -> dict:
     for want in (True, False):
         got = attention_bwd(*args, want_dfeats=want)
         ref = attention_bwd_plain(*args, want_dfeats=want)
+        again = attention_bwd(*args, want_dfeats=want)
         torch.cuda.synchronize()
         check((got[1] is None) == (not want), "attention_bwd: dfeats "
               f"returned {got[1] is not None}, asked {want}")
+        check(all(a is None and b is None or torch.equal(a, b)
+                  for a, b in zip(got, again)),
+              f"attention_bwd (dfeats {want}): two launches differ")
         err = {}
         for name, a, b in zip(("dkeys", "dfeats", "du_h"), got, ref):
             if b is None:
@@ -336,17 +459,19 @@ def attention_bwd_row(peaks, sfu_s, hz, gen) -> dict:
         # and the dv multiply-add; per (b, l, d): the g multiply-add, and
         # the dfeats product when asked
         flops = 8 * n_le + (3 if with_dfeats else 2) * n_ld
-        return {"bytes": bytes_ / peaks["bytes_s"] * 1e3,
-                "f32": flops / peaks["f32_s"] * 1e3,
-                "sfu": n_le / sfu_s * 1e3}
+        out = {"bytes": bytes_ / peaks["bytes_s"] * 1e3,
+               "f32": flops / peaks["f32_s"] * 1e3,
+               "sfu": n_le / sfu_s * 1e3}
+        if tanh_instr["instructions"]:
+            out["tanhf_instr"] = (n_le * tanh_instr["instructions"] / issue_s
+                                  * 1e3)
+        return out
 
     main_parts, dfeats_parts = parts(False), parts(True)
+    dkeys_like = torch.empty_like(keys)
     bound_by = ("bytes" if main_parts["bytes"] >= main_parts["f32"]
                 else "operations")
-    fwd = (keys, feats, u_h, v, b_v, 1)
-    fwd_bytes = 4 * (Bt * L * (E + D) + Bt * (E + D + L) + E + 1)
-    fwd_flops = 2 * Bt * L * E + 2 * Bt * L * D
-    return {
+    row = {
         "name": "attention_bwd", "route": "cuda",
         "source": "sat_tpu_torch/ops/csrc/attention_bwd.cu",
         "replaces": "sat_tpu/ops/fused_attention.py:107",
@@ -354,24 +479,21 @@ def attention_bwd_row(peaks, sfu_s, hz, gen) -> dict:
         "max_abs_err": max(max(e.values()) for e in errors.values()),
         "errors": errors,
         "ms": time_ms(lambda: attention_bwd(*args, want_dfeats=False), hz),
+        "cold_ms": time_ms(lambda: attention_bwd(*args, want_dfeats=False),
+                           hz, cold=True),
         "plain_ms": time_ms(
             lambda: attention_bwd_plain(*args, want_dfeats=False), hz),
+        **stream_ms(lambda: (dkeys_like.copy_(keys), feats.sum()), hz),
         "library_ms": None,
         "bound_ms": max(main_parts["bytes"], main_parts["f32"]),
         "bound_by": bound_by, "bound_parts_ms": main_parts,
         "with_dfeats": {
             "ms": time_ms(lambda: attention_bwd(*args), hz),
+            "cold_ms": time_ms(lambda: attention_bwd(*args), hz, cold=True),
             "bound_ms": max(dfeats_parts["bytes"], dfeats_parts["f32"]),
-            "bound_parts_ms": dfeats_parts},
-        "forward_r1": {
-            "ms": time_ms(lambda: attention_fwd(*fwd), hz),
-            "plain_ms": time_ms(lambda: attention_plain(*fwd), hz),
-            "bound_ms": max(fwd_bytes / peaks["bytes_s"],
-                            fwd_flops / peaks["f32_s"]) * 1e3,
-            "bound_parts_ms": {
-                "bytes": fwd_bytes / peaks["bytes_s"] * 1e3,
-                "f32": fwd_flops / peaks["f32_s"] * 1e3,
-                "sfu": (Bt * L * E + Bt * L) / sfu_s * 1e3}}}
+            "bound_parts_ms": dfeats_parts}}
+    row.update(shares(row))
+    return row
 
 
 def make_weights(seed: int):
@@ -513,10 +635,11 @@ def phase_main(dcfg, dec_flat, worst_flat, enc_flat, images) -> dict:
 
 def profile_run(fn, top: int = 10) -> dict:
     """One run of `fn` under torch.profiler: device time by kernel (and
-    copy) name, the device's busy share of the wall time, and the run's
-    host-clock wall time (the profiler's own cost included). Only device
-    events count: a host op such as aten::addmm also reports its kernels'
-    time, which would count them twice."""
+    copy) name, the device's busy share of the wall time, the run's
+    host-clock wall time (the profiler's own cost included), and the
+    device calls of each attention kernel. Only device events count: a
+    host op such as aten::addmm also reports its kernels' time, which
+    would count them twice."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -541,8 +664,11 @@ def profile_run(fn, top: int = 10) -> dict:
     if not rows:
         return {"device_time": "not measured: the profiler saw no device "
                                "events"}
+    kernel_calls = {name: sum(n for k, _, n in rows if name in k)
+                     for name in ("attention_fwd", "attention_bwd")}
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / wall_us,
+            "kernel_calls": kernel_calls,
             "top": [{"name": k[:90], "ms": us / 1e3, "calls": n,
                      "share_of_busy": us / busy_us}
                     for k, us, n in rows[:top]]}
@@ -756,8 +882,16 @@ def phase_train(seed: int) -> dict:
         t["mean_ms"] = statistics.mean(t["ms_per_step"])
         t["rows_per_s"] = TRAIN_B * 1e3 / t["mean_ms"]
 
-    # (d) one default step under the profiler
+    # (d) one default step under the profiler: each wrapper launch is one
+    # attention kernel on the device
+    reset_launches()
     profile = profile_run(lambda: run("remat", 1))
+    if "kernel_calls" in profile:
+        counted = read_launches()
+        check(all(profile["kernel_calls"][k] == counted[k]
+                  for k in profile["kernel_calls"]),
+              f"train: the profile shows attention kernels "
+              f"{profile['kernel_calls']}, the wrappers counted {counted}")
 
     # (e) 20 steps on one batch lower the loss
     state = init_train_state(decoder_from_jax(flat, dcfg, "cuda",
@@ -884,9 +1018,10 @@ def main():
         row["launches"] = (train["launches"]["remat"] if row["name"]
                            == "attention_bwd" else main_res["launches"])[
             row["name"]]
-    summary = {"kernels": [{k: row[k] for k in (
+    summary = {"kernels": [{k: row.get(k) for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "bound_share", "cold_ms")}
         for row in kernels]}
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:

@@ -16,33 +16,56 @@
 // atomics, so a run gives the same bits every time. (The TPU kernel's
 // (8, 128)-padded partials are a Mosaic tiling artefact and are not kept.)
 //
-// Bound: at the training shape (64 images, L = 196, E = D = 512) the kernel
-// must read keys and feats (25.7 MB each) and write dkeys (25.7 MB), plus
-// dfeats (25.7 MB) when asked: 77 MB, 23 us at 3.35 TB/s, or 103 MB, 31 us.
-// The special-function work is one tanh per (b, l, e): 6.4 M. Eager
-// PyTorch's autograd of the plain attention would instead save the (B, L, E)
-// tanh in the forward and read it back here. Design: one block per image.
-// Pass 1, a warp per feature row, computes g (and writes dfeats) reading
-// each row once; warp 0 then forms de in shared memory; pass 2 gives each
-// thread a column e, walks l in order with the key column read coalesced
-// across the block, recomputes the tanh in registers, writes dkeys and keeps
-// du_h and dv in registers, so both are written once with no reduction
-// across threads. 64 blocks fill 64 of the card's 132 SMs.
-// tanhf (not the approximate intrinsic) matches the forward kernel and the
-// plain form to float rounding.
+// Bound on the H100 (3.35 TB/s): at the training shape (64 images,
+// L = 196, E = D = 512) the kernel must read keys and feats (25.7 MB each)
+// and write dkeys (25.7 MB), plus dfeats (25.7 MB) when asked: 77 MB,
+// 23 us, or 103 MB, 31 us. The tanh is one per (b, l, e), 6.4 M, a few us
+// of issue slots. Eager PyTorch's autograd of the plain attention would
+// instead save the (B, L, E) tanh in the forward and read it back here.
+//
+// Design (attention_common.cuh): one cluster of kCluster = 8 blocks per
+// image, block `rank` owning a contiguous chunk of ceil(L / 8) rows, whose
+// feature tiles and then key tiles stream through a ring of bulk copies.
+// Pass 1, a warp per staged feature row: g for the block's rows; dfeats
+// (when asked) is written with float4 stores. The softmax VJP needs
+// sum_l alpha g over the whole image: each block's share is exchanged
+// through distributed shared memory and added in rank order. Pass 2,
+// threads across E (float4): the tanh is recomputed in registers from the
+// staged key tile, dkeys written with float4 stores, and du_h and dv
+// summed over the block's rows in order, in shared memory; then
+// each block owns E / 8 columns and adds the cluster's 8 partials in rank
+// order. du_h is final; dv and db_v leave one partial per image. One
+// launch, no device scratch. tanhf (not the approximate intrinsic) matches
+// the forward kernel and the plain form to float rounding.
 
-#include <cuda_runtime.h>
+#include "attention_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
+using namespace sat_attention;
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
+// Shared-memory layout, computed once on the host and passed by value.
+struct BwdLayout {
+  int chunk;        // rows per block: ceil(L / kCluster)
+  int tf, tk;       // rows per feature tile (a warp each) and per key tile
+  int slot_floats;  // floats per ring slot
+  size_t dctx, u, v, alpha, g, acc, red, bytes;
+
+  BwdLayout(int L, int E, int D) {
+    chunk = ceil_div(L, kCluster);
+    tf = clamp_int(kSlotBytes / (4 * D), 1, kWarps < chunk ? kWarps : chunk);
+    tk = clamp_int(kSlotBytes / (4 * E), 1, chunk);
+    slot_floats = tk * E > tf * D ? tk * E : tf * D;
+    dctx = kBarrierBytes + static_cast<size_t>(kStages) * slot_floats * 4;
+    u = dctx + floats16(D);
+    v = u + floats16(E);
+    alpha = v + floats16(E);
+    g = alpha + floats16(chunk);
+    acc = g + floats16(chunk);  // (2, E): du, then dv
+    red = acc + floats16(2 * static_cast<size_t>(E));
+    bytes = red + floats16(2);
+  }
+};
 
 __global__ void __launch_bounds__(kThreads)
 attention_bwd(const float* __restrict__ keys, const float* __restrict__ feats,
@@ -51,86 +74,157 @@ attention_bwd(const float* __restrict__ keys, const float* __restrict__ feats,
               const float* __restrict__ dalpha, float* __restrict__ dkeys,
               float* __restrict__ dfeats, float* __restrict__ du_h,
               float* __restrict__ dv_part, float* __restrict__ dbv_part, int L,
-              int E, int D) {
-  extern __shared__ float smem[];
-  float* s_dctx = smem;        // (D,)
-  float* s_alpha = s_dctx + D; // (L,)
-  float* s_g = s_alpha + L;    // (L,) g, then de
+              int E, int D, BwdLayout lay) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  Ring ring(smem, lay.slot_floats);
+  float* s_dctx = reinterpret_cast<float*>(smem + lay.dctx);
+  float* s_u = reinterpret_cast<float*>(smem + lay.u);
+  float* s_v = reinterpret_cast<float*>(smem + lay.v);
+  float* s_alpha = reinterpret_cast<float*>(smem + lay.alpha);
+  float* s_g = reinterpret_cast<float*>(smem + lay.g);  // g, then de
+  float4* s_du = reinterpret_cast<float4*>(smem + lay.acc);
+  float4* s_dv = s_du + E / 4;
+  float* s_red = reinterpret_cast<float*>(smem + lay.red);  // sum alpha g, sum de
 
-  const int b = blockIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const size_t grid_off = static_cast<size_t>(b) * L;
+  const int rank = cluster_rank();
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const Chunk own(rank, lay.chunk, L);
+  const int nf = ceil_div(own.n, lay.tf);
+  const int ntiles = nf + ceil_div(own.n, lay.tk);
+  const int E4 = E / 4, D4 = D / 4;
+  const size_t grid0 = static_cast<size_t>(b) * L + own.l0;  // first own row
 
-  for (int i = threadIdx.x; i < D; i += kThreads)
-    s_dctx[i] = dctx[static_cast<size_t>(b) * D + i];
-  for (int i = threadIdx.x; i < L; i += kThreads) s_alpha[i] = alpha[grid_off + i];
+  auto issue = [&](int t) {  // thread 0: tile t, features then keys
+    const bool feat = t < nf;
+    const int i0 = feat ? t * lay.tf : (t - nf) * lay.tk;
+    const int width = feat ? D : E;
+    const int rows = min(feat ? lay.tf : lay.tk, own.n - i0);
+    ring.load(t, (feat ? feats : keys) + (grid0 + i0) * width,
+              static_cast<uint32_t>(rows) * width * 4);
+  };
+
+  if (tid == 0) ring.init();
   __syncthreads();
-
-  // Pass 1: g[l] = feats[l] . dctx + dalpha[l]; dfeats[l] = alpha[l] dctx.
-  for (int l = warp; l < L; l += kWarps) {
-    const float* frow = feats + (grid_off + l) * D;
-    const float a = s_alpha[l];
-    float acc = 0.f;
-    if (dfeats != nullptr) {
-      float* drow = dfeats + (grid_off + l) * D;
-      for (int d = lane; d < D; d += 32) {
-        acc += frow[d] * s_dctx[d];
-        drow[d] = a * s_dctx[d];
-      }
-    } else {
-      for (int d = lane; d < D; d += 32) acc += frow[d] * s_dctx[d];
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) s_g[l] = acc + dalpha[grid_off + l];
+  if (tid == 0)
+    for (int t = 0; t < min(kStages, ntiles); ++t) issue(t);
+  for (int i = tid; i < D; i += kThreads) s_dctx[i] = dctx[static_cast<size_t>(b) * D + i];
+  for (int i = tid; i < E; i += kThreads) {
+    s_u[i] = u_h[static_cast<size_t>(b) * E + i];
+    s_v[i] = v[i];
   }
+  for (int i = tid; i < own.n; i += kThreads) s_alpha[i] = alpha[grid0 + i];
+  for (int i = tid; i < 2 * E4; i += kThreads)
+    s_du[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();
 
-  // Softmax VJP in warp 0: de[l] = alpha[l] (g[l] - sum_l alpha g).
+  // dfeats = alpha dctx for this block's rows, while the first tiles land.
+  const float4* dctx4 = reinterpret_cast<const float4*>(s_dctx);
+  if (dfeats != nullptr) {
+    float4* out = reinterpret_cast<float4*>(dfeats) + grid0 * D4;
+    for (int i = tid; i < own.n * D4; i += kThreads) {
+      const float a = s_alpha[i / D4];
+      const float4 d = dctx4[i % D4];
+      out[i] = make_float4(a * d.x, a * d.y, a * d.z, a * d.w);
+    }
+  }
+
+  // Pass 1: g[l] = feats[l] . dctx + dalpha[l], a warp per feature row.
+  for (int t = 0; t < nf; ++t) {
+    const float4* tile = reinterpret_cast<const float4*>(ring.wait(t));
+    const int i0 = t * lay.tf, rows = min(lay.tf, own.n - i0);
+    for (int i = warp; i < rows; i += kWarps) {
+      const float4* frow = tile + static_cast<size_t>(i) * D4;
+      float acc = 0.f;
+      for (int c = lane; c < D4; c += 32) {
+        const float4 f = frow[c], d = dctx4[c];
+        acc = fmaf(f.x, d.x, acc);
+        acc = fmaf(f.y, d.y, acc);
+        acc = fmaf(f.z, d.z, acc);
+        acc = fmaf(f.w, d.w, acc);
+      }
+      acc = warp_sum(acc);
+      if (lane == 0) s_g[i0 + i] = acc + dalpha[grid0 + i0 + i];
+    }
+    __syncthreads();
+    if (tid == 0 && t + kStages < ntiles) issue(t + kStages);
+  }
+
+  // Softmax VJP: sum_l alpha g over the image, across the cluster.
   if (warp == 0) {
     float s = 0.f;
-    for (int l = lane; l < L; l += 32) s += s_alpha[l] * s_g[l];
+    for (int i = lane; i < own.n; i += 32) s += s_alpha[i] * s_g[i];
     s = warp_sum(s);
-    float total = 0.f;
-    for (int l = lane; l < L; l += 32) {
-      const float de = s_alpha[l] * (s_g[l] - s);
-      s_g[l] = de;
-      total += de;
+    if (lane == 0) s_red[0] = s;
+  }
+  cluster_sync();
+  if (warp == 0) {
+    const float total = cluster_sum(s_red);
+    float sum_de = 0.f;
+    for (int i = lane; i < own.n; i += 32) {
+      const float de = s_alpha[i] * (s_g[i] - total);
+      s_g[i] = de;
+      sum_de += de;
     }
-    total = warp_sum(total);
-    if (lane == 0) dbv_part[b] = total;
+    sum_de = warp_sum(sum_de);
+    if (lane == 0) s_red[1] = sum_de;
   }
   __syncthreads();
 
-  // Pass 2: a thread per column e, l in order.
-  const float* kcol = keys + grid_off * E;
-  float* dkcol = dkeys + grid_off * E;
-  for (int e = threadIdx.x; e < E; e += kThreads) {
-    const float u = u_h[static_cast<size_t>(b) * E + e];
-    const float ve = v[e];
-    float du = 0.f, dv = 0.f;
-#pragma unroll 4
-    for (int l = 0; l < L; ++l) {
-      const size_t i = static_cast<size_t>(l) * E + e;
-      const float att = tanhf(kcol[i] + u);
-      const float de = s_g[l];
-      const float dpre = (de * ve) * (1.f - att * att);
-      dkcol[i] = dpre;
-      du += dpre;
-      dv += att * de;
+  // Pass 2: a thread per column group c, the tile's rows in order; the du
+  // and dv sums stay in shared memory from tile to tile.
+  const float4* u4 = reinterpret_cast<const float4*>(s_u);
+  const float4* v4 = reinterpret_cast<const float4*>(s_v);
+  float4* dk = reinterpret_cast<float4*>(dkeys) + grid0 * E4;
+  for (int t = nf; t < ntiles; ++t) {
+    const float4* tile = reinterpret_cast<const float4*>(ring.wait(t));
+    const int i0 = (t - nf) * lay.tk, rows = min(lay.tk, own.n - i0);
+    for (int c = tid; c < E4; c += kThreads) {
+      const float4 u = u4[c], w = v4[c];
+      float4 du = s_du[c], dv = s_dv[c];
+      for (int i = 0; i < rows; ++i) {
+        const float4 k = tile[static_cast<size_t>(i) * E4 + c];
+        const float de = s_g[i0 + i];
+        const float ax = tanhf(k.x + u.x), ay = tanhf(k.y + u.y);
+        const float az = tanhf(k.z + u.z), aw = tanhf(k.w + u.w);
+        const float4 dp = make_float4((de * w.x) * (1.f - ax * ax),
+                                      (de * w.y) * (1.f - ay * ay),
+                                      (de * w.z) * (1.f - az * az),
+                                      (de * w.w) * (1.f - aw * aw));
+        dk[static_cast<size_t>(i0 + i) * E4 + c] = dp;
+        add4(du, dp);
+        add4(dv, make_float4(ax * de, ay * de, az * de, aw * de));
+      }
+      s_du[c] = du;
+      s_dv[c] = dv;
     }
-    du_h[static_cast<size_t>(b) * E + e] = du;
-    dv_part[static_cast<size_t>(b) * E + e] = dv;
+    __syncthreads();
+    if (tid == 0 && t + kStages < ntiles) issue(t + kStages);
   }
+
+  // The cluster's partials in rank order: this block writes its E4 / 8
+  // column groups of du_h and dv_part; rank 0 writes dbv_part.
+  cluster_sync();
+  const int per = ceil_div(E4, kCluster);
+  const int c0 = min(E4, rank * per), nc = min(E4, c0 + per) - c0;
+  float4* du_out = reinterpret_cast<float4*>(du_h) + static_cast<size_t>(b) * E4;
+  float4* dv_out = reinterpret_cast<float4*>(dv_part) + static_cast<size_t>(b) * E4;
+  for (int c = c0 + tid; c < c0 + nc; c += kThreads) {
+    du_out[c] = cluster_sum4(s_du + c);
+    dv_out[c] = cluster_sum4(s_dv + c);
+  }
+  if (rank == 0 && tid == 0) dbv_part[b] = cluster_sum(s_red + 1);
+  cluster_sync();  // no block leaves while another reads its shared memory
 }
 
 }  // namespace
 
 // keys (B, L, E), feats (B, L, D), u_h (B, E), v (E,), alpha (B, L),
-// dctx (B, D), dalpha (B, L), all f32 contiguous -> dkeys (B, L, E),
-// dfeats (B, L, D) unless it is null, du_h (B, E), dv_part (B, E),
-// dbv_part (B,). Needs B >= 1. Returns the CUDA error of the attribute call
-// or of the launch.
+// dctx (B, D), dalpha (B, L), all f32 contiguous, keys and feats 16-byte
+// aligned, E and D multiples of 4 -> dkeys (B, L, E), dfeats (B, L, D)
+// unless it is null, du_h (B, E), dv_part (B, E), dbv_part (B,), the
+// outputs 16-byte aligned. Needs B >= 1. One kernel launch; returns the
+// CUDA error of the placement check or of the launch.
 extern "C" int sat_attention_bwd_f32(const float* keys, const float* feats,
                                      const float* u_h, const float* v,
                                      const float* alpha, const float* dctx,
@@ -138,15 +232,10 @@ extern "C" int sat_attention_bwd_f32(const float* keys, const float* feats,
                                      float* dfeats, float* du_h, float* dv_part,
                                      float* dbv_part, int images, int L, int E,
                                      int D, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (static_cast<size_t>(D) + 2 * L);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        attention_bwd, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  attention_bwd<<<images, kThreads, smem, stream>>>(
-      keys, feats, u_h, v, alpha, dctx, dalpha, dkeys, dfeats, du_h, dv_part,
-      dbv_part, L, E, D);
-  return static_cast<int>(cudaGetLastError());
+  if (E % 4 != 0 || D % 4 != 0 || images < 1 || L < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BwdLayout lay(L, E, D);
+  return launch_clusters(attention_bwd, images, lay.bytes, stream, keys, feats,
+                         u_h, v, alpha, dctx, dalpha, dkeys, dfeats, du_h,
+                         dv_part, dbv_part, L, E, D, lay);
 }

@@ -1,0 +1,283 @@
+// Shared pieces of the two attention kernels (attention_fwd.cu,
+// attention_bwd.cu): warp reductions, the ring of shared-memory tiles that
+// one-dimensional bulk copies (cp.async.bulk) fill and mbarriers complete,
+// and the launch of one thread-block cluster per image.
+//
+// Both kernels split an image's L rows across the kCluster blocks of its
+// cluster: block `rank` owns the contiguous rows [rank * chunk, ...) with
+// chunk = ceil(L / kCluster), which may be empty when L < kCluster. The
+// rows of one image are contiguous in memory, so a tile of them is one
+// bulk copy of rows * width * 4 bytes: no tensor map is needed. Sums that
+// cross the cluster go through distributed shared memory, always in rank
+// order, so every run gives the same bits and no scratch in device memory
+// or second kernel is needed.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstddef>
+#include <cstdint>
+#include <mutex>
+#include <utility>
+#include <vector>
+
+namespace sat_attention {
+
+// Chosen on the H100 at the main path's shapes (E = D = 512): small
+// blocks with a small ring keep 4-5 blocks on each SM, and a 4-row tile
+// gives each of the 4 warps one key row to score. Larger rings (up to
+// 4 x 16 KB) or 256 threads were slower: fewer blocks fit an SM.
+constexpr int kCluster = 8;            // blocks per image (portable maximum)
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kStages = 2;             // ring slots, each one bulk copy
+constexpr int kSlotBytes = 8 * 1024;   // a slot's size unless one row is wider
+constexpr int kBarrierBytes = 128;     // the kStages mbarriers, padded
+
+__host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ inline int clamp_int(int x, int lo, int hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+__host__ __device__ inline size_t floats16(size_t n) {  // n floats, 16-byte padded
+  return (4 * n + 15) & ~static_cast<size_t>(15);
+}
+
+// The rows of an image that block `rank` of its cluster owns: [l0, l0 + n).
+struct Chunk {
+  int l0, n;
+  __device__ Chunk(int rank, int chunk, int L) {
+    l0 = min(L, rank * chunk);
+    n = min(L, l0 + chunk) - l0;
+  }
+};
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+__device__ __forceinline__ void add4(float4& a, const float4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// This block's rank in its cluster (blockIdx.x here: clusters run along x).
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+// Every thread of every block of the cluster: a barrier that also orders
+// shared-memory writes before it (release) against reads after it
+// (acquire), in all the cluster's blocks.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.aligned;\n"
+      "barrier.cluster.wait.aligned;\n" ::
+          : "memory");
+}
+
+// The address of `local` (a shared-memory pointer of this block) in the
+// shared memory of block `rank` of the cluster.
+__device__ __forceinline__ uint32_t cluster_addr(const void* local, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out)
+               : "r"(smem_u32(local)), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ float cluster_load(uint32_t addr) {
+  float x;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(x) : "r"(addr) : "memory");
+  return x;
+}
+
+__device__ __forceinline__ float4 cluster_load4(uint32_t addr) {
+  float4 x;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(x.x), "=f"(x.y), "=f"(x.z), "=f"(x.w)
+               : "r"(addr)
+               : "memory");
+  return x;
+}
+
+// Sum (or max) of one float that every block of the cluster keeps at the
+// same shared address, taken in rank order: the same bits in every block.
+__device__ __forceinline__ float cluster_sum(const float* local) {
+  float s = 0.f;
+#pragma unroll
+  for (int q = 0; q < kCluster; ++q) s += cluster_load(cluster_addr(local, q));
+  return s;
+}
+
+__device__ __forceinline__ float cluster_max(const float* local) {
+  float m = __int_as_float(0xff800000);  // -inf: an empty block's max
+#pragma unroll
+  for (int q = 0; q < kCluster; ++q)
+    m = fmaxf(m, cluster_load(cluster_addr(local, q)));
+  return m;
+}
+
+// A float4 that every block keeps at the same shared address, summed over
+// the cluster in rank order.
+__device__ __forceinline__ float4 cluster_sum4(const float4* local) {
+  float4 x[kCluster];
+#pragma unroll
+  for (int q = 0; q < kCluster; ++q) x[q] = cluster_load4(cluster_addr(local, q));
+  float4 s = x[0];
+#pragma unroll
+  for (int q = 1; q < kCluster; ++q) add4(s, x[q]);
+  return s;
+}
+
+// A ring of kStages tiles in shared memory. Tile t of a block's sequence
+// goes to slot t % kStages; one thread asks for its bytes on the slot's
+// mbarrier and starts the bulk copy; every thread waits on the barrier's
+// phase (t / kStages) & 1. After all threads are done with a tile
+// (__syncthreads), the same thread refills its slot with tile t + kStages,
+// so kStages copies stay in flight while the block computes.
+struct Ring {
+  uint64_t* bars;
+  float* slots;
+  int slot_floats;
+
+  __device__ Ring(unsigned char* smem, int slot_floats_)
+      : bars(reinterpret_cast<uint64_t*>(smem)),
+        slots(reinterpret_cast<float*>(smem + kBarrierBytes)),
+        slot_floats(slot_floats_) {}
+
+  // One thread, before any copy; a __syncthreads must follow.
+  __device__ void init() {
+    for (int s = 0; s < kStages; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                       smem_u32(&bars[s])),
+                   "r"(1)
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+
+  // One thread: copy `bytes` (a multiple of 16, from a 16-byte aligned
+  // global address) into the slot of tile t.
+  __device__ void load(int t, const float* src, uint32_t bytes) {
+    const int s = t % kStages;
+    const uint32_t bar = smem_u32(&bars[s]);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                     bar),
+                 "r"(bytes)
+                 : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];" ::"r"(smem_u32(slots + s * slot_floats)),
+        "l"(src), "r"(bytes), "r"(bar)
+        : "memory");
+  }
+
+  // Every thread: wait until tile t has landed; returns its slot.
+  __device__ const float* wait(int t) {
+    const int s = t % kStages;
+    const uint32_t bar = smem_u32(&bars[s]);
+    const uint32_t parity = (t / kStages) & 1;
+    uint32_t done;
+    do {
+      asm volatile(
+          "{\n"
+          ".reg .pred p;\n"
+          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n"
+          "}\n"
+          : "=r"(done)
+          : "r"(bar), "r"(parity)
+          : "memory");
+    } while (!done);
+    return slots + s * slot_floats;
+  }
+};
+
+// Check once per (kernel, device, shared-memory size) that a cluster can
+// be placed, asking cudaOccupancyMaxActiveClusters. Before it, the
+// kernel's dynamic shared-memory limit on the device is raised to the size
+// when it is below it; it is never lowered, so every size checked before
+// stays launchable. A cluster that cannot be placed is an error
+// (cudaErrorLaunchOutOfResources); there is no other kernel to fall back
+// to.
+template <typename Kernel>
+cudaError_t check_placement(Kernel kernel, const cudaLaunchConfig_t& cfg) {
+  struct Seen {
+    const void* fn;
+    int device;
+    size_t smem;
+  };
+  static std::mutex mu;
+  static std::vector<Seen> placed, limit;  // limit: the largest size set
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const size_t smem = cfg.dynamicSmemBytes;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Seen& p : placed)
+    if (p.fn == fn && p.device == device && p.smem == smem) return cudaSuccess;
+  Seen* set = nullptr;
+  for (Seen& p : limit)
+    if (p.fn == fn && p.device == device) set = &p;
+  if (set == nullptr) {
+    limit.push_back({fn, device, 0});
+    set = &limit.back();
+  }
+  if (smem > set->smem) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    set->smem = smem;
+  }
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorLaunchOutOfResources;
+  placed.push_back({fn, device, smem});
+  return cudaSuccess;
+}
+
+// One launch of `kernel` on a (kCluster, images) grid of kThreads-thread
+// blocks in clusters of kCluster along x: one cluster per image. Returns
+// the CUDA error of the placement check or of the launch.
+template <typename... Params, typename... Args>
+int launch_clusters(void (*kernel)(Params...), int images, size_t smem,
+                    cudaStream_t stream, Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster, images, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = check_placement(kernel, cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace sat_attention

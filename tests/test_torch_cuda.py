@@ -49,18 +49,30 @@ def test_topk_kernel_is_bit_exact(cuda, B, N, k):
     assert torch.equal(indices, pi) and torch.equal(values, pv)
 
 
-@pytest.mark.parametrize("B,R,L,E,D", [(2, 1, 9, 64, 48), (4, 3, 16, 64, 32),
-                                       (128, 5, 196, 512, 512),
-                                       (3, 11, 196, 512, 512),
-                                       (2, 20, 196, 768, 512)])
-def test_attention_kernel_matches_plain(cuda, B, R, L, E, D):
-    g = torch.Generator().manual_seed(B * R)
+def _fwd_inputs(seed, B, R, L, E, D, device):
+    g = torch.Generator().manual_seed(seed)
     args = [torch.randn((B, L, E), generator=g),
             torch.rand((B, L, D), generator=g),
             torch.randn((B * R, E), generator=g),
             torch.randn((E,), generator=g) / E ** 0.5,
             torch.randn((1,), generator=g)]
-    args = [a.to(cuda) for a in args]
+    return [a.to(device) for a in args]
+
+
+# Beside the main path's shapes: L below the cluster of 8 blocks an image
+# (some blocks own no row), the 7 x 7 grids of the wider encoders
+# (D = 2048, 2208), one image, and the flat beam's 640 rows at R = 1.
+@pytest.mark.parametrize("B,R,L,E,D", [(2, 1, 9, 64, 48), (4, 3, 16, 64, 32),
+                                       (128, 5, 196, 512, 512),
+                                       (3, 11, 196, 512, 512),
+                                       (2, 20, 196, 768, 512),
+                                       (2, 1, 3, 64, 48), (3, 5, 3, 64, 32),
+                                       (4, 1, 49, 512, 2048),
+                                       (4, 5, 49, 512, 2208),
+                                       (1, 1, 196, 512, 512),
+                                       (640, 1, 196, 512, 512)])
+def test_attention_kernel_matches_plain(cuda, B, R, L, E, D):
+    args = _fwd_inputs(B * R, B, R, L, E, D, cuda)
     before = attention_fwd.launches
     ctx, alpha = attention_fwd(*args, R)
     assert attention_fwd.launches == before + 1
@@ -70,6 +82,21 @@ def test_attention_kernel_matches_plain(cuda, B, R, L, E, D):
                                atol=1e-5)
     np.testing.assert_allclose(alpha.cpu().numpy(), palpha.cpu().numpy(),
                                atol=1e-6)
+
+
+def test_wrappers_refuse_widths_not_multiple_of_4(cuda):
+    """The bulk copies move whole 16-byte units: E or D not a multiple of
+    4 raises for CUDA tensors (the CPU's plain forms take any width)."""
+    for E, D in ((6, 8), (8, 6)):
+        keys, feats, u_h, v, b_v = _fwd_inputs(0, 2, 1, 5, E, D, cuda)
+        with pytest.raises(ValueError, match="multiples of 4"):
+            attention_fwd(keys, feats, u_h, v, b_v)
+        alpha = torch.full((2, 5), 0.2, device=cuda)
+        with pytest.raises(ValueError, match="multiples of 4"):
+            attention_bwd(keys, feats, u_h, v, alpha,
+                          torch.zeros((2, D), device=cuda), alpha)
+    assert attention_fwd(*_fwd_inputs(0, 2, 1, 5, 6, 6, "cpu"))[0].shape \
+        == (2, 6)
 
 
 def test_wrappers_refuse_strided_cuda_input(cuda):
@@ -133,7 +160,10 @@ def _de_max(feats, alpha, dctx, dalpha) -> float:
                          ids=["dfeats", "no-dfeats"])
 @pytest.mark.parametrize("B,L,E,D", [(1, 5, 16, 8), (3, 9, 64, 48),
                                      (64, 196, 512, 512),
-                                     (5, 196, 768, 512), (7, 600, 40, 1100)])
+                                     (5, 196, 768, 512), (7, 600, 40, 1100),
+                                     (2, 3, 64, 48), (4, 49, 512, 2048),
+                                     (4, 49, 512, 2208), (1, 196, 512, 512),
+                                     (640, 196, 512, 512)])
 def test_attention_bwd_kernel_matches_plain(cuda, B, L, E, D, want_dfeats):
     keys, feats, u_h, v, _, alpha, dctx, dalpha = _bwd_inputs(
         B * L, B, L, E, D, cuda)
@@ -151,6 +181,24 @@ def test_attention_bwd_kernel_matches_plain(cuda, B, L, E, D, want_dfeats):
                                    atol=1e-5, err_msg=name)
     _assert_sum_close(got[3], want[3])
     _assert_sum_close(got[4], want[4], _de_max(feats, alpha, dctx, dalpha))
+
+
+def test_two_launches_give_the_same_bits(cuda):
+    """Every cross-block sum is taken in a fixed order (no atomics): two
+    launches on the same inputs agree bit for bit, forward at R = 5 and
+    R = 1 and backward."""
+    for R in (5, 1):
+        args = _fwd_inputs(R, 16, R, 196, 512, 512, cuda)
+        first, second = attention_fwd(*args, R), attention_fwd(*args, R)
+        for name, a, b in zip(("ctx", "alpha"), first, second):
+            assert torch.equal(a, b), (R, name)
+    keys, feats, u_h, v, _, alpha, dctx, dalpha = _bwd_inputs(
+        5, 64, 196, 512, 512, cuda)
+    args = (keys, feats, u_h, v, alpha, dctx, dalpha)
+    first, second = attention_bwd(*args), attention_bwd(*args)
+    for name, a, b in zip(("dkeys", "dfeats", "du_h", "dv", "db_v"), first,
+                          second):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.parametrize("feats_grad", [True, False])
