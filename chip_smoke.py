@@ -14,16 +14,19 @@ no result line is printed:
                main path is exact f32)
   2. build   — nvcc builds ops/csrc/*.cu; build seconds, ptxas report
   3. kernels — each kernel against its plain PyTorch form at the main
-               path's shapes (top-k bit-exact, also on adversarial rows;
-               attention ctx atol 1e-5, alpha atol 1e-6, at R = 5 and R = 1;
-               the backward's bounds), two launches of each attention
-               kernel bit-identical, and the times of kernel, plain form
-               and library call: warm (back to back) and, for the attention
-               kernels, cold (a 128 MB write before each call evicts the
-               L2), each beside its bound; the forward at the beam's
-               R = 5, B = 128, training's R = 1, B = 64 and greedy's R = 1,
-               B = 128; the issue time of the precise tanhf, counted from
-               cuobjdump's SASS of a probe kernel
+               path's shapes (top-k bit-exact on random and adversarial
+               rows at B = 128, at B = 1 and 32, and at k = 20, the
+               k-round kernel; attention ctx atol 1e-5, alpha atol 1e-6, at
+               R = 5 and R = 1; the backward's bounds), two launches of
+               each kernel bit-identical, and the times of kernel, plain
+               form and library call: warm (back to back) and cold (a
+               128 MB write before each call evicts the L2), each beside
+               its bound and a PyTorch pass over the same bytes
+               (`stream_ms`); top-k at B = 1, 32 and 128 and at each
+               cluster size; the forward at the beam's R = 5, B = 128,
+               training's R = 1, B = 64 and greedy's R = 1, B = 128; the
+               issue time of the precise tanhf, counted from cuobjdump's
+               SASS of a probe kernel
   4. main    — the worst case (stop-token logits pinned to -1e9, so every
                beam runs all 51 steps) through build_caption_step; every
                kernel's launch count in that run; encoder and decode times
@@ -266,42 +269,13 @@ def phase_kernels(dev, gen) -> list[dict]:
     import torch
     from sat_tpu_torch.ops.fused_attention import (attention_fwd,
                                                    attention_plain)
-    from sat_tpu_torch.ops.topk import topk, topk_plain
 
     peaks = card_peaks(dev["name"])
     hz = dev["max_sm_mhz"] * 1e6
     sfu_s = 16 * dev["sms"] * hz                  # MUFU results/s
     rows = []
 
-    # ---- exact top-k (B, K*V) -> (B, K)
-    x, adv = topk_inputs(gen)
-    topk_err = 0.0
-    for name, inp in (("random", x), ("adversarial", adv)):
-        kv, ki = topk(inp, BEAM)
-        pv, pi = topk_plain(inp, BEAM)
-        torch.cuda.synchronize()
-        check(torch.equal(ki, pi), f"topk indices differ on {name} rows")
-        check(torch.equal(kv, pv), f"topk values differ on {name} rows")
-        # -inf - -inf is NaN: equal entries, so NaN counts as 0
-        topk_err = max(topk_err,
-                       (kv - pv).abs().nan_to_num(0.0).max().item())
-    n = x.numel()
-    bytes_ = 4 * n + B * BEAM * (4 + 8)
-    t_bytes = bytes_ / peaks["bytes_s"]
-    t_ops = n * BEAM / peaks["f32_s"]          # one compare per entry a round
-    rows.append({
-        "name": "topk", "route": "cuda",
-        "source": "sat_tpu_torch/ops/csrc/topk.cu",
-        "replaces": "sat_tpu/ops/topk.py:41",
-        "shape": f"x ({B}, {BEAM * VOCAB}) f32, k={BEAM}",
-        "max_abs_err": topk_err,
-        "ms": time_ms(lambda: topk(x, BEAM), hz),
-        "plain_ms": time_ms(lambda: topk_plain(x, BEAM), hz),
-        "library_ms": time_ms(lambda: torch.topk(x, BEAM, dim=1), hz),
-        "bound_ms": max(t_bytes, t_ops) * 1e3,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
-
-    rows[-1].update(shares(rows[-1]))
+    rows.append(topk_row(peaks, hz, gen))
 
     # ---- fused attention forward, R = BEAM (dedup beam) and R = 1
     tanh_instr = tanhf_instructions()
@@ -357,7 +331,7 @@ def phase_kernels(dev, gen) -> list[dict]:
     rows.append(attention_bwd_row(peaks, sfu_s, issue_s, tanh_instr, hz, gen))
     _SCRATCH.clear()          # the later phases' peak memory excludes it
     emit({"phase": "kernels", "peaks": peaks,
-          "checks": {"topk": "bit-exact on random and adversarial rows",
+          "checks": {"topk": rows[0]["checks"],
                      "attention_fwd": errs,
                      "attention_fwd_bit_identical": determinism,
                      "attention_bwd": rows[-1]["errors"],
@@ -365,10 +339,95 @@ def phase_kernels(dev, gen) -> list[dict]:
           "tanhf_instructions": tanh_instr["instructions"],
           "ms": {r["name"]: r["ms"] for r in rows},
           "cold_ms": {r["name"]: r.get("cold_ms") for r in rows},
+          "topk_ms": {k: (v["ms"], v["cold_ms"], v["stream_ms"],
+                          v["stream_cold_ms"])
+                      for k, v in rows[0]["variants"].items()},
+          "topk_ms_by_cluster": rows[0]["ms_by_cluster"],
+          "floor_ms": rows[0]["floor_ms"],
           "attention_fwd_ms": {k: (v["ms"], v["cold_ms"], v["stream_ms"],
                                    v["stream_cold_ms"])
                                for k, v in variants.items()}})
     return rows
+
+
+def same_bits(a, b) -> bool:
+    """Equal bit for bit: floats compared as their int32 patterns, so that
+    -0.0 is not +0.0."""
+    import torch
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+TOPK_BATCHES = (1, 32, B)   # one request, the server's default batch, main
+
+
+def topk_row(peaks, hz, gen) -> dict:
+    """Top-k against its plain form, bit for bit: random and adversarial
+    rows at B = 128, random rows at B = 1 and 32, k = 20 (the k-round
+    kernel), two launches against each other. Times warm and cold at each
+    batch beside the bound and the yardstick (torch.amax over the same
+    rows, one pass that returns one value a row), the plain form's and
+    torch.topk's at B = 128, and the one-pass kernel at every cluster size
+    (the wrapper picks one from B)."""
+    import torch
+    from sat_tpu_torch.ops.topk import cluster_size, launch, topk, topk_plain
+
+    x, adv = topk_inputs(gen)
+    inputs = {Bx: torch.randn((Bx, BEAM * VOCAB), generator=gen).cuda()
+              for Bx in TOPK_BATCHES if Bx != B}
+    inputs[B] = x
+    cases = [("random", x, BEAM), ("adversarial", adv, BEAM),
+             ("random B=1", inputs[1], BEAM),
+             ("random B=32", inputs[32], BEAM), ("k=20 random", x, 20),
+             ("k=20 adversarial", adv, 20)]
+    err = 0.0
+    for name, inp, k in cases:
+        kv, ki = topk(inp, k)
+        pv, pi = topk_plain(inp, k)
+        torch.cuda.synchronize()
+        check(torch.equal(ki, pi), f"topk indices differ on {name} rows")
+        check(same_bits(kv, pv), f"topk values differ on {name} rows")
+        # -inf - -inf is NaN: equal entries, so NaN counts as 0
+        err = max(err, (kv - pv).abs().nan_to_num(0.0).max().item())
+    first, second = topk(x, BEAM), topk(x, BEAM)
+    torch.cuda.synchronize()
+    check(all(map(same_bits, first, second)), "topk: two launches differ")
+
+    variants, by_cluster = {}, {}
+    for Bx in TOPK_BATCHES:
+        xb = inputs[Bx]
+        n = xb.numel()
+        t_bytes = (4 * n + Bx * BEAM * (4 + 8)) / peaks["bytes_s"]
+        t_ops = n / peaks["f32_s"]                 # one compare per entry
+        var = {"shape": f"x ({Bx}, {BEAM * VOCAB}) f32, k={BEAM}",
+               "cluster": cluster_size(Bx),
+               "ms": time_ms(lambda: topk(xb, BEAM), hz),
+               "cold_ms": time_ms(lambda: topk(xb, BEAM), hz, cold=True),
+               **stream_ms(lambda: torch.amax(xb, dim=1), hz),
+               "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        var.update(shares(var))
+        variants[f"b{Bx}"] = var
+        by_cluster[f"b{Bx}"] = {c: time_ms(lambda: launch(xb, BEAM, c), hz)
+                                for c in (1, 2, 4)}
+    main = variants[f"b{B}"]
+    return {
+        "name": "topk", "route": "cuda",
+        "source": "sat_tpu_torch/ops/csrc/topk.cu",
+        "replaces": "sat_tpu/ops/topk.py:41",
+        "shape": main["shape"], "max_abs_err": err,
+        "checks": [name for name, _, _ in cases] + ["two launches"],
+        "plain_ms": time_ms(lambda: topk_plain(x, BEAM), hz),
+        "library_ms": time_ms(lambda: torch.topk(x, BEAM, dim=1), hz),
+        "k20_ms": time_ms(lambda: topk(x, 20), hz),
+        # one PyTorch kernel that does almost nothing: what a launch costs
+        # by this method
+        "floor_ms": time_ms(lambda: torch.amax(inputs[1][:, :1], dim=1), hz),
+        "variants": variants, "ms_by_cluster": by_cluster,
+        **{k: main[k] for k in ("ms", "cold_ms", "stream_ms",
+                                "stream_cold_ms", "bound_ms", "bound_by",
+                                "bound_share", "bound_share_cold")}}
 
 
 def stream_ms(fn, hz) -> dict:

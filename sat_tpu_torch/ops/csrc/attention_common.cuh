@@ -18,11 +18,12 @@
 
 #include <cstddef>
 #include <cstdint>
-#include <mutex>
-#include <utility>
-#include <vector>
+
+#include "cluster.cuh"
 
 namespace sat_attention {
+
+using namespace sat_cluster;  // rank, barriers, mapa and loads, the launch
 
 // Chosen on the H100 at the main path's shapes (E = D = 512): small
 // blocks with a small ring keep 4-5 blocks on each SM, and a 4-row tile
@@ -70,52 +71,6 @@ __device__ __forceinline__ void add4(float4& a, const float4& b) {
   a.y += b.y;
   a.z += b.z;
   a.w += b.w;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// This block's rank in its cluster (blockIdx.x here: clusters run along x).
-__device__ __forceinline__ int cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return static_cast<int>(r);
-}
-
-// Every thread of every block of the cluster: a barrier that also orders
-// shared-memory writes before it (release) against reads after it
-// (acquire), in all the cluster's blocks.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.aligned;\n"
-      "barrier.cluster.wait.aligned;\n" ::
-          : "memory");
-}
-
-// The address of `local` (a shared-memory pointer of this block) in the
-// shared memory of block `rank` of the cluster.
-__device__ __forceinline__ uint32_t cluster_addr(const void* local, int rank) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(out)
-               : "r"(smem_u32(local)), "r"(rank));
-  return out;
-}
-
-__device__ __forceinline__ float cluster_load(uint32_t addr) {
-  float x;
-  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(x) : "r"(addr) : "memory");
-  return x;
-}
-
-__device__ __forceinline__ float4 cluster_load4(uint32_t addr) {
-  float4 x;
-  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
-               : "=f"(x.x), "=f"(x.y), "=f"(x.z), "=f"(x.w)
-               : "r"(addr)
-               : "memory");
-  return x;
 }
 
 // Sum (or max) of one float that every block of the cluster keeps at the
@@ -210,74 +165,14 @@ struct Ring {
   }
 };
 
-// Check once per (kernel, device, shared-memory size) that a cluster can
-// be placed, asking cudaOccupancyMaxActiveClusters. Before it, the
-// kernel's dynamic shared-memory limit on the device is raised to the size
-// when it is below it; it is never lowered, so every size checked before
-// stays launchable. A cluster that cannot be placed is an error
-// (cudaErrorLaunchOutOfResources); there is no other kernel to fall back
-// to.
-template <typename Kernel>
-cudaError_t check_placement(Kernel kernel, const cudaLaunchConfig_t& cfg) {
-  struct Seen {
-    const void* fn;
-    int device;
-    size_t smem;
-  };
-  static std::mutex mu;
-  static std::vector<Seen> placed, limit;  // limit: the largest size set
-  const void* fn = reinterpret_cast<const void*>(kernel);
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  const size_t smem = cfg.dynamicSmemBytes;
-  std::lock_guard<std::mutex> lock(mu);
-  for (const Seen& p : placed)
-    if (p.fn == fn && p.device == device && p.smem == smem) return cudaSuccess;
-  Seen* set = nullptr;
-  for (Seen& p : limit)
-    if (p.fn == fn && p.device == device) set = &p;
-  if (set == nullptr) {
-    limit.push_back({fn, device, 0});
-    set = &limit.back();
-  }
-  if (smem > set->smem) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    set->smem = smem;
-  }
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
-  if (err != cudaSuccess) return err;
-  if (clusters < 1) return cudaErrorLaunchOutOfResources;
-  placed.push_back({fn, device, smem});
-  return cudaSuccess;
-}
-
 // One launch of `kernel` on a (kCluster, images) grid of kThreads-thread
 // blocks in clusters of kCluster along x: one cluster per image. Returns
 // the CUDA error of the placement check or of the launch.
 template <typename... Params, typename... Args>
 int launch_clusters(void (*kernel)(Params...), int images, size_t smem,
                     cudaStream_t stream, Args... args) {
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster, images, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaError_t err = check_placement(kernel, cfg);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return launch_cluster_grid(kernel, dim3(kCluster, images, 1), kCluster,
+                             kThreads, smem, stream, args...);
 }
 
 }  // namespace sat_attention

@@ -10,7 +10,9 @@ this one:
 form: that is a stable descending sort after NaN -> -inf.
 
 The kernel (csrc/topk.cu) replaces sat_tpu/ops/topk.py::_topk_kernel; its
-source note gives the bound and the design. `topk` runs the plain form for
+source note gives the bound and the design: for k <= 16 one pass over each
+row, split across a thread-block cluster of `cluster_size(B)` blocks, and
+for larger k one block per row and k rounds. `topk` runs the plain form for
 CPU tensors only; for a CUDA tensor it launches the kernel or raises.
 """
 
@@ -26,6 +28,23 @@ def topk_plain(x: torch.Tensor, k: int):
     x = torch.where(torch.isnan(x), float("-inf"), x)
     values, indices = torch.sort(x, dim=1, descending=True, stable=True)
     return values[:, :k].contiguous(), indices[:, :k].contiguous()
+
+
+# Blocks a launch aims for, and the most blocks a row (the kernel's limit:
+# rank 0's warp merges one list a lane). On the H100 (chip_smoke.py's
+# `ms_by_cluster`), 4 blocks a row were fastest at B = 1 and 32 and 2 at
+# B = 128.
+TARGET_BLOCKS = 256
+MAX_CLUSTER = 4
+
+
+def cluster_size(rows: int) -> int:
+    """Blocks per row of the one-pass kernel: the fewest of 1, 2 and 4 that
+    give `rows` rows at least TARGET_BLOCKS blocks."""
+    c = 1
+    while c < MAX_CLUSTER and rows * c < TARGET_BLOCKS:
+        c *= 2
+    return c
 
 
 def topk(x: torch.Tensor, k: int):
@@ -45,12 +64,20 @@ def topk(x: torch.Tensor, k: int):
         raise ValueError(f"topk runs on cuda or cpu tensors, got {x.device}")
     if not x.is_contiguous():
         raise ValueError("topk wants a contiguous input")
+    return launch(x, k, cluster_size(B))
+
+
+def launch(x: torch.Tensor, k: int, cluster: int):
+    """One launch of the kernel on a checked CUDA tensor x (B, N), with
+    `cluster` (1..MAX_CLUSTER) blocks a row (k <= 16; larger k ignores
+    it)."""
+    B, N = x.shape
     values = torch.empty((B, k), dtype=torch.float32, device=x.device)
     indices = torch.empty((B, k), dtype=torch.int64, device=x.device)
     lib = _kernels.library()
     with torch.cuda.device(x.device):
         rc = lib.sat_topk_f32(x.data_ptr(), values.data_ptr(),
-                              indices.data_ptr(), B, N, k,
+                              indices.data_ptr(), B, N, k, cluster,
                               torch.cuda.current_stream().cuda_stream)
     _kernels.check_launch("topk", rc)
     topk.launches += 1

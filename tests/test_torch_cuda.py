@@ -13,7 +13,7 @@ import torch
 from sat_tpu_torch.ops.fused_attention import (FusedAttention, attention_bwd,
                                                attention_bwd_plain,
                                                attention_fwd, attention_plain)
-from sat_tpu_torch.ops.topk import topk, topk_plain
+from sat_tpu_torch.ops.topk import launch, topk, topk_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -38,15 +38,92 @@ def _rows(seed, B, N):
     return x
 
 
+TOPK_N = 13165     # the beam's row at the flagship vocab: 5 x 2633
+
+
+def _assert_topk_exact(x, values, indices, k):
+    """Indices equal, values equal bit for bit (-0.0 is not +0.0)."""
+    pv, pi = topk_plain(x, k)
+    assert torch.equal(indices, pi)
+    assert torch.equal(values.view(torch.int32), pv.view(torch.int32))
+
+
+# B = 1, 32 and 128 at the beam's row give 4, 4 and 2 blocks a row; N = 5
+# leaves blocks with no entry; k = 20 and 17 take the k-round kernel.
 @pytest.mark.parametrize("B,N,k", [(1, 5, 5), (3, 40, 7), (16, 1000, 5),
-                                   (128, 13165, 5), (4, 70000, 8)])
+                                   (128, TOPK_N, 5), (4, 70000, 8),
+                                   (1, TOPK_N, 5), (32, TOPK_N, 5),
+                                   (128, TOPK_N, 1), (128, TOPK_N, 16),
+                                   (128, TOPK_N, 20), (3, 40, 17)])
 def test_topk_kernel_is_bit_exact(cuda, B, N, k):
     x = _rows(N, B, N).to(cuda)
     before = topk.launches
     values, indices = topk(x, k)
     assert topk.launches == before + 1
-    pv, pi = topk_plain(x, k)
-    assert torch.equal(indices, pi) and torch.equal(values, pv)
+    _assert_topk_exact(x, values, indices, k)
+
+
+def _adversarial(case, B, N):
+    x = torch.randn((B, N), generator=torch.Generator().manual_seed(B))
+    if case == "all-neg-inf":
+        x[:] = float("-inf")
+    elif case == "last-slice-only":
+        # finite only in the last 100 columns: inside the last block's
+        # slice at every cluster size
+        x[:, :N - 100] = float("-inf")
+    elif case == "tie-across-ranks":
+        # equal maxima every N // 7 columns, in the slices of different
+        # blocks: the lowest columns win
+        x[:, ::N // 7] = 9.0
+    elif case == "nan-every-3rd":
+        x[:, ::3] = float("nan")
+    elif case == "signed-zeros":
+        x[:] = 0.0
+        x[:, ::2] = -0.0
+    return x
+
+
+@pytest.mark.parametrize("B", [1, 32, 128])
+@pytest.mark.parametrize("case", ["all-neg-inf", "last-slice-only",
+                                  "tie-across-ranks", "nan-every-3rd",
+                                  "signed-zeros"])
+def test_topk_adversarial_rows(cuda, case, B):
+    x = _adversarial(case, B, TOPK_N).to(cuda)
+    values, indices = topk(x, 5)
+    _assert_topk_exact(x, values, indices, 5)
+    if case == "all-neg-inf":
+        assert torch.equal(indices.cpu(), torch.arange(5).repeat(B, 1))
+
+
+@pytest.mark.parametrize("N", [5, 37, TOPK_N])
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+def test_topk_every_cluster_size(cuda, cluster, N):
+    """The wrapper picks the cluster from B; each size on its own, with
+    blocks that get no float4 at N = 5 and 37."""
+    x = _rows(N + cluster, 6, N).to(cuda)
+    before = topk.launches
+    values, indices = launch(x, 5, cluster)
+    assert topk.launches == before + 1
+    _assert_topk_exact(x, values, indices, 5)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_topk_rows_past_a_16_byte_boundary(cuda, offset):
+    """A contiguous view 4, 8 or 12 bytes past the allocation's start: each
+    row's head of scalar entries before its first float4 changes."""
+    flat = torch.randn(32 * TOPK_N + offset,
+                       generator=torch.Generator().manual_seed(offset))
+    x = flat.to(cuda)[offset:].view(32, TOPK_N)
+    assert x.data_ptr() % 16 == 4 * offset
+    values, indices = topk(x, 5)
+    _assert_topk_exact(x, values, indices, 5)
+
+
+def test_topk_two_launches_give_the_same_bits(cuda):
+    x = _rows(11, 128, TOPK_N).to(cuda)
+    first, second = topk(x, 5), topk(x, 5)
+    assert torch.equal(first[1], second[1])
+    assert torch.equal(first[0].view(torch.int32), second[0].view(torch.int32))
 
 
 def _fwd_inputs(seed, B, R, L, E, D, device):

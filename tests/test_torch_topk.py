@@ -2,7 +2,11 @@
 sat_tpu's Pallas kernel in interpret mode and jax.lax.top_k: the same
 values and the same indices, exactly, on the adversarial cases of
 tests/test_topk.py. The CUDA kernel is held against this plain form on the
-card (tests/test_torch_cuda.py, chip_smoke.py)."""
+card (tests/test_torch_cuda.py, chip_smoke.py); the decomposition it rests
+on, a top-k of each of a row's slices and then of the survivors, is held
+here."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -13,7 +17,7 @@ import jax.numpy as jnp
 
 from sat_tpu.ops.topk import exact_topk
 
-from sat_tpu_torch.ops.topk import topk, topk_plain
+from sat_tpu_torch.ops.topk import cluster_size, topk, topk_plain
 from tests.test_torch_common import to_np
 
 
@@ -119,3 +123,88 @@ def test_cpu_calls_do_not_count_as_launches():
     before = topk.launches
     topk(torch.zeros(2, 8), 3)
     assert topk.launches == before
+
+
+def _nan_rows():
+    x = _random(9, 8, 50)
+    x[1, 7] = np.nan
+    x[3, ::3] = np.nan
+    x[4, :] = np.nan
+    return x
+
+
+DECOMPOSITION_CASES = dict(CASES, **{"nan-rows": (_nan_rows, 5),
+                                     "signed-zeros": (_signed_zeros, 5)})
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas(case):
+    make, k = DECOMPOSITION_CASES[case]
+    return exact_topk(jnp.asarray(make()), k, interpret=True)
+
+
+def _slices(n, cluster, head):
+    """csrc/topk.cu's split of a row whose first 16-byte boundary lies
+    `head` entries in: the float4s after it go to `cluster` contiguous
+    slices, the first also taking the head, the last the tail. Returns
+    each block's [lo, hi), empty ones included."""
+    head = min(head, n)
+    nvec = (n - head) // 4
+    per = -(-nvec // cluster)
+    bounds = ([0] + [head + 4 * min(nvec, r * per) for r in range(1, cluster)]
+              + [n])
+    return list(zip(bounds[:-1], bounds[1:]))
+
+
+def _merged_topk(x, k, cluster):
+    """The kernel's decomposition in plain form: the top-k of each block's
+    slice of a row (rows laid out as in a contiguous (B, N) tensor at a
+    16-byte boundary), then the top-k of the survivors, concatenated in
+    slice order."""
+    B, N = x.shape
+    out_v, out_i = [], []
+    for b in range(B):
+        vals, idx = [], []
+        for lo, hi in _slices(N, cluster, (-b * N) % 4):
+            if hi > lo:
+                v, i = topk_plain(x[b:b + 1, lo:hi], min(k, hi - lo))
+                vals.append(v[0])
+                idx.append(i[0] + lo)
+        v, i = torch.cat(vals), torch.cat(idx)
+        assert v.numel() <= cluster * k
+        mv, mi = topk_plain(v[None], k)
+        out_v.append(mv[0])
+        out_i.append(i[mi[0]])
+    return torch.stack(out_v), torch.stack(out_i)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 3, 8, 16])
+@pytest.mark.parametrize("case", sorted(DECOMPOSITION_CASES))
+def test_split_and_merge_is_the_exact_topk(case, cluster):
+    """The order (value desc, index asc, NaN as -inf) is total, so the top-k
+    of the slices' top-k survivors is the row's top-k, whatever the split:
+    the same as topk_plain of the whole row and as the Pallas kernel."""
+    make, k = DECOMPOSITION_CASES[case]
+    x = torch.from_numpy(make())
+    got_v, got_i = _merged_topk(x, k, cluster)
+    want_v, want_i = topk_plain(x, k)
+    assert torch.equal(got_i, want_i)
+    assert torch.equal(got_v.view(torch.int32), want_v.view(torch.int32))
+    pal_v, pal_i = _pallas(case)
+    np.testing.assert_array_equal(to_np(got_v), np.asarray(pal_v))
+    np.testing.assert_array_equal(to_np(got_i), np.asarray(pal_i))
+
+
+@pytest.mark.parametrize("n,cluster", [(5, 8), (37, 8), (13165, 4), (8, 2)])
+def test_slices_cover_the_row_once(n, cluster):
+    for head in range(4):
+        spans = _slices(n, cluster, head)
+        assert len(spans) == cluster
+        assert [j for lo, hi in spans for j in range(lo, hi)] == list(range(n))
+
+
+def test_cluster_size_spreads_small_batches():
+    """B * C blocks reach 256, about two an SM of the H100's 132, with at
+    most 4 blocks a row."""
+    assert [cluster_size(b) for b in (1, 16, 32, 64, 128, 256, 640)] == \
+        [4, 4, 4, 4, 2, 1, 1]
