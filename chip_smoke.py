@@ -43,11 +43,16 @@ no result line is printed:
                with remat on and off; ms per step and rows/s both ways; a
                profile of one step; the loss falling over 20 steps on one
                batch
-  7. entry   — a synthetic dataset on disk (128 train and 64 val rows of
-               224 px PNGs, a 2633-word vocabulary) through
-               `python -m sat_tpu_torch.train`'s main for one epoch; its
-               checkpoint loaded by the port's server code, which captions
-               one image
+  7. entry   — a synthetic dataset on disk (128 train, 64 val and 64
+               test rows of 224 px PNGs, a 2633-word vocabulary) through
+               `python -m sat_tpu_torch.train`'s main for one epoch and
+               the test pass: BLEU-1..4 of validation and test, 1-50
+               attention plots, the train state, the launches; the same
+               run through the Trainer, preempted by SIGUSR1 after its
+               first step, then finished by main with --resume: decoder
+               and Adam moments equal to the first run's bit for bit; the
+               first run's checkpoint loaded by the port's server code,
+               which captions one image
 
 Then come the `{"kernels": [...]}` line, the card's name and power limit as
 nvidia-smi gives them, and last `{"ok": true, "device": {...}}`. Details go
@@ -61,6 +66,7 @@ import itertools
 import json
 import math
 import os
+import re
 import socket
 import statistics
 import subprocess
@@ -972,30 +978,56 @@ def phase_train(seed: int) -> dict:
     return res
 
 
+def _bleu_of(log: str, mode: str) -> dict:
+    """BLEU-1..4 from the `{mode} Epoch:` line of a training log."""
+    line = next(ln for ln in log.splitlines()
+                if ln.startswith(f"{mode} Epoch: "))
+    return {f"bleu{n}": float(v)
+            for n, v in re.findall(r"BLEU-(\d) \(([^)]*)\)", line)}
+
+
 def phase_entry(enc_flat) -> dict:
-    """`python -m sat_tpu_torch.train` for one epoch on a dataset on disk,
-    then its checkpoint through the port's server code."""
+    """`python -m sat_tpu_torch.train` for one epoch and its test pass on
+    a dataset on disk; the same run preempted by SIGUSR1 after its first
+    step and finished by `--resume`, which must end with the same decoder
+    and Adam moments; the checkpoint through the port's server code."""
     import contextlib
     import io
+    import signal
 
     import numpy as np
     import torch
     from PIL import Image
+    from sat_tpu_torch.config import build_arg_parser, config_from_args
     from sat_tpu_torch.data.transforms import load_and_preprocess_image
+    from sat_tpu_torch.engine import checkpoint as ckpt
     from sat_tpu_torch.engine.evaluate import decode_caption
+    from sat_tpu_torch.engine.loop import Trainer
     from sat_tpu_torch.engine.serving import build_caption_step
     from sat_tpu_torch.serve import load_model
     from sat_tpu_torch.train import main as train_main
+    from sat_tpu_torch.train import set_seed
 
     gen = torch.Generator().manual_seed(7)
     rng = np.random.default_rng(7)
+
+    def timed(fn, *args):
+        """(result, seconds, launches, stdout) of one synchronized call."""
+        out = io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            res = fn(*args)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, read_launches(), out.getvalue()
+
     with tempfile.TemporaryDirectory() as root:
         words = ["<start>", "<eos>", "<unk>", "<pad>"] + [
             f"w{i}" for i in range(4, VOCAB)]
         with open(os.path.join(root, "word_dict.json"), "w") as f:
             json.dump({w: i for i, w in enumerate(words)}, f)
         os.makedirs(os.path.join(root, "imgs"))
-        for split, images in (("train", 64), ("val", 32)):
+        for split, images in (("train", 64), ("val", 32), ("test", 32)):
             paths = []
             for i in range(images):        # two caption rows an image
                 path = os.path.join(root, "imgs", f"{split}_{i:03d}.png")
@@ -1008,31 +1040,124 @@ def phase_entry(enc_flat) -> dict:
                 json.dump(make_captions(gen, len(paths)).tolist(), f)
         enc_path = os.path.join(root, "vgg19.npz")
         np.savez(enc_path, **enc_flat)
+
+        def argv(ckpt_dir, *extra):
+            return ["--data", root, "--tf", "--ado", "--attention",
+                    "--cache-features", "--epochs", "1", "--batch-size",
+                    str(TRAIN_B), "--log-interval", "1", "--checkpoint-dir",
+                    ckpt_dir, "--encoder-weights", enc_path, *extra]
+
+        # (a) the uninterrupted run, its test pass timed apart
         ckpt_dir = os.path.join(root, "model")
-        argv = ["--data", root, "--tf", "--ado", "--attention",
-                "--cache-features", "--epochs", "1", "--batch-size",
-                str(TRAIN_B), "--log-interval", "1", "--checkpoint-dir",
-                ckpt_dir, "--encoder-weights", enc_path]
-        out = io.StringIO()
-        reset_launches()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            val = train_main(argv)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = read_launches()
-        log = out.getvalue()
+        test_seconds = []
+        plain_test = Trainer.test
+
+        def timed_test(self, epoch):
+            t0 = time.perf_counter()
+            res = plain_test(self, epoch)
+            torch.cuda.synchronize()
+            test_seconds.append(time.perf_counter() - t0)
+            return res
+
+        Trainer.test = timed_test
+        try:
+            last, seconds, launches, log = timed(train_main, argv(ckpt_dir))
+        finally:
+            Trainer.test = plain_test
         for line in ("Train Batch: [1/2]", "EvalMode.VALIDATION Batch: [0/1]",
-                     "EvalMode.VALIDATION Epoch: 1"):
+                     "EvalMode.VALIDATION Epoch: 1\tBLEU-1 (",
+                     "EvalMode.TEST Batch: [0/1]",
+                     "EvalMode.TEST Epoch: 1\tBLEU-1 ("):
             check(line in log, f"entry: no {line!r} in the training output")
         # two train batches of 2T forward and T backward launches, one
-        # validation batch of T forward
-        check(launches == {"topk": 0, "attention_fwd": 5 * T,
+        # validation and one test batch of T forward
+        check(launches == {"topk": 0, "attention_fwd": 6 * T,
                            "attention_bwd": 2 * T},
               f"entry: launches {launches}")
+        bleu = {"val": _bleu_of(log, "EvalMode.VALIDATION"),
+                "test": _bleu_of(log, "EvalMode.TEST")}
+        check(all(len(b) == 4 and all(math.isfinite(v) and 0 <= v <= 1
+                                      for v in b.values())
+                  for b in bleu.values()), f"entry: BLEU {bleu}")
+        check(bleu["test"] == {k: float(last[k]) for k in bleu["test"]}
+              and math.isfinite(last["loss"]), f"entry: test pass {last}")
+        viz = os.path.join(ckpt_dir, "attention_viz_epoch1")
+        plots = sorted(os.listdir(viz)) if os.path.isdir(viz) else []
+        check(1 <= len(plots) <= 50, f"entry: {len(plots)} attention plots")
+        for name in plots:
+            with Image.open(os.path.join(viz, name)) as im:
+                im.load()
+                check(im.format == "PNG" and im.width > 0,
+                      f"entry: plot {name}")
+        states = os.listdir(os.path.join(ckpt_dir, "train_state"))
+        check(states == ["2.pt"], f"entry: train states {states}")
+        state_bytes = os.path.getsize(os.path.join(ckpt_dir, "train_state",
+                                                   "2.pt"))
+
+        # (b) the same run through the Trainer as the CLI configures it; its
+        # first step sends this process SIGUSR1, which the handler that
+        # fit installs turns into a save at batch offset 1
+        cut_dir = os.path.join(root, "cut")
+        args = build_arg_parser().parse_args(argv(cut_dir))
+        cfg = config_from_args(args)
+        set_seed(cfg.seed)
+        with contextlib.redirect_stdout(io.StringIO()):
+            trainer = Trainer(cfg, device=args.device)
+        plain_step, calls = trainer.train_step, []
+
+        def signalling_step(*a, **k):
+            calls.append(1)
+            if len(calls) == 1:
+                os.kill(os.getpid(), signal.SIGUSR1)
+            return plain_step(*a, **k)
+
+        trainer.train_step = signalling_step
+        cut, cut_seconds, cut_launches, cut_log = timed(trainer.fit)
+        check(cut == {"preempted": True, "epoch": 1}
+              and "Preempted at epoch 1 batch 1" in cut_log,
+              f"entry: the SIGUSR1 run returned {cut}")
+        check(cut_launches == {"topk": 0, "attention_fwd": 2 * T,
+                               "attention_bwd": T},
+              f"entry: preempted run's launches {cut_launches}")
+        states = os.listdir(os.path.join(cut_dir, "train_state"))
+        check(states == ["1.pt"], f"entry: preempted train states {states}")
+        tree = ckpt.restore_train_state(cut_dir, 1, "cuda")
+        check((tree["epoch"], tree["batch_offset"]) == (1, 1),
+              f"entry: preempted state at epoch {tree['epoch']} offset "
+              f"{tree['batch_offset']}")
+        t0 = time.perf_counter()
+        ckpt.save_train_state(os.path.join(root, "save_probe"),
+                              trainer.state.step,
+                              trainer.train_state_tree(1, 1))
+        save_seconds = time.perf_counter() - t0
+
+        # (c) --resume finishes the epoch and the test pass
+        resumed, resume_seconds, resume_launches, resume_log = timed(
+            train_main, argv(cut_dir, "--resume"))
+        check("Resuming epoch 1 at batch offset 1" in resume_log
+              and "EvalMode.TEST Epoch: 1\tBLEU-1 (" in resume_log
+              and "bleu4" in resumed, f"entry: the resumed run {resumed}")
+        check(resume_launches == {"topk": 0, "attention_fwd": 4 * T,
+                                  "attention_bwd": T},
+              f"entry: resumed run's launches {resume_launches}")
+        diffs = {}
+        with np.load(os.path.join(ckpt_dir, "model_vgg19_1.npz")) as a, \
+                np.load(os.path.join(cut_dir, "model_vgg19_1.npz")) as b:
+            for k in a.files:
+                diffs[k] = float(np.abs(a[k] - b[k]).max())
+        ends = [torch.load(os.path.join(d, "train_state", "2.pt"),
+                           weights_only=True)["optimizer"]["state"]
+                for d in (ckpt_dir, cut_dir)]
+        for i, moments in ends[0].items():
+            for k in ("exp_avg", "exp_avg_sq"):
+                diffs[f"adam/{i}/{k}"] = float(
+                    (moments[k] - ends[1][i][k]).abs().max())
+        resume_max_abs_diff = max(diffs.values())
+        check(resume_max_abs_diff == 0,
+              f"entry: the resumed run differs from the uninterrupted one: "
+              f"{ {k: v for k, v in diffs.items() if v} }")
+
         model = os.path.join(ckpt_dir, "model_vgg19_1.npz")
-        check(os.path.exists(model), "entry: no checkpoint written")
-        check(math.isfinite(val["loss"]), f"entry: validation {val}")
         cfg, dcfg, enc, dec, word_dict = load_model(
             model, encoder_weights=enc_path, device="cuda")
         image = load_and_preprocess_image(
@@ -1047,7 +1172,14 @@ def phase_entry(enc_flat) -> dict:
                if bool(cap["found"][0]) else [0])
         caption = " ".join(decode_caption(row, word_dict))
     res = {"phase": "entry", "seconds": seconds, "launches": launches,
-           "validation": val, "caption": caption,
+           "test": last, "bleu": bleu,
+           "test_seconds": test_seconds[0], "plots": len(plots),
+           "train_state_bytes": state_bytes,
+           "train_state_save_seconds": save_seconds,
+           "preempted_seconds": cut_seconds, "preempted_launches":
+           cut_launches, "resume_seconds": resume_seconds,
+           "resume_launches": resume_launches,
+           "resume_max_abs_diff": resume_max_abs_diff, "caption": caption,
            "log_tail": log.splitlines()[-6:]}
     emit(res)
     return res

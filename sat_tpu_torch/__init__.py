@@ -11,9 +11,10 @@ sat_tpu's layout, so each module's counterpart sits under the same path:
                            fused attention forward and backward) with
                            their plain forms
   sat_tpu_torch.parallel — the train and eval steps (one device)
-  sat_tpu_torch.engine   — caption step, the training loop, checkpoints,
-                           token decoding
-  sat_tpu_torch.utils    — metrics and loss, meters, metric logging
+  sat_tpu_torch.engine   — caption step, the training loop, checkpoints
+                           and train state, token decoding and BLEU
+  sat_tpu_torch.utils    — metrics and loss, meters, metric logging,
+                           corpus BLEU, attention plots
   sat_tpu_torch.compat   — sat_tpu parameter archives <-> the port's modules
   sat_tpu_torch.data     — image preprocessing, caption dataset and loader
   sat_tpu_torch.serve    — the captioning server (python -m sat_tpu_torch.serve)

@@ -147,7 +147,7 @@ class Config:
         return cls(**kwargs)
 
 
-def unported_options(cfg: Config, explicit_perform_test: bool = False):
+def unported_options(cfg: Config):
     """[(option, ROADMAP.md Queue 1 item)] for each set option whose path
     the port does not have yet."""
     checks = [
@@ -158,18 +158,13 @@ def unported_options(cfg: Config, explicit_perform_test: bool = False):
          "parallel and multi-process"),
         ("--mesh-model > 1", cfg.mesh_model > 1,
          "parallel and multi-process"),
-        ("--resume", cfg.resume, "train state and resume"),
-        ("--keep-checkpoints", cfg.keep_checkpoints > 0,
-         "train state and resume"),
         ("--steps-per-dispatch > 1", cfg.steps_per_dispatch > 1,
          "blocked K-step dispatch"),
         ("--bf16-attention", cfg.bf16_attention, "bf16"),
         ("--bf16-encoder", cfg.bf16_encoder, "bf16"),
         ("--bank-dtype bfloat16", cfg.bank_dtype != "float32", "bf16"),
-        ("--perform-test", explicit_perform_test, "TEST mode"),
         ("--wandb", cfg.wandb, "CLIs and tooling"),
         ("--profile-dir", cfg.profile_dir, "CLIs and tooling"),
-        ("--feature-cache-dir", cfg.feature_cache_dir, "CLIs and tooling"),
         ("--debug-nans", cfg.debug_nans, "CLIs and tooling"),
     ]
     return [(flag, item) for flag, on, item in checks if on]
@@ -178,10 +173,7 @@ def unported_options(cfg: Config, explicit_perform_test: bool = False):
 def build_arg_parser() -> argparse.ArgumentParser:
     """train.py's argparse surface (reference train.py:438-472, then
     sat_tpu's extensions), plus --device. argparse prefix matching makes
-    `--frac` an abbreviation of `--fraction`.
-
-    `--perform-test` keeps sat_tpu's effective default (True) but parses to
-    None when absent, so that the CLI can tell that it was given."""
+    `--frac` an abbreviation of `--fraction`."""
     parser = argparse.ArgumentParser(description="Show, Attend and Tell")
     parser.add_argument("--batch-size", type=int, default=64, metavar="N",
                         help="batch size for training (default: 64)")
@@ -194,9 +186,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                              "(default: 5)")
     parser.add_argument("--alpha-c", type=float, default=1, metavar="A",
                         help="regularization constant (default: 1)")
-    parser.add_argument("--perform-test", action="store_true", default=None,
-                        help="run the test split after training (always on "
-                             "in sat_tpu; TEST mode is not ported yet)")
+    parser.add_argument("--perform-test", action="store_true", default=True,
+                        help="run the test split after training (default: "
+                             "True)")
     parser.add_argument("--seed", type=int, default=42, metavar="S",
                         help="random seed (default: 42)")
     parser.add_argument("--log-interval", type=int, default=100, metavar="L",
@@ -230,8 +222,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--checkpoint-dir", type=str, default="model",
                         help="directory for checkpoints + model_config.json")
     parser.add_argument("--resume", action="store_true", default=False,
-                        help="resume from the latest train state (not "
-                             "ported)")
+                        help="resume from the latest train state in "
+                             "checkpoint-dir")
     parser.add_argument("--bert-embeddings", type=str, default=None,
                         help=".npy BERT embedding table (not ported)")
     parser.add_argument("--bert-vocab", type=str, default=None,
@@ -275,9 +267,13 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         help="K optimizer steps per dispatch (not ported "
                              "above 1)")
     parser.add_argument("--feature-cache-dir", type=str, default="",
-                        help="persist precomputed features (not ported)")
+                        help="persist precomputed frozen-encoder features "
+                             "to this directory (keyed by network, size, "
+                             "weights, dataset and split); reruns skip the "
+                             "encoder pass")
     parser.add_argument("--keep-checkpoints", type=int, default=0,
-                        help="prune train-state checkpoints (not ported)")
+                        help="prune train states beyond the newest N "
+                             "(0 = keep all)")
     parser.add_argument("--image-cache-gb", type=float, default=8.0,
                         help="host-RAM budget for the decoded-image cache "
                              "(0 disables caching)")
@@ -300,7 +296,4 @@ def build_arg_parser() -> argparse.ArgumentParser:
 def config_from_args(args: argparse.Namespace) -> Config:
     """Config from parsed flags; `--device` is not a Config field."""
     fields = {f.name for f in dataclasses.fields(Config)}
-    kwargs = {k: v for k, v in vars(args).items() if k in fields}
-    if kwargs.get("perform_test") is None:
-        kwargs["perform_test"] = True
-    return Config(**kwargs)
+    return Config(**{k: v for k, v in vars(args).items() if k in fields})

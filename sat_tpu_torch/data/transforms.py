@@ -33,3 +33,9 @@ def preprocess_pil(img: Image.Image,
 def load_and_preprocess_image(path: str,
                               size: int = constants.IMAGE_SIZE) -> np.ndarray:
     return preprocess_pil(pil_loader(path), size)
+
+
+def denormalize(img: np.ndarray) -> np.ndarray:
+    """Undo the ImageNet normalization, clipped to [0, 1] (for the
+    attention plots)."""
+    return np.clip(img * _STD + _MEAN, 0.0, 1.0)

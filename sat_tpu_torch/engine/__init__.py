@@ -1,2 +1,3 @@
-"""Caption step, training loop, checkpoints and token decoding (mirrors
-sat_tpu.engine for the serving and training paths)."""
+"""Caption step, training loop, checkpoints and train state, token
+decoding and BLEU (mirrors sat_tpu.engine for the serving and training
+paths)."""

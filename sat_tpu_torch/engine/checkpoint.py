@@ -12,15 +12,27 @@ flat `.npz` of `/`-joined parameter names in (in, out) layout, as
 A template here is the flat dict of the expected arrays, e.g. the output of
 `init_decoder_params`. `save_decoder_checkpoint` writes the per-epoch
 decoder archive `model_{network}_{epoch}.npz`, which sat_tpu's
-`load_decoder_checkpoint` reads strictly. The Orbax train-state tier
-(optimizer moments, resume) is not ported yet.
+`load_decoder_checkpoint` reads strictly.
+
+The train state, for `--resume`, is the port's own format and stands in
+for sat_tpu's Orbax tier: `<checkpoint_dir>/train_state/{step}.pt`, one
+`torch.save` of a dict of the decoder's and the optimizer's `state_dict`,
+`step`, `epoch`, `batch_offset` (batches of `epoch` already trained; 0
+when the epoch is complete) and the dropout generator's state with its
+device type. Its own directory lets sat_tpu's `orbax/` share one
+`--checkpoint-dir`. The port does not read Orbax states, and it has no
+older layout of its own, so sat_tpu's `train_state_has_key` probe has no
+counterpart.
 """
 
 from __future__ import annotations
 
 import os
+import re
+from typing import Optional
 
 import numpy as np
+import torch
 
 from sat_tpu_torch.compat.jax_params import decoder_to_jax
 
@@ -76,3 +88,84 @@ def save_decoder_checkpoint(checkpoint_dir: str, network: str, epoch: int,
     path = os.path.join(checkpoint_dir, f"model_{network}_{epoch}.npz")
     tree_save_npz(path, decoder_to_jax(decoder))
     return path
+
+
+# ------------------------------------------------------------ train state
+
+_STATE_FILE = re.compile(r"(\d+)\.pt")
+
+
+def _state_dir(checkpoint_dir: str) -> str:
+    return os.path.join(checkpoint_dir, "train_state")
+
+
+def _state_steps(checkpoint_dir: str) -> list[int]:
+    root = _state_dir(checkpoint_dir)
+    if not os.path.isdir(root):
+        return []
+    return sorted(int(m.group(1)) for m in map(_STATE_FILE.fullmatch,
+                                               os.listdir(root)) if m)
+
+
+def generator_state(gen: torch.Generator) -> dict:
+    return {"device": gen.device.type, "state": gen.get_state()}
+
+
+def set_generator_state(gen: torch.Generator, saved: dict) -> None:
+    """Restore a state from `generator_state`. A CUDA generator's state
+    (seed and offset) and a CPU generator's (a Mersenne Twister) are not
+    interchangeable, so a state saved on the other device raises."""
+    if saved["device"] != gen.device.type:
+        raise ValueError(
+            f"the train state's dropout generator ran on "
+            f"{saved['device']!r}, this run's on {gen.device.type!r}: resume "
+            f"on the device type that saved it")
+    gen.set_state(saved["state"].cpu())
+
+
+def save_train_state(checkpoint_dir: str, step: int, tree: dict) -> str:
+    """Write `tree` to `<checkpoint_dir>/train_state/{step}.pt`. The bytes
+    go to a temporary file, are synced to disk, then renamed over the
+    published name: a kill never leaves a truncated state there."""
+    root = _state_dir(checkpoint_dir)
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, f"{step}.pt")
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        torch.save(tree, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    return path
+
+
+def latest_train_state_step(checkpoint_dir: str) -> Optional[int]:
+    steps = _state_steps(checkpoint_dir)
+    return steps[-1] if steps else None
+
+
+def restore_train_state(checkpoint_dir: str, step: int,
+                        device: torch.device | str = "cpu") -> dict:
+    """The tree that `save_train_state` wrote at `step`, its tensors on
+    `device`, except Adam's step counts: torch.optim.Adam keeps them on
+    the host, where a fresh optimizer has them (on the card a step count
+    would cost a sync per parameter per step)."""
+    path = os.path.join(_state_dir(checkpoint_dir), f"{step}.pt")
+    tree = torch.load(path, map_location=device, weights_only=True)
+    for state in tree["optimizer"]["state"].values():
+        if "step" in state:
+            state["step"] = state["step"].cpu()
+    return tree
+
+
+def prune_train_states(checkpoint_dir: str, keep: int) -> list[int]:
+    """Delete all but the newest `keep` train states; returns the pruned
+    steps. Call after a save, so that the newest state is on disk before
+    any older one goes. `keep <= 0` prunes nothing: 0, the default of
+    --keep-checkpoints, means keep them all."""
+    if keep <= 0:
+        return []
+    pruned = _state_steps(checkpoint_dir)[:-keep]
+    for step in pruned:
+        os.remove(os.path.join(_state_dir(checkpoint_dir), f"{step}.pt"))
+    return pruned

@@ -2,28 +2,42 @@
 
 Port of sat_tpu/engine/loop.py's single-device path. Per epoch: the train
 step over every batch, with the reference's meters, stdout lines and
-metric names; a validation pass (loss, top-1 and top-5); the decoder
+metric names; a validation pass (loss, top-1, top-5 and BLEU-1..4 of the
+teacher-forced argmax captions, with a table of predictions); the decoder
 checkpoint `model_{network}_{epoch}.npz` and `model_config.json`, which
-sat_tpu and the port's server both load.
+sat_tpu and the port's server both load, and the full train state. With
+`perform_test` (on by default, as in sat_tpu) the test split follows the
+last epoch, and its first 50 images get attention plots.
 
-With `--cache-features` the frozen encoder runs once per unique image and
-the steps read its annotation grids: from a feature bank in device memory
-when every split fits under `--feature-bank-hbm-gb` (a step then ships
-only row indices), else gathered on the host. Without it every step runs
-the encoder on the batch's images.
+With `--cache-features` the frozen encoder runs once per unique image of
+each split and the steps read its annotation grids: from a feature bank
+in device memory when every split fits under `--feature-bank-hbm-gb` (a
+step then ships only row indices), else gathered on the host. With
+`--feature-cache-dir` the grids persist on disk under sat_tpu's key.
+Without `--cache-features` every step runs the encoder on the batch's
+images.
 
-Not ported yet, each named in ROADMAP.md Queue 1: BLEU in validation (it
-needs a corpus BLEU of the port's own), TEST mode with its attention
-plots, the Orbax train state with preemption and resume, the blocked
-K-step dispatch, the bf16 options, BERT and the device mesh.
+A SIGTERM or SIGUSR1 during `fit` saves the train state at the next step
+boundary and ends the run (`{"preempted": True, ...}`): mid-epoch, with
+the batches already trained counted, or during validation, with the
+epoch counted complete. `--resume` continues from the newest state; the
+dropout generator's state is part of it, so a resumed run takes the same
+steps as one that was never stopped.
+
+Not ported yet, each named in ROADMAP.md Queue 1: the blocked K-step
+dispatch, the bf16 options, W&B, the profiler, NaN debugging, BERT and
+the device mesh.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
+import signal
 import time
 from collections import deque
+from contextlib import contextmanager
 from enum import Enum
 
 import numpy as np
@@ -32,8 +46,11 @@ import torch
 from sat_tpu_torch.compat.jax_params import decoder_from_jax, encoder_from_jax
 from sat_tpu_torch.config import Config, unported_options
 from sat_tpu_torch.data.dataset import BatchLoader, CacheBudget, CaptionDataset
+from sat_tpu_torch.data.transforms import denormalize
 from sat_tpu_torch.device import resolve_device
 from sat_tpu_torch.engine import checkpoint as ckpt
+from sat_tpu_torch.engine.evaluate import (build_token_dict, compute_bleu,
+                                           decode_caption)
 from sat_tpu_torch.models.decoder import DecoderConfig, init_decoder_params
 from sat_tpu_torch.models.encoder import encoder_forward, init_encoder_params
 from sat_tpu_torch.parallel.train_step import (init_train_state,
@@ -43,10 +60,14 @@ from sat_tpu_torch.parallel.train_step import (init_train_state,
                                                make_train_step)
 from sat_tpu_torch.utils.logging import MetricLogger
 from sat_tpu_torch.utils.meters import AverageMeter
+from sat_tpu_torch.utils.viz import save_attention_plot
+
+MAX_ATTENTION_PLOTS = 50     # per TEST pass, as the reference logs
 
 
 class EvalMode(Enum):
     VALIDATION = "val"
+    TEST = "test"
 
 
 def step_lr(base_lr: float, epoch: int, step_size: int,
@@ -54,6 +75,11 @@ def step_lr(base_lr: float, epoch: int, step_size: int,
     """StepLR as the reference schedules it: `scheduler.step()` after each
     epoch, so epoch i (1-based) trains at base * gamma^((i-1)//step_size)."""
     return base_lr * (gamma ** ((epoch - 1) // step_size))
+
+
+class TrainingPreempted(Exception):
+    """Raised in the epoch loop after a preemption request, once the train
+    state is saved; `fit` ends the run. Rerun with --resume."""
 
 
 class Trainer:
@@ -70,6 +96,7 @@ class Trainer:
 
         with open(os.path.join(cfg.data, "word_dict.json")) as f:
             self.word_dict = json.load(f)
+        self.token_dict = build_token_dict(self.word_dict)
         self.dcfg = DecoderConfig(
             vocab_size=len(self.word_dict), encoder_dim=cfg.encoder_dim,
             use_tf=cfg.tf, use_ado=cfg.ado, use_bert=cfg.bert,
@@ -98,13 +125,18 @@ class Trainer:
             dec_flat, self.dcfg, self.device, trainable=True))
         self.dropout_gen = torch.Generator(device=self.device).manual_seed(
             cfg.seed)
+        self.start_epoch = 1
+        self._resume_batch_offset = 0
+        self._preempt_requested = False
+        if cfg.resume:
+            self._resume()
 
         # ---- data
         t0 = time.time()
         cache_imgs = not cfg.cache_features
         budget = CacheBudget(int(cfg.image_cache_gb * (1 << 30)))
 
-        def make_loader(split):
+        def make_loader(split, load_images):
             ds = CaptionDataset(cfg.data, split, cfg.fraction,
                                 cache_images=cache_imgs
                                 and cfg.image_cache_gb > 0,
@@ -112,20 +144,24 @@ class Trainer:
                                 cache_budget=budget)
             loader = BatchLoader(ds, cfg.batch_size, shuffle=True,
                                  seed=cfg.seed, with_indices=True,
-                                 load_images=cache_imgs)
+                                 load_images=load_images)
             loader.split = split
             return loader
 
-        self.train_loader = make_loader("train")
+        # With the feature cache, train and val never touch pixels after
+        # the precompute; the test loader keeps them for the plots.
+        self.train_loader = make_loader("train", cache_imgs)
         print(f"Time to load train dataset: {time.time() - t0} seconds")
-        self.val_loader = make_loader("val")
+        self.val_loader = make_loader("val", cache_imgs)
+        self.test_loader = make_loader("test", True)
+        loaders = (self.train_loader, self.val_loader, self.test_loader)
 
         # ---- frozen-encoder feature cache
         self.features, self.row_map, self.bank = {}, {}, {}
         self.use_bank = False
         if cfg.cache_features:
             t0 = time.time()
-            for loader in (self.train_loader, self.val_loader):
+            for loader in loaders:
                 self.features[loader.split], self.row_map[loader.split] = \
                     self._precompute_split_features(loader.dataset)
             total_bytes = sum(f.nbytes for f in self.features.values())
@@ -134,7 +170,7 @@ class Trainer:
                   f"images in {time.time() - t0:.1f}s")
             self.use_bank = total_bytes <= cfg.feature_bank_hbm_gb * (1 << 30)
             if self.use_bank:
-                for loader in (self.train_loader, self.val_loader):
+                for loader in loaders:
                     split = loader.split
                     self.bank[split] = {
                         "feats": torch.as_tensor(self.features[split],
@@ -170,25 +206,97 @@ class Trainer:
         print(f"Total Trainable Params: "
               f"{sum(p.numel() for p in self.state.decoder.parameters())}")
 
+    def _resume(self) -> None:
+        """Load the newest train state in --checkpoint-dir, if there is one:
+        a mid-epoch state (batch_offset > 0) redoes that epoch from the
+        batch after the last one trained, a complete one starts the next."""
+        cfg = self.cfg
+        step = ckpt.latest_train_state_step(cfg.checkpoint_dir)
+        if step is None:
+            return
+        print(f"Resuming from checkpoint step {step}")
+        tree = ckpt.restore_train_state(cfg.checkpoint_dir, step, self.device)
+        self.state.decoder.load_state_dict(tree["decoder"])
+        self.state.optimizer.load_state_dict(tree["optimizer"])
+        self.state.step = int(tree["step"])
+        ckpt.set_generator_state(self.dropout_gen, tree["dropout_generator"])
+        offset = int(tree["batch_offset"])
+        if offset > 0:
+            self.start_epoch = int(tree["epoch"])
+            self._resume_batch_offset = offset
+            print(f"Resuming epoch {self.start_epoch} at batch offset "
+                  f"{offset}")
+        else:
+            self.start_epoch = int(tree["epoch"]) + 1
+
     # ------------------------------------------------------------- features
+
+    def _feature_cache_key(self, split, unique_paths) -> str:
+        """sat_tpu's disk-cache key of a split's features: the encoder,
+        the image size, bf16, the decode path (always PIL here), the
+        encoder weights' source and each unique image's path, size and
+        mtime. An archive of weights (--encoder-weights) gives sat_tpu's
+        key, so either package reads the other's file; random weights
+        from --seed are keyed apart from sat_tpu's, whose initializers
+        draw other numbers from the same seed."""
+        cfg = self.cfg
+        if cfg.encoder_weights:
+            st = os.stat(cfg.encoder_weights)
+            src = (f"npz:{os.path.abspath(cfg.encoder_weights)}:"
+                   f"{st.st_size}:{st.st_mtime_ns}")
+        else:
+            src = f"torch-seed:{cfg.seed}"
+        h = hashlib.sha1()
+        h.update("\n".join([cfg.network, str(cfg.image_size),
+                            str(bool(cfg.bf16_encoder)), "pil", src,
+                            split]).encode())
+        for p in unique_paths:
+            st = os.stat(p)
+            h.update(f"\n{os.path.abspath(p)}:{st.st_size}:"
+                     f"{st.st_mtime_ns}".encode())
+        return h.hexdigest()[:16]
 
     def _precompute_split_features(self, ds, batch: int = 16):
         """Encode each unique image once: (features (U, L, D) float32 on the
-        host, row_map (N,) from dataset rows to feature rows)."""
+        host, row_map (N,) from dataset rows to feature rows). With
+        --feature-cache-dir the features are read from, or published to,
+        `feats_{split}_{key}.npz` there."""
+        cfg = self.cfg
         first_row = {}
         for i, p in enumerate(ds.img_paths):
             first_row.setdefault(p, i)
         unique = list(first_row)
         path_idx = {p: i for i, p in enumerate(unique)}
         row_map = np.asarray([path_idx[p] for p in ds.img_paths], np.int32)
+
+        cache_file = None
+        if cfg.feature_cache_dir:
+            key = self._feature_cache_key(ds.split_type, unique)
+            cache_file = os.path.join(cfg.feature_cache_dir,
+                                      f"feats_{ds.split_type}_{key}.npz")
+            if os.path.exists(cache_file):
+                with np.load(cache_file) as data:
+                    feats = data["feats"]
+                print(f"Loaded cached features for {len(unique)} images "
+                      f"from {cache_file}")
+                return feats, row_map
+
         chunks = []
         for start in range(0, len(unique), batch):
             imgs = np.stack([ds.load_image(first_row[p])
                              for p in unique[start:start + batch]])
-            chunks.append(encoder_forward(self.encoder, self.cfg.network,
+            chunks.append(encoder_forward(self.encoder, cfg.network,
                                           imgs).cpu().numpy())
         feats = (np.concatenate(chunks) if chunks
-                 else np.zeros((0, 1, self.cfg.encoder_dim), np.float32))
+                 else np.zeros((0, 1, cfg.encoder_dim), np.float32))
+
+        if cache_file is not None:
+            # published by rename: a killed run leaves no truncated entry
+            os.makedirs(cfg.feature_cache_dir, exist_ok=True)
+            tmp = cache_file + f".{os.getpid()}.tmp.npz"
+            np.savez(tmp, feats=feats)
+            os.replace(tmp, cache_file)
+            print(f"Saved feature cache: {cache_file}")
         return feats, row_map
 
     def _step_inputs(self, split, imgs, idxs):
@@ -224,12 +332,21 @@ class Trainer:
 
     # --------------------------------------------------------------- epochs
 
+    def request_preempt(self) -> None:
+        """Ask the epoch loop to save the train state and stop at the next
+        step boundary (the signal handlers of `fit` call this)."""
+        self._preempt_requested = True
+
     def train_epoch(self, epoch: int) -> None:
         print(f"Epoch {epoch} - Starting train")
         cfg = self.cfg
         lr = step_lr(cfg.lr, epoch, cfg.step_size)
         losses, top1, top5 = AverageMeter(), AverageMeter(), AverageMeter()
         n_batches = self.train_loader.batches_per_epoch()
+        # A mid-epoch resume replays the loader's (seed, epoch) order past
+        # the batches already trained; the meters restart there.
+        skip = self._resume_batch_offset if epoch == self.start_epoch else 0
+        self._resume_batch_offset = 0
 
         def finish(batch_idx, metrics):
             """Host half of one step, run one batch behind the device: the
@@ -256,9 +373,18 @@ class Trainer:
 
         pending = deque()
         for batch_idx, (imgs, captions, _, idxs) in enumerate(
-                self.train_loader.epoch(epoch)):
+                self.train_loader.epoch(epoch, skip=skip), start=skip):
             self.state, metrics = self._run_train_step(
                 "train", imgs, captions, idxs, lr)
+            if self._preempt_requested:
+                # as sat_tpu: the batch just trained is saved as trained
+                # but its metrics are not read
+                while pending:
+                    finish(*pending.popleft())
+                self._save_train_state(epoch, batch_offset=batch_idx + 1)
+                print(f"Preempted at epoch {epoch} batch {batch_idx + 1}: "
+                      f"train state saved; rerun with --resume to continue")
+                raise TrainingPreempted()
             pending.append((batch_idx, metrics))
             if len(pending) >= 2:
                 finish(*pending.popleft())
@@ -267,34 +393,87 @@ class Trainer:
 
     def run_evaluation(self, epoch: int, loader: BatchLoader,
                        mode: EvalMode) -> dict:
-        """Loss, top-1 and top-5 over the split, one batch behind the
-        device. BLEU is not ported yet (ROADMAP.md, Queue 1)."""
+        """Loss, top-1, top-5 and BLEU-1..4 over the split, one batch behind
+        the device; a table of each batch's last target and prediction; in
+        TEST mode, attention plots of the first images."""
         cfg = self.cfg
         losses, top1, top5 = AverageMeter(), AverageMeter(), AverageMeter()
+        decoded_all_captions, decoded_hypotheses = [], []
+        predictions_rows = []
         n_batches = loader.batches_per_epoch()
+        viz_count = 0
+        viz_dir = os.path.join(cfg.checkpoint_dir,
+                               f"attention_viz_epoch{epoch}")
 
-        def finish(batch_idx, metrics):
+        def decode(rows):
+            return [decode_caption(r, self.word_dict, self.token_dict)
+                    for r in rows]
+
+        def finish(batch_idx, imgs, captions, all_captions, metrics,
+                   pred_tokens, alphas):
+            nonlocal viz_count
             n = int(metrics["caption_length"])
             losses.update(float(metrics["loss"]), n)
             top1.update(float(metrics["acc1"]), n)
             top5.update(float(metrics["acc5"]), n)
+
+            batch_captions = decode(captions.tolist())
+            batch_hypotheses = decode(pred_tokens.cpu().tolist())
+            decoded_hypotheses.extend(batch_hypotheses)
+            for cap_set in all_captions.tolist():
+                decoded_all_captions.append(decode(cap_set))
+
             if batch_idx % cfg.log_interval == 0:
                 print(f"{mode} Batch: [{batch_idx}/{n_batches}]\t"
                       f"Loss {losses.val:.4f} ({losses.avg:.4f})\t"
                       f"Top 1 Accuracy {top1.val:.3f} ({top1.avg:.3f})\t"
                       f"Top 5 Accuracy {top5.val:.3f} ({top5.avg:.3f})")
+            predictions_rows.append([epoch, mode.value,
+                                     " ".join(batch_captions[-1]),
+                                     " ".join(batch_hypotheses[-1])])
+
+            if mode != EvalMode.TEST or viz_count >= MAX_ATTENTION_PLOTS:
+                return
+            os.makedirs(viz_dir, exist_ok=True)
+            alphas = alphas.cpu().numpy()
+            for img_idx in range(len(imgs)):
+                if viz_count >= MAX_ATTENTION_PLOTS:
+                    break
+                words = batch_hypotheses[img_idx]
+                if len(words) == 0:
+                    print(f"No caption for image {img_idx}, skipping "
+                          f"attention visualization")
+                    break
+                tag = f"b{batch_idx}_i{img_idx}"
+                png = os.path.join(viz_dir, f"{tag}.png")
+                save_attention_plot(
+                    png, denormalize(imgs[img_idx]), words, alphas[img_idx],
+                    cfg.grid_side,
+                    reference_caption=" ".join(batch_captions[img_idx]))
+                self.logger.log_image(f"attention_viz/e{epoch}_{tag}", png,
+                                      caption=" ".join(words))
+                viz_count += 1
 
         pending = deque()
-        for batch_idx, (imgs, captions, _, idxs) in enumerate(
+        for batch_idx, (imgs, captions, all_captions, idxs) in enumerate(
                 loader.epoch(epoch)):
-            metrics, _, _ = self._run_eval_step(loader.split, imgs, captions,
-                                                idxs)
-            pending.append((batch_idx, metrics))
+            metrics, pred_tokens, alphas = self._run_eval_step(
+                loader.split, imgs, captions, idxs)
+            # Validation honours a preemption too: the trained epoch is
+            # saved as complete, and the interrupted pass, which carries no
+            # state, is dropped.
+            if mode == EvalMode.VALIDATION and self._preempt_requested:
+                while pending:
+                    finish(*pending.popleft())
+                self._preempt_eval(epoch)
+            pending.append((batch_idx, imgs, captions, all_captions, metrics,
+                            pred_tokens, alphas))
             if len(pending) >= 2:
                 finish(*pending.popleft())
         while pending:
             finish(*pending.popleft())
 
+        bleu = compute_bleu(decoded_all_captions, decoded_hypotheses)
         self.logger.log({
             "epoch": epoch,
             f"{mode.value}_loss": losses.avg,
@@ -303,40 +482,105 @@ class Trainer:
             f"{mode.value}_loss_raw": losses.val,
             f"{mode.value}_top1_acc_raw": top1.val,
             f"{mode.value}_top5_acc_raw": top5.val,
+            **{f"{mode.value}_{k}": v for k, v in bleu.items()},
         })
+        self.logger.log_table(f"{epoch}_{mode.value}_caption_predictions",
+                              ["epoch", "mode", "target_caption",
+                               "pred_caption"], predictions_rows)
         print(f"{mode} Epoch: {epoch}\t"
-              f"Loss ({losses.avg:.4f})\t"
-              f"Top 1 Accuracy ({top1.avg:.3f})\t"
-              f"Top 5 Accuracy ({top5.avg:.3f})\t"
-              f"BLEU not computed (not ported yet)")
-        return {"loss": losses.avg, "top1": top1.avg, "top5": top5.avg}
+              f"BLEU-1 ({bleu['bleu1']})\t"
+              f"BLEU-2 ({bleu['bleu2']})\t"
+              f"BLEU-3 ({bleu['bleu3']})\t"
+              f"BLEU-4 ({bleu['bleu4']})\t")
+        return {"loss": losses.avg, "top1": top1.avg, "top5": top5.avg,
+                **bleu}
+
+    def _preempt_eval(self, epoch: int) -> None:
+        self.save_epoch(epoch)
+        print(f"Preempted during validation of epoch {epoch}: "
+              f"epoch checkpointed as complete; rerun with --resume "
+              f"to continue at epoch {epoch + 1}")
+        raise TrainingPreempted()
 
     def validate(self, epoch: int) -> dict:
         print(f"Epoch {epoch} - Starting validation")
         return self.run_evaluation(epoch, self.val_loader,
                                    EvalMode.VALIDATION)
 
+    def test(self, epoch: int) -> dict:
+        print(f"Epoch {epoch} - Starting test")
+        return self.run_evaluation(epoch, self.test_loader, EvalMode.TEST)
+
+    # ---------------------------------------------------------- checkpoints
+
     def save_epoch(self, epoch: int) -> str:
-        """The epoch's decoder `.npz` and `model_config.json` (with its
-        `sat_config.json` sidecar) in --checkpoint-dir."""
+        """The epoch's decoder `.npz`, `model_config.json` (with its
+        `sat_config.json` sidecar) and the train state, in
+        --checkpoint-dir."""
         cfg = self.cfg
         path = ckpt.save_decoder_checkpoint(cfg.checkpoint_dir, cfg.network,
                                             epoch, self.state.decoder)
-        cfg.save_model_config(os.path.join(cfg.checkpoint_dir,
-                                           "model_config.json"))
+        self.logger.save_file(path)
+        config_path = os.path.join(cfg.checkpoint_dir, "model_config.json")
+        cfg.save_model_config(config_path)
+        self.logger.save_file(config_path)
+        self._save_train_state(epoch, batch_offset=0)
         return path
+
+    def train_state_tree(self, epoch: int, batch_offset: int) -> dict:
+        """What `--resume` needs: `batch_offset` batches of `epoch` are
+        trained, 0 meaning the whole epoch."""
+        return {"decoder": self.state.decoder.state_dict(),
+                "optimizer": self.state.optimizer.state_dict(),
+                "step": self.state.step, "epoch": epoch,
+                "batch_offset": batch_offset,
+                "dropout_generator": ckpt.generator_state(self.dropout_gen)}
+
+    def _save_train_state(self, epoch: int, batch_offset: int) -> None:
+        """With --keep-checkpoints N, older states are pruned after the new
+        one is on disk."""
+        ckpt.save_train_state(self.cfg.checkpoint_dir, self.state.step,
+                              self.train_state_tree(epoch, batch_offset))
+        ckpt.prune_train_states(self.cfg.checkpoint_dir,
+                                self.cfg.keep_checkpoints)
+
+    @contextmanager
+    def _preempt_handlers(self):
+        """SIGTERM and SIGUSR1 (what preemptible schedulers send) request a
+        save-and-stop at the next step boundary; the previous handlers come
+        back on exit. Nothing is installed outside the main thread, where
+        signal.signal raises."""
+        def handler(signum, frame):
+            print(f"Signal {signum} received — checkpointing at the next "
+                  f"step boundary")
+            self.request_preempt()
+
+        installed = []
+        for sig in (signal.SIGTERM, signal.SIGUSR1):
+            try:
+                installed.append((sig, signal.signal(sig, handler)))
+            except ValueError:
+                pass
+        try:
+            yield
+        finally:
+            for sig, old in installed:
+                signal.signal(sig, old)
 
     def fit(self) -> dict:
         cfg = self.cfg
         last = {}
+        epoch = self.start_epoch - 1
         try:
-            for epoch in range(1, cfg.epochs + 1):
-                self.train_epoch(epoch)
-                last = self.validate(epoch)
-                self.save_epoch(epoch)
-            if cfg.perform_test:
-                print("TEST mode is not ported yet (ROADMAP.md, Queue 1): "
-                      "the test split is not evaluated")
+            with self._preempt_handlers():
+                for epoch in range(self.start_epoch, cfg.epochs + 1):
+                    self.train_epoch(epoch)
+                    last = self.validate(epoch)
+                    self.save_epoch(epoch)
+                if cfg.perform_test:
+                    last = self.test(max(epoch, self.start_epoch))
+        except TrainingPreempted:
+            last = {"preempted": True, "epoch": epoch}
         finally:
             self.logger.finish()
         return last

@@ -5,7 +5,10 @@
 The flags are train.py's (the reference's argparse surface plus sat_tpu's
 extensions); `--device` picks the card (cuda, the default) or the CPU,
 where every kernel runs its plain PyTorch form. A flag whose path is not
-ported yet raises NotImplementedError naming its ROADMAP.md item.
+ported yet raises NotImplementedError naming its ROADMAP.md item. `main`
+returns what `Trainer.fit` does: the last evaluation's metrics, or
+`{"preempted": True, "epoch": e}` after a SIGTERM or SIGUSR1 (rerun with
+--resume to continue).
 """
 
 from __future__ import annotations
@@ -31,8 +34,7 @@ def set_seed(seed: int) -> None:
 def main(argv=None) -> dict:
     args = build_arg_parser().parse_args(argv)
     cfg = config_from_args(args)
-    unported = unported_options(cfg, explicit_perform_test=bool(
-        args.perform_test))
+    unported = unported_options(cfg)
     if unported:
         raise NotImplementedError(
             "not ported yet (ROADMAP.md, Queue 1): " + ", ".join(

@@ -1,1 +1,2 @@
-"""Metrics, the loss, meters and metric logging of the training path."""
+"""Metrics, the loss, meters, metric logging, corpus BLEU and attention
+plots of the training path."""

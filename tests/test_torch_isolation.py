@@ -1,5 +1,7 @@
-"""The port stands alone: it imports neither jax nor sat_tpu, and its entry
-points refuse to run on the CPU unless asked to."""
+"""The port stands alone: it imports neither jax nor sat_tpu, nor the
+packages that only sat_tpu uses and the card's machine lacks (nltk,
+matplotlib, orbax, wandb, skimage), and its entry points refuse to run on
+the CPU unless asked to."""
 
 import ast
 import os
@@ -13,7 +15,8 @@ import torch
 from tests.test_torch_common import to_np  # noqa: F401  (one torch thread)
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "sat_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "sat_tpu", "nltk", "matplotlib", "orbax",
+             "wandb", "skimage"}
 
 # The CPU slice at toy size, in a fresh interpreter: tests/conftest.py has
 # already imported jax into this one.
@@ -53,24 +56,75 @@ def test_cpu_slice_runs_without_jax_or_sat_tpu():
     assert "ISOLATED" in proc.stdout
 
 
-# The training CLI at toy size, in a fresh interpreter, on a dataset made
-# beforehand; argv[1] is the dataset, argv[2] the checkpoint directory.
+# The training CLI at toy size, in a fresh interpreter in which the
+# forbidden packages cannot be imported, on a dataset made beforehand:
+# one epoch with the test pass; the same run preempted by SIGUSR1 after its
+# first step and finished by --resume, which must end with the same
+# decoder. argv[1] is the dataset, argv[2] the output directory, argv[3:]
+# the forbidden packages.
 _TRAIN = r"""
+import importlib.abc
 import os
+import signal
 import sys
+
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in sys.argv[3:]:
+            raise ImportError(f"{name} is not importable here")
+
+
+sys.meta_path.insert(0, Refuse())
+import numpy as np
 import torch
+import sat_tpu_torch.engine.loop as loop
 from sat_tpu_torch.train import main
 
 torch.set_num_threads(1)
 data, out = sys.argv[1], sys.argv[2]
-res = main(["--data", data, "--checkpoint-dir", out, "--image-size", "32",
-            "--batch-size", "4", "--epochs", "1", "--log-interval", "1",
-            "--tf", "--ado", "--attention", "--cache-features",
-            "--device", "cpu"])
-assert os.path.exists(os.path.join(out, "model_vgg19_1.npz"))
-assert res["loss"] > 0, res
-bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "sat_tpu"))
+
+
+def train(ckpt_dir, *extra):
+    return main(["--data", data, "--checkpoint-dir", ckpt_dir,
+                 "--image-size", "32", "--batch-size", "4", "--epochs", "1",
+                 "--log-interval", "1", "--tf", "--ado", "--attention",
+                 "--cache-features", "--device", "cpu", *extra])
+
+
+full = os.path.join(out, "full")
+res = train(full)
+assert 0 <= res["bleu1"] <= 1 and res["loss"] > 0, res
+plots = os.listdir(os.path.join(full, "attention_viz_epoch1"))
+assert plots and all(p.endswith(".png") for p in plots), plots
+assert os.listdir(os.path.join(full, "train_state")) == ["2.pt"]
+
+make_step = loop.make_bank_train_step
+
+
+def preempting_step(*args, **kw):
+    step, calls = make_step(*args, **kw), []
+
+    def first_call_signals(*a, **k):
+        calls.append(1)
+        if len(calls) == 1:
+            os.kill(os.getpid(), signal.SIGUSR1)
+        return step(*a, **k)
+    return first_call_signals
+
+
+cut = os.path.join(out, "cut")
+loop.make_bank_train_step = preempting_step
+assert train(cut) == {"preempted": True, "epoch": 1}
+loop.make_bank_train_step = make_step
+assert os.listdir(os.path.join(cut, "train_state")) == ["1.pt"]
+res = train(cut, "--resume")
+assert "bleu4" in res, res
+with np.load(os.path.join(full, "model_vgg19_1.npz")) as a, \
+        np.load(os.path.join(cut, "model_vgg19_1.npz")) as b:
+    for k in a.files:
+        assert np.array_equal(a[k], b[k]), k
+bad = sorted(m for m in sys.modules if m.split(".")[0] in sys.argv[3:])
 assert not bad, bad
 print("ISOLATED")
 """
@@ -86,16 +140,22 @@ def test_training_cli_runs_without_jax_or_sat_tpu(tmp_path):
     from tests._synth import build_synth_dataset
 
     data = str(tmp_path / "data")
-    build_synth_dataset(data, n_train=4, n_val=2, n_test=1, caps_per_img=2,
+    build_synth_dataset(data, n_train=4, n_val=2, n_test=2, caps_per_img=2,
                         image_size=32)
     generate_json_data(f"{data}/dataset.json", data, 2, 1, 10)
     proc = subprocess.run(
-        [sys.executable, "-c", _TRAIN, data, str(tmp_path / "model")],
+        [sys.executable, "-c", _TRAIN, data, str(tmp_path),
+         *sorted(FORBIDDEN)],
         cwd=REPO, env=_subprocess_env(), capture_output=True, text=True,
         timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "ISOLATED" in proc.stdout
     assert "Train Batch: [1/2]" in proc.stdout   # 8 rows, 4 a batch
+    for line in ("EvalMode.VALIDATION Epoch: 1\tBLEU-1 (",
+                 "EvalMode.TEST Epoch: 1\tBLEU-1 (",
+                 "Preempted at epoch 1 batch 1",
+                 "Resuming epoch 1 at batch offset 1"):
+        assert line in proc.stdout, line
 
 
 def _port_files():

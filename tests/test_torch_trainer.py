@@ -1,13 +1,16 @@
 """The port's Trainer against sat_tpu's on the synthetic dataset of
 tests/_synth.py: both start from one decoder archive (`--model`) and one
 encoder archive (`--encoder-weights`) made by sat_tpu's initializers, run
-with dropout 0, and must log the same epoch meters and write the same
-model_config.json. The port's checkpoint loads strictly in sat_tpu and in
-the port's server. All on the CPU with the kernels' plain forms.
+with dropout 0, and must log the same rows (epoch meters, BLEU, the
+predictions tables, the attention plots of the test pass) and write the
+same model_config.json. The port's checkpoint loads strictly in sat_tpu
+and in the port's server. All on the CPU with the kernels' plain forms.
 
 Tolerances: losses atol 5e-5, rtol 1e-5 (tests/test_train_parity.py);
 accuracies atol 1e-3 points (a percentage over a few dozen tokens: one
-flipped token would move it by more than 1)."""
+flipped token would move it by more than 1); BLEU atol 1e-9 (the same
+argmax captions give the same score to rounding); the tables' captions
+exactly."""
 
 import json
 import os
@@ -68,12 +71,26 @@ def _rows(path):
 
 
 def _assert_meters_match(got_rows, want_rows):
+    """Row by row: meters and BLEU to their tolerances, tables exactly,
+    images by name, file name and caption."""
     assert len(got_rows) == len(want_rows)
     for got, want in zip(got_rows, want_rows):
         keys = sorted(k for k in want if k in got and k != "time")
         assert keys == sorted(k for k in got if k != "time"), (got, want)
+        if "table" in want:
+            assert got["table"] == want["table"]
+            assert got["columns"] == want["columns"]
+            assert got["rows"] == want["rows"], want["table"]
+            continue
+        if "image" in want:
+            assert (got["image"], got["caption"]) == (want["image"],
+                                                      want["caption"])
+            assert (os.path.basename(got["path"])
+                    == os.path.basename(want["path"]))
+            continue
         for k in keys:
             tol = (dict(atol=5e-5, rtol=1e-5) if "loss" in k
+                   else dict(atol=1e-9, rtol=0) if "bleu" in k
                    else dict(atol=1e-3))
             np.testing.assert_allclose(got[k], want[k], err_msg=k, **tol)
 
@@ -82,18 +99,25 @@ def test_fit_matches_sat_tpu(data, tmp_path):
     from sat_tpu.engine.loop import Trainer as JaxTrainer
 
     jax_out, port_out = str(tmp_path / "jax"), str(tmp_path / "port")
-    jax_cfg = JaxConfig(**_config_kwargs(data, jax_out, cache_features=True))
-    port_cfg = Config(**_config_kwargs(data, port_out, cache_features=True))
-    JaxTrainer(jax_cfg).fit()
+    jax_cfg = JaxConfig(**_config_kwargs(data, jax_out, cache_features=True,
+                                         perform_test=True))
+    port_cfg = Config(**_config_kwargs(data, port_out, cache_features=True,
+                                       perform_test=True))
+    jax_last = JaxTrainer(jax_cfg).fit()
     trainer = Trainer(port_cfg, device="cpu")
     assert trainer.use_bank
-    trainer.fit()
+    last = trainer.fit()
 
-    want = [r for r in _rows(jax_cfg.log_jsonl) if "table" not in r]
-    for r in want:          # BLEU is not ported
-        for k in [k for k in r if "bleu" in k]:
-            del r[k]
-    _assert_meters_match(_rows(port_cfg.log_jsonl), want)
+    want, got = _rows(jax_cfg.log_jsonl), _rows(port_cfg.log_jsonl)
+    assert any("test_bleu4" in r for r in got)
+    assert sum("image" in r for r in got) >= 1
+    _assert_meters_match(got, want)
+    assert sorted(last) == sorted(jax_last)
+    for k in ("bleu1", "bleu2", "bleu3", "bleu4"):
+        np.testing.assert_allclose(last[k], jax_last[k], atol=1e-9, rtol=0)
+    viz = "attention_viz_epoch2"
+    assert (sorted(os.listdir(os.path.join(port_cfg.checkpoint_dir, viz)))
+            == sorted(os.listdir(os.path.join(jax_cfg.checkpoint_dir, viz))))
     for name in ("model_config.json", "sat_config.json"):
         with open(os.path.join(jax_cfg.checkpoint_dir, name)) as f:
             ref = f.read()
@@ -160,10 +184,9 @@ def test_step_lr_matches_sat_tpu():
 
 @pytest.mark.parametrize("flags", [
     ["--bert"], ["--bert-vocab", "v.txt"], ["--mesh-data", "2"],
-    ["--mesh-model", "2"], ["--resume"], ["--keep-checkpoints", "2"],
-    ["--steps-per-dispatch", "2"], ["--bf16-attention"], ["--bf16-encoder"],
-    ["--bank-dtype", "bfloat16"], ["--perform-test"], ["--wandb"],
-    ["--profile-dir", "p"], ["--feature-cache-dir", "c"], ["--debug-nans"]],
+    ["--mesh-model", "2"], ["--steps-per-dispatch", "2"],
+    ["--bf16-attention"], ["--bf16-encoder"], ["--bank-dtype", "bfloat16"],
+    ["--wandb"], ["--profile-dir", "p"], ["--debug-nans"]],
     ids=lambda f: f[0])
 def test_unported_training_flags_raise(flags):
     from sat_tpu_torch.train import main
