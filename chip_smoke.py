@@ -28,22 +28,44 @@ no result line is printed:
                issue time of the precise tanhf, counted from cuobjdump's
                SASS of a probe kernel
   4. main    — the worst case (stop-token logits pinned to -1e9, so every
-               beam runs all 51 steps) through build_caption_step; every
-               kernel's launch count in that run; encoder and decode times
-               and a torch.profiler breakdown of each; 8 of the images
-               decoded on the GPU, beam and greedy, with their launch
-               counts, and again on the CPU with the plain forms, must agree
+               beam runs all 51 steps) through a new build_caption_step,
+               whose first batch captures the beam's CUDA graphs (the
+               wrappers' host launch counts: the warm-up's and the
+               capture's, exactly) and whose second and third replay them,
+               bit for bit, the third under the profiler (no host launch,
+               51 of top-k and of attention_fwd on the device);
+               the decode through its graphs and without (`graphs=None`),
+               equal bit for bit, three host-clock times each in turns,
+               capture seconds, profiles (device busy share; top-k and
+               attention_fwd 51 times each on the device); greedy the
+               same way; graph against eager at B = 1 and 7; decode ms by
+               the exit-read interval S, worst case and seeded weights; 8
+               of the images decoded eagerly on the GPU, beam and greedy,
+               with their launch counts, and again on the CPU with the
+               plain forms, must agree
   5. serve   — a checkpoint directory on disk, the port's build_server +
-               CaptionServer on an ephemeral port, 16 concurrent requests
-               and the kernels' launch counts in serving them
+               CaptionServer on an ephemeral port (batches padded to
+               power-of-two buckets), 16 concurrent requests and the
+               kernels' launch counts in serving them; a batch of 7
+               requests padded to 8, each answered from its own row; a
+               fresh `python -m sat_tpu_torch.serve` process, whose answer to
+               one cached request must be this process's f32 answer bit
+               for bit (the CLI turns TF32 off itself)
   6. train   — the flagship decoder (tf + ado + attention) in bank
                training at B = 64, captions (64, 27), a device bank of 512
                random feature grids: one step on the card against the same
                step on the CPU (dropout 0); each step's attention launches
-               with remat on and off; ms per step and rows/s both ways; a
-               profile of one step; the loss falling over 20 steps on one
+               with remat on and off; K = 8 blocks (--steps-per-dispatch,
+               CUDA-graph replays): their host and device launches, ms
+               per step and rows/s per-batch and blocked in turns, with
+               peak memory allocated, and for a block with its graph's
+               pool (measured from the allocator's snapshot around its
+               capture), capture seconds, a block against 8 per-batch steps from one
+               state (dropout 0, remat on and off) and two blocked runs
+               with dropout 0.5, each bit for bit; a profile of one step
+               and of one block; the loss falling over 20 steps on one
                batch
-  7. entry   — a synthetic dataset on disk (128 train, 64 val and 64
+  7. entry   — a synthetic dataset on disk (512 train, 128 val and 16
                test rows of 224 px PNGs, a 2633-word vocabulary) through
                `python -m sat_tpu_torch.train`'s main for one epoch and
                the test pass: BLEU-1..4 of validation and test, 1-50
@@ -51,8 +73,12 @@ no result line is printed:
                run through the Trainer, preempted by SIGUSR1 after its
                first step, then finished by main with --resume: decoder
                and Adam moments equal to the first run's bit for bit; the
-               first run's checkpoint loaded by the port's server code,
-               which captions one image
+               three runs again with --steps-per-dispatch 4 (preempted
+               after the first block), whose meter rows and final state
+               must be the per-batch run's and whose resumed run must end
+               where its uninterrupted run does; the first run's
+               checkpoint loaded by the port's server code, which
+               captions one image
 
 Then come the `{"kernels": [...]}` line, the card's name and power limit as
 nvidia-smi gives them, and last `{"ok": true, "device": {...}}`. Details go
@@ -77,6 +103,7 @@ import time
 
 B, BEAM, VOCAB, SIZE, STEPS = 128, 5, 2633, 224, 51
 TRAIN_B, CAP_LEN, BANK_U, BANK_N = 64, 27, 512, 1024
+K_BLOCK = 8                # train steps a block in the train phase
 T = CAP_LEN - 1            # decoder steps of a training caption
 L, E, D = 196, 512, 512    # VGG19 grid, embedding and annotation widths
 PARITY_LR = 1e-3           # tests/test_train_parity.py's learning rate
@@ -593,64 +620,193 @@ def first_diff(a, b) -> int:
     return int(idx[0]) if idx.size else -1
 
 
+def results_equal(a, b) -> list:
+    """Names of the fields in which two results (BeamResult or tuples of
+    tensors) differ bit for bit."""
+    names = getattr(a, "_fields", None) or [str(i) for i in range(len(a))]
+    return [n for n, x, y in zip(names, a, b) if not same_bits(x, y)]
+
+
+def host_ms(fn) -> float:
+    """Host clock around one call of `fn` and a synchronize."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+SYNCS = (1, 2, 4, 8, 16, 51)    # beam steps between exit reads, timed
+
+
+def beam_blocks(steps: int, sync_every: int) -> set:
+    """The distinct lengths of a worst-case decode's step blocks, each one
+    graph: S, and the last block's steps left when S does not divide."""
+    full, rest = divmod(steps, sync_every)
+    return ({sync_every} if full else set()) | ({rest} if rest else set())
+
+
 def phase_main(dcfg, dec_flat, worst_flat, enc_flat, images) -> dict:
     import numpy as np
     import torch
     from sat_tpu_torch.compat.jax_params import (decoder_from_jax,
                                                  encoder_from_jax)
     from sat_tpu_torch.engine.serving import build_caption_step
-    from sat_tpu_torch.models.beam import beam_search_batched
+    from sat_tpu_torch.models.beam import (SYNC_EVERY, beam_search_batched,
+                                           greedy_caption)
     from sat_tpu_torch.models.encoder import encoder_forward
+    from sat_tpu_torch.utils.graphs import GraphCache
 
     enc = encoder_from_jax(enc_flat, "vgg19", "cuda")
     dec = decoder_from_jax(worst_flat, dcfg, "cuda")
-    step = build_caption_step("vgg19", dcfg, BEAM, device="cuda")
-    step(enc, dec, images)                     # warm-up: cuDNN, allocator
+    eager_step = build_caption_step("vgg19", dcfg, BEAM, device="cuda",
+                                    graphs=False)
+    eager_step(enc, dec, images)           # warm-up: cuDNN, allocator
     torch.cuda.synchronize()
 
+    # The main path: a new caption step. Its first call captures the
+    # beam's graphs: the wrappers count the host launches of each block's
+    # warm-up run and capture, one step each, for every distinct block
+    # length. Its second call replays them (timed), and so does its third,
+    # under the profiler with the counts reset just before: no host launch,
+    # and on the device STEPS of top-k and of attention_fwd.
+    step = build_caption_step("vgg19", dcfg, BEAM, device="cuda")
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = step(enc, dec, images)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    host_launches = read_launches()
+    capture_s = step.graphs.capture_seconds
+    want = 2 * sum(beam_blocks(STEPS, SYNC_EVERY))
+    check(host_launches == {"topk": want, "attention_fwd": want,
+                            "attention_bwd": 0},
+          f"main path's capturing batch: host launches {host_launches}, "
+          f"expected {want} of top-k and attention_fwd (S = {SYNC_EVERY})")
     t0 = time.perf_counter()
     out = step(enc, dec, images)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    check(launches == {"topk": STEPS, "attention_fwd": STEPS,
-                       "attention_bwd": 0},
-          f"main path launches {launches}, expected {STEPS} of topk and "
-          f"attention_fwd and no attention_bwd")
+    replayed = {}
+    reset_launches()
+    main_profile = profile_run(lambda: replayed.update(step(enc, dec,
+                                                            images)))
+    replay_host = read_launches()
+    device_launches = main_profile.get("kernel_calls")
+    check(replay_host == {"topk": 0, "attention_fwd": 0, "attention_bwd": 0}
+          and device_launches == {"topk": STEPS, "attention_fwd": STEPS,
+                                  "attention_bwd": 0},
+          f"main path's replayed batch: host launches {replay_host}, device "
+          f"{device_launches}; expected none and {STEPS} of top-k and "
+          f"attention_fwd")
+    for again in (out, replayed):
+        check(not [k for k in again if not same_bits(again[k], first[k])],
+              "main path: a replayed batch differs from the captured one")
     tokens = out["tokens"].cpu().numpy()
     check(tokens.shape == (B, 1 + STEPS), f"tokens shape {tokens.shape}")
     check(not out["found"].any().item(),
           "a beam completed although the stop logits are pinned")
     check(bool(torch.isfinite(out["alphas"]).all()), "non-finite alphas")
 
-    # encoder and decode alone, host clock around synchronized work
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    enc_ms = host_ms(lambda: encoder_forward(enc, "vgg19", images))
     feats = encoder_forward(enc, "vgg19", images)
-    torch.cuda.synchronize()
-    enc_ms = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    beam_search_batched(dec, feats, BEAM)
-    torch.cuda.synchronize()
-    dec_ms = (time.perf_counter() - t0) * 1e3
-    profile = {
-        "encoder": profile_run(lambda: encoder_forward(enc, "vgg19", images)),
-        "decode": profile_run(lambda: beam_search_batched(dec, feats, BEAM))}
+
+    # Graph against eager: bits, host-clock decode ms in turns, capture
+    # seconds of a fresh cache, profiles (device busy share, the kernels'
+    # device launches)
+    graphs = {"graph": GraphCache(), "eager": None}
+    decodes = {m: (lambda m=m: beam_search_batched(dec, feats, BEAM,
+                                                   graphs=graphs[m]))
+               for m in graphs}
+    res = {m: decodes[m]() for m in graphs}
+    diff = results_equal(res["eager"], res["graph"])
+    check(not diff, f"beam B={B}: graph and eager differ in {diff}")
+    decode_ms = {m: [] for m in graphs}
+    for m in ("graph", "eager", "eager", "graph", "graph", "eager"):
+        decode_ms[m].append(host_ms(decodes[m]))
+    profile = {"main": main_profile, "encoder": profile_run(
+        lambda: encoder_forward(enc, "vgg19", images))}
+    for m in graphs:
+        profile[f"decode_{m}"] = prof = profile_run(decodes[m])
+        calls = prof.get("kernel_calls", {})
+        check(calls.get("topk") == STEPS and calls.get("attention_fwd")
+              == STEPS, f"beam ({m}): the profile shows kernels {calls}, "
+                        f"expected {STEPS} of top-k and attention_fwd")
+
+    greedy = {m: (lambda m=m: greedy_caption(dec, feats, with_alphas=True,
+                                             graphs=graphs[m]))
+              for m in graphs}
+    gres = {m: greedy[m]() for m in graphs}
+    diff = results_equal(gres["eager"], gres["graph"])
+    check(not diff, f"greedy B={B}: graph and eager differ in {diff}")
+    greedy_ms = {m: [] for m in graphs}
+    for m in ("graph", "eager", "eager", "graph", "graph", "eager"):
+        greedy_ms[m].append(host_ms(greedy[m]))
+    for m in graphs:
+        profile[f"greedy_{m}"] = prof = profile_run(greedy[m])
+        calls = prof.get("kernel_calls", {})
+        check(calls.get("topk") == 0 and calls.get("attention_fwd") == STEPS,
+              f"greedy ({m}): the profile shows kernels {calls}, expected "
+              f"{STEPS} of attention_fwd and no top-k")
+
+    # Graph against eager at B = 1 and 7 (not a power of two), beam and
+    # greedy, on the seeded weights whose beams complete at other steps
+    dec_gpu = decoder_from_jax(dec_flat, dcfg, "cuda")
+    small = {}
+    for Bx in (1, 7):
+        fx = feats[:Bx].contiguous()
+        cache = GraphCache()
+        for name, run in (
+                ("beam", lambda g: beam_search_batched(dec_gpu, fx, BEAM,
+                                                       graphs=g)),
+                ("greedy", lambda g: greedy_caption(dec_gpu, fx,
+                                                    with_alphas=True,
+                                                    graphs=g))):
+            e, g = run(None), run(cache)
+            diff = results_equal(e, g)
+            check(not diff, f"{name} B={Bx}: graph and eager differ in "
+                            f"{diff}")
+            if name == "beam":
+                small[Bx] = {"beam_found": int(e.found.sum())}
+
+    # The exit read every S steps: decode ms by S, worst case and seeded
+    # weights (beams completing at different steps), each S on a fresh
+    # cache (its capture seconds) and then replayed
+    real = beam_search_batched(dec_gpu, feats, BEAM, graphs=None)
+    by_sync = {}
+    for label, d in (("worst", dec), ("seeded", dec_gpu)):
+        ref = beam_search_batched(d, feats, BEAM, graphs=None)
+        rows = {}
+        for S in SYNCS:
+            cache = GraphCache()
+            got = beam_search_batched(d, feats, BEAM, sync_every=S,
+                                      graphs=cache)
+            diff = results_equal(ref, got)
+            check(not diff, f"beam S={S} ({label}): differs from the eager "
+                            f"path in {diff}")
+            rows[S] = {"capture_s": cache.capture_seconds,
+                       "ms": [host_ms(lambda: beam_search_batched(
+                           d, feats, BEAM, sync_every=S, graphs=cache))
+                           for _ in range(2)]}
+        by_sync[label] = rows
+    lengths = real.length[real.found]
 
     # 8 images again on the CPU with the plain forms, seeded weights (stop
-    # ids not pinned, so some beams complete), beam and greedy
+    # ids not pinned, so some beams complete), beam and greedy; the card
+    # side eager, whose launches the wrappers count (the graph paths equal
+    # it, above)
     n = 8
     enc_cpu = encoder_from_jax(enc_flat, "vgg19", "cpu")
     dec_cpu = decoder_from_jax(dec_flat, dcfg, "cpu")
-    dec_gpu = decoder_from_jax(dec_flat, dcfg, "cuda")
     ref = {}
     for decode in ("beam", "greedy"):
         reset_launches()
         g = build_caption_step("vgg19", dcfg, BEAM, decode=decode,
-                               device="cuda")(enc, dec_gpu, images[:n])
+                               device="cuda", graphs=False)(
+            enc, dec_gpu, images[:n])
         torch.cuda.synchronize()
         counts = read_launches()
         if decode == "greedy":       # all 51 steps, argmax and no top-k
@@ -688,13 +844,28 @@ def phase_main(dcfg, dec_flat, worst_flat, enc_flat, images) -> dict:
         check(agree >= n - 1, f"{decode}: GPU and CPU agree on {agree} of "
                               f"{n} images")
     check(ref["beam"]["found"] > 0, "no beam completed in the CPU check")
+
+    def busy(p):
+        return p.get("device_busy_share")
+
     res = {"phase": "main", "images": B, "beam": BEAM, "steps": STEPS,
+           "sync_every": SYNC_EVERY,
+           "first_call_s": first_s, "capture_s": capture_s,
            "wall_ms": wall_s * 1e3, "captions_per_s": B / wall_s,
-           "encoder_ms": enc_ms, "decode_ms": dec_ms,
-           "decode_ms_per_step": dec_ms / STEPS,
-           "peak_mem_gb": peak_gb, "launches": launches, "cpu_check": ref,
+           "encoder_ms": enc_ms,
+           "decode_ms": decode_ms, "greedy_ms": greedy_ms,
+           "decode_capture_s": graphs["graph"].capture_seconds,
+           "decode_ms_per_step": statistics.median(decode_ms["graph"])
+           / STEPS,
+           "device_busy_share": {k: busy(v) for k, v in profile.items()},
+           "device_launches": device_launches,
+           "by_sync": by_sync, "small_batches": small,
+           "seeded_found": int(real.found.sum()),
+           "seeded_lengths": sorted(set(lengths.tolist())),
+           "peak_mem_gb": peak_gb, "host_launches": host_launches,
+           "cpu_check": ref,
            "profile": profile}
-    emit(res)
+    emit({k: v for k, v in res.items() if k != "profile"})
     return res
 
 
@@ -730,7 +901,7 @@ def profile_run(fn, top: int = 10) -> dict:
         return {"device_time": "not measured: the profiler saw no device "
                                "events"}
     kernel_calls = {name: sum(n for k, _, n in rows if name in k)
-                     for name in ("attention_fwd", "attention_bwd")}
+                    for name in ("topk", "attention_fwd", "attention_bwd")}
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / wall_us,
             "kernel_calls": kernel_calls,
@@ -803,32 +974,120 @@ def phase_serve(dcfg, dec_flat, enc_flat) -> dict:
             # the same pool through the caption step directly
             direct = server._caption_fn(server._image_pool)
             direct = {k: v.cpu().numpy() for k, v in direct.items()}
+            # one batch of 7 requests, which the server pads to the bucket
+            # of 8 with a copy of its last image: each reply must be its
+            # own row of that padded batch, the padded row dropped
+            padded_replies = {}
+            server._dispatch_batch([
+                ({"id": i, "cached": i}, server._image_pool[i],
+                 lambda obj, i=i: padded_replies.__setitem__(i, obj))
+                for i in range(7)])()
+            pool7 = server._image_pool[:7]
+            padded = server._caption_fn(np.concatenate([pool7, pool7[-1:]]))
+            padded = {k: v.cpu().numpy() for k, v in padded.items()}
         finally:
             server.stop()
+        cli = cli_f32_check(model, enc_path, img_dir, server, word_dict)
     captions = [r.get("caption") for r in replies]
     check(all(c is not None for c in captions),
           f"errors in replies: {[r for r in replies if 'caption' not in r]}")
     check(stats["errors"] == 0, f"server errors: {stats}")
     check(stats["batches"] < n, f"no request was coalesced: {stats}")
-    # each batch runs the beam: one top-k and one attention launch a step,
-    # 1..51 steps until its beams complete
-    check(launches["topk"] == launches["attention_fwd"]
-          and stats["batches"] <= launches["topk"] <= STEPS * stats["batches"]
+    # each new batch shape (a power-of-two bucket) captures the beam's
+    # graphs: the wrappers count the warm-up's and the capture's launches,
+    # one of each kernel a step, and no replay
+    check(launches["topk"] == launches["attention_fwd"] > 0
           and launches["attention_bwd"] == 0,
           f"serve: launches {launches} for {stats['batches']} batches, "
-          f"expected equal counts in 1..{STEPS} per batch")
+          f"expected equal counts of top-k and attention_fwd")
     for i in range(n):
         row = (direct["tokens"][i, :int(direct["length"][i]) + 1].tolist()
                if direct["found"][i] else [0])
         check(captions[i] == " ".join(decode_caption(row, word_dict)),
               f"request {i}: served caption differs from the caption step")
+    check(sorted(padded_replies) == list(range(7)),
+          f"padded batch: replies {sorted(padded_replies)}")
+    for i, reply in padded_replies.items():
+        row = (padded["tokens"][i, :int(padded["length"][i]) + 1].tolist()
+               if padded["found"][i] else [0])
+        check(reply.get("caption") == " ".join(decode_caption(row, word_dict))
+              and reply.get("score") == float(padded["score"][i]),
+              f"padded batch, request {i}: {reply} is not row {i} of the "
+              f"batch padded to 8")
     res = {"phase": "serve", "requests": n, "stats": stats,
            "launches": launches,
            "latency_p50_ms": stats.get("latency_p50_ms"),
            "latency_p99_ms": stats.get("latency_p99_ms"),
-           "nonempty_captions": sum(bool(c) for c in captions)}
+           "nonempty_captions": sum(bool(c) for c in captions),
+           "padded_batch_found": int(padded["found"][:7].sum()),
+           "cli_f32": cli}
     emit(res)
     return res
+
+
+def cli_f32_check(model, enc_path, img_dir, server, word_dict) -> dict:
+    """A fresh `python -m sat_tpu_torch.serve` process (its own TF32
+    settings, not this script's) answers one cached request: its caption,
+    score and completion must be the in-process f32 path's for that image,
+    bit for bit. The same image captioned in this process with TF32 on is
+    recorded beside it, to show what the check would catch."""
+    import torch
+    from sat_tpu_torch.engine.evaluate import decode_caption
+
+    def in_process():
+        out = server._caption_fn(server._image_pool[:1])
+        found = bool(out["found"][0])
+        row = (out["tokens"][0, :int(out["length"][0]) + 1].tolist()
+               if found else [0])
+        return {"caption": " ".join(decode_caption(row, word_dict)),
+                "score": float(out["score"][0].cpu()), "completed": found}
+
+    want = in_process()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = in_process()
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "sat_tpu_torch.serve", "--model", model,
+         "--encoder-weights", enc_path, "--port", "0", "--max-batch", "1",
+         "--preload-images", img_dir, "--preload-count", "1"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, PYTHONUNBUFFERED="1"))
+    killer = threading.Timer(300, proc.kill)
+    killer.start()
+    lines, reply, m, t0 = [], None, None, time.perf_counter()
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            m = re.search(r"listening on [\d.]+:(\d+)", line)
+            if m:
+                break
+        check(m is not None, f"cli: the server did not start: {lines[-5:]}")
+        with socket.create_connection(("127.0.0.1", int(m.group(1))),
+                                      timeout=120) as sock:
+            f = sock.makefile("rwb")
+            f.write(b'{"id": 0, "cached": 0}\n')
+            f.flush()
+            reply = json.loads(f.readline())
+            f.write(b'{"cmd": "shutdown"}\n')
+            f.flush()
+            f.readline()
+        proc.wait(timeout=60)
+    finally:
+        killer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    seconds = time.perf_counter() - t0
+    got = {k: reply.get(k) for k in ("caption", "score", "completed")}
+    check(got == want, f"cli: the fresh serve process answered {got}, the "
+                       f"in-process f32 path {want}")
+    return {"seconds": seconds, "reply": got, "exit_code": proc.returncode,
+            "tf32_in_process": tf32, "tf32_differs": tf32 != want}
 
 
 def make_captions(gen, rows: int):
@@ -846,6 +1105,41 @@ def make_captions(gen, rows: int):
     return caps
 
 
+def state_diff(a, b) -> float:
+    """The largest difference between two train states' parameters and
+    Adam moments; inf when their step counts differ."""
+    import torch
+    if a.step != b.step:
+        return float("inf")
+    diffs = [(x - b.decoder.state_dict()[k]).abs().max().item()
+             for k, x in a.decoder.state_dict().items()]
+    sb = b.optimizer.state_dict()["state"]
+    for i, st in a.optimizer.state_dict()["state"].items():
+        if not torch.equal(st["step"].cpu(), sb[i]["step"].cpu()):
+            return float("inf")
+        diffs += [(st[k] - sb[i][k]).abs().max().item()
+                  for k in ("exp_avg", "exp_avg_sq")]
+    return max(diffs)
+
+
+def graph_pools():
+    """Bytes in each private memory pool (one a CUDA graph), by pool id:
+    reserved (its segments) and allocated (its live tensors), from the
+    allocator's snapshot, the default pool (id (0, 0)) left out; None when
+    the snapshot does not name its segments' pools."""
+    import torch
+    pools = {}
+    for seg in torch.cuda.memory_snapshot():
+        if "segment_pool_id" not in seg:
+            return None
+        pid = tuple(seg["segment_pool_id"])
+        if pid != (0, 0):
+            got = pools.setdefault(pid, {"reserved": 0, "allocated": 0})
+            got["reserved"] += seg["total_size"]
+            got["allocated"] += seg["allocated_size"]
+    return pools
+
+
 def phase_train(seed: int) -> dict:
     """Bank training of the flagship decoder at full width on the card."""
     import dataclasses
@@ -855,6 +1149,7 @@ def phase_train(seed: int) -> dict:
                                                  decoder_to_jax)
     from sat_tpu_torch.models.decoder import DecoderConfig, init_decoder_params
     from sat_tpu_torch.parallel.train_step import (init_train_state,
+                                                   make_bank_train_block,
                                                    make_bank_train_step)
 
     gen = torch.Generator().manual_seed(seed + 2)
@@ -866,7 +1161,7 @@ def phase_train(seed: int) -> dict:
     caps = make_captions(gen, BANK_N)
     batches = [(torch.randint(0, BANK_U, (TRAIN_B,), generator=gen),
                 torch.randint(0, BANK_N, (TRAIN_B,), generator=gen))
-               for _ in range(8)]
+               for _ in range(K_BLOCK)]
     bank_gpu, caps_gpu = bank.cuda(), caps.cuda()
     batches_gpu = [(i.cuda(), r.cuda()) for i, r in batches]
 
@@ -931,32 +1226,123 @@ def phase_train(seed: int) -> dict:
               f"attention_fwd {fwd}, attention_bwd {T}, topk 0")
     for mode in steps:
         run(mode, 3)                                   # warm-up
-    n_timed = 20
-    timing = {m: {"ms_per_step": [], "peak_mem_gb": []} for m in steps}
-    for mode in ("remat", "no_remat", "no_remat", "remat"):
+
+    # K-step blocks (--steps-per-dispatch): the first block of each mode
+    # captures its step (the warm-up's and the capture's launches are the
+    # host's; the replays launch nothing from the host)
+    blocks = {"remat": make_bank_train_block(dcfg, 1.0),
+              "no_remat": make_bank_train_block(
+                  dataclasses.replace(dcfg, remat_scan=False), 1.0)}
+    blk_img = torch.stack([i for i, _ in batches_gpu])       # (K, B)
+    blk_row = torch.stack([r for _, r in batches_gpu])
+
+    def run_blocks(mode: str, n: int, lr: float = 1e-4):
+        nonlocal state
+        for _ in range(n):
+            state, m = blocks[mode](state, bank_gpu, caps_gpu, blk_img,
+                                    blk_row, lr, dgen)
+        return m
+
+    block_launches, capture_s, pool = {}, {}, {}
+    for mode in blocks:
+        before = graph_pools()
+        reset_launches()
+        run_blocks(mode, 1)
+        torch.cuda.synchronize()
+        after = graph_pools()
+        check(before is not None and after is not None,
+              "train block: the allocator's snapshot names no pools")
+        pool[mode] = {k: sum(v[k] for pid, v in after.items()
+                             if pid not in before)
+                      for k in ("reserved", "allocated")}
+        check(pool[mode]["reserved"] > 0,
+              f"train block ({mode}): its capture reserved no pool")
+        block_launches[mode] = read_launches()
+        check(block_launches[mode] == {k: 2 * v for k, v in
+                                       launches[mode].items()},
+              f"train block ({mode}): host launches {block_launches[mode]}, "
+              f"expected twice a step's (warm-up and capture)")
+        capture_s[mode] = blocks[mode].graphs.capture_seconds
+
+    # ms a step, per-batch and blocked in turns, with peak memory: the
+    # most allocated in the window, and for a block that plus the part of
+    # its graph's pool not allocated (the captured step's working set,
+    # which replays reuse and the allocator does not see)
+    n_timed = 2 * K_BLOCK
+    order = [f"{m}{b}" for m in ("remat", "no_remat")
+             for b in ("", "_blocked", "_blocked", "")]
+    timing = {m: {"ms_per_step": [], "peak_mem_gb": [],
+                  "peak_with_pool_gb": []} for m in dict.fromkeys(order)}
+    for mode in order:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        run(mode, n_timed)
+        if mode.endswith("_blocked"):
+            run_blocks(mode[:-len("_blocked")], n_timed // K_BLOCK)
+        else:
+            run(mode, n_timed)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3 / n_timed
         timing[mode]["ms_per_step"].append(ms)
-        timing[mode]["peak_mem_gb"].append(
-            torch.cuda.max_memory_allocated() / 1e9)
+        peak = torch.cuda.max_memory_allocated()
+        timing[mode]["peak_mem_gb"].append(peak / 1e9)
+        own = pool.get(mode[:-len("_blocked")]) if mode.endswith(
+            "_blocked") else None
+        timing[mode]["peak_with_pool_gb"].append(
+            (peak + (own["reserved"] - own["allocated"] if own else 0))
+            / 1e9)
     for t in timing.values():
         t["mean_ms"] = statistics.mean(t["ms_per_step"])
         t["rows_per_s"] = TRAIN_B * 1e3 / t["mean_ms"]
 
     # (d) one default step under the profiler: each wrapper launch is one
-    # attention kernel on the device
+    # attention kernel on the device; one block of K replays: K steps'
+    # kernels on the device
     reset_launches()
     profile = profile_run(lambda: run("remat", 1))
-    if "kernel_calls" in profile:
-        counted = read_launches()
-        check(all(profile["kernel_calls"][k] == counted[k]
-                  for k in profile["kernel_calls"]),
-              f"train: the profile shows attention kernels "
-              f"{profile['kernel_calls']}, the wrappers counted {counted}")
+    counted = read_launches()
+    check(profile.get("kernel_calls") == counted,
+          f"train: the profile shows attention kernels "
+          f"{profile.get('kernel_calls')}, the wrappers counted {counted}")
+    block_profile = profile_run(lambda: run_blocks("remat", 1))
+    calls = block_profile.get("kernel_calls")
+    want = {k: K_BLOCK * v for k, v in launches["remat"].items()}
+    check(calls == want, f"train block: the profile shows kernels {calls}, "
+                         f"expected {want}")
+
+    # (f) a block of K replays against K per-batch steps from one state,
+    # dropout 0: the same bits in parameters, Adam moments and step counts
+    block_diff = {}
+    for mode, cfg_m in (("remat", exact),
+                        ("no_remat", dataclasses.replace(
+                            exact, remat_scan=False))):
+        pair = [init_train_state(decoder_from_jax(flat, cfg_m, "cuda",
+                                                  trainable=True))
+                for _ in range(2)]
+        one = make_bank_train_step(cfg_m, 1.0)
+        for ii, ri in batches_gpu:
+            pair[0], _ = one(pair[0], bank_gpu, caps_gpu, ii, ri, PARITY_LR,
+                             None)
+        pair[1], _ = make_bank_train_block(cfg_m, 1.0)(
+            pair[1], bank_gpu, caps_gpu, blk_img, blk_row, PARITY_LR, None)
+        block_diff[mode] = state_diff(*pair)
+        check(block_diff[mode] == 0.0,
+              f"train block ({mode}): {K_BLOCK} replays differ from "
+              f"{K_BLOCK} per-batch steps by {block_diff[mode]}")
+
+    # (g) two blocked runs with dropout 0.5 give the same bits
+    runs = []
+    for _ in range(2):
+        st = init_train_state(decoder_from_jax(flat, dcfg, "cuda",
+                                               trainable=True))
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        blk = make_bank_train_block(dcfg, 1.0)
+        for _ in range(2):
+            st, _ = blk(st, bank_gpu, caps_gpu, blk_img, blk_row, 1e-4, gen)
+        runs.append((st, gen.get_state()))
+    dropout_diff = state_diff(runs[0][0], runs[1][0])
+    check(dropout_diff == 0.0 and torch.equal(runs[0][1], runs[1][1]),
+          f"train block: two dropout runs differ by {dropout_diff}")
 
     # (e) 20 steps on one batch lower the loss
     state = init_train_state(decoder_from_jax(flat, dcfg, "cuda",
@@ -967,14 +1353,25 @@ def phase_train(seed: int) -> dict:
           f"train: the loss did not fall on a fixed batch: {losses}")
     res = {"phase": "train", "batch": TRAIN_B, "caption_len": CAP_LEN,
            "bank_images": BANK_U, "bank_mb": bank.numel() * 4 / 1e6,
-           "parity": parity, "launches": launches, "timing": timing,
+           "parity": parity, "launches": launches,
+           "block_k": K_BLOCK, "block_launches": block_launches,
+           "block_device_launches": calls, "block_capture_s": capture_s,
+           "block_pool_gb": {m: {k: v / 1e9 for k, v in p.items()}
+                             for m, p in pool.items()},
+           "block_max_abs_diff": block_diff,
+           "block_dropout_max_abs_diff": dropout_diff, "timing": timing,
            "ms_per_step": timing["remat"]["mean_ms"],
            "rows_per_s": timing["remat"]["rows_per_s"],
            "peak_mem_gb": max(timing["remat"]["peak_mem_gb"]),
-           "fixed_batch_losses": losses, "profile": profile}
-    emit({k: v for k, v in res.items() if k not in ("parity", "profile")}
+           "fixed_batch_losses": losses, "profile": profile,
+           "block_profile": block_profile}
+    emit({k: v for k, v in res.items()
+          if k not in ("parity", "profile", "block_profile")}
          | {"parity": {k: v for k, v in parity.items()
-                       if k != "param_err"}})
+                       if k != "param_err"},
+            "block_device_busy_share": block_profile.get(
+                "device_busy_share"),
+            "step_device_busy_share": profile.get("device_busy_share")})
     return res
 
 
@@ -986,11 +1383,47 @@ def _bleu_of(log: str, mode: str) -> dict:
             for n, v in re.findall(r"BLEU-(\d) \(([^)]*)\)", line)}
 
 
+# Images of the entry phase's dataset, two caption rows each: 8 train
+# batches of 64 (two blocks of ENTRY_K), 2 validation batches, one test
+# batch of 16 rows (8 attention plots)
+ENTRY_IMAGES = {"train": 256, "val": 64, "test": 8}
+ENTRY_K = 4
+
+
+def meter_rows(log: str) -> list:
+    """The stdout rows of the train and eval meters and the BLEU lines."""
+    return [ln for ln in log.splitlines()
+            if ln.startswith(("Train Batch", "EvalMode."))]
+
+
+def run_diff(dir_a: str, dir_b: str, step: int) -> dict:
+    """Differences between two runs' last decoder `.npz` and the Adam
+    moments of their train states at `step`."""
+    import numpy as np
+    import torch
+    diffs = {}
+    with np.load(os.path.join(dir_a, "model_vgg19_1.npz")) as a, \
+            np.load(os.path.join(dir_b, "model_vgg19_1.npz")) as b:
+        for k in a.files:
+            diffs[k] = float(np.abs(a[k] - b[k]).max())
+    ends = [torch.load(os.path.join(d, "train_state", f"{step}.pt"),
+                       weights_only=True)["optimizer"]["state"]
+            for d in (dir_a, dir_b)]
+    for i, moments in ends[0].items():
+        for k in ("exp_avg", "exp_avg_sq"):
+            diffs[f"adam/{i}/{k}"] = float(
+                (moments[k] - ends[1][i][k]).abs().max())
+    return diffs
+
+
 def phase_entry(enc_flat) -> dict:
     """`python -m sat_tpu_torch.train` for one epoch and its test pass on
     a dataset on disk; the same run preempted by SIGUSR1 after its first
     step and finished by `--resume`, which must end with the same decoder
-    and Adam moments; the checkpoint through the port's server code."""
+    and Adam moments; the three runs again with `--steps-per-dispatch 4`
+    (the preemption after the first block), whose meter rows and final
+    state must be the per-batch run's; the checkpoint through the port's
+    server code."""
     import contextlib
     import io
     import signal
@@ -1010,6 +1443,8 @@ def phase_entry(enc_flat) -> dict:
 
     gen = torch.Generator().manual_seed(7)
     rng = np.random.default_rng(7)
+    n_train = 2 * ENTRY_IMAGES["train"] // TRAIN_B       # train batches
+    n_val = -(-2 * ENTRY_IMAGES["val"] // TRAIN_B)
 
     def timed(fn, *args):
         """(result, seconds, launches, stdout) of one synchronized call."""
@@ -1021,13 +1456,16 @@ def phase_entry(enc_flat) -> dict:
         torch.cuda.synchronize()
         return res, time.perf_counter() - t0, read_launches(), out.getvalue()
 
+    def launches(fwd, bwd):
+        return {"topk": 0, "attention_fwd": fwd * T, "attention_bwd": bwd * T}
+
     with tempfile.TemporaryDirectory() as root:
         words = ["<start>", "<eos>", "<unk>", "<pad>"] + [
             f"w{i}" for i in range(4, VOCAB)]
         with open(os.path.join(root, "word_dict.json"), "w") as f:
             json.dump({w: i for i, w in enumerate(words)}, f)
         os.makedirs(os.path.join(root, "imgs"))
-        for split, images in (("train", 64), ("val", 32), ("test", 32)):
+        for split, images in ENTRY_IMAGES.items():
             paths = []
             for i in range(images):        # two caption rows an image
                 path = os.path.join(root, "imgs", f"{split}_{i:03d}.png")
@@ -1047,6 +1485,27 @@ def phase_entry(enc_flat) -> dict:
                     str(TRAIN_B), "--log-interval", "1", "--checkpoint-dir",
                     ckpt_dir, "--encoder-weights", enc_path, *extra]
 
+        def preempted_run(ckpt_dir, attr, *extra):
+            """The run through the Trainer as the CLI configures it; the
+            first call of its `attr` (the train step or block) sends this
+            process SIGUSR1, which the handler that fit installs turns into
+            a save at the next step (block) boundary."""
+            args = build_arg_parser().parse_args(argv(ckpt_dir, *extra))
+            cfg = config_from_args(args)
+            set_seed(cfg.seed)
+            with contextlib.redirect_stdout(io.StringIO()):
+                trainer = Trainer(cfg, device=args.device)
+            plain, calls = getattr(trainer, attr), []
+
+            def signalling(*a, **k):
+                calls.append(1)
+                if len(calls) == 1:
+                    os.kill(os.getpid(), signal.SIGUSR1)
+                return plain(*a, **k)
+
+            setattr(trainer, attr, signalling)
+            return timed(trainer.fit) + (trainer,)
+
         # (a) the uninterrupted run, its test pass timed apart
         ckpt_dir = os.path.join(root, "model")
         test_seconds = []
@@ -1061,19 +1520,20 @@ def phase_entry(enc_flat) -> dict:
 
         Trainer.test = timed_test
         try:
-            last, seconds, launches, log = timed(train_main, argv(ckpt_dir))
+            last, seconds, run_launches, log = timed(train_main,
+                                                     argv(ckpt_dir))
         finally:
             Trainer.test = plain_test
-        for line in ("Train Batch: [1/2]", "EvalMode.VALIDATION Batch: [0/1]",
+        for line in (f"Train Batch: [{n_train - 1}/{n_train}]",
+                     f"EvalMode.VALIDATION Batch: [{n_val - 1}/{n_val}]",
                      "EvalMode.VALIDATION Epoch: 1\tBLEU-1 (",
                      "EvalMode.TEST Batch: [0/1]",
                      "EvalMode.TEST Epoch: 1\tBLEU-1 ("):
             check(line in log, f"entry: no {line!r} in the training output")
-        # two train batches of 2T forward and T backward launches, one
-        # validation and one test batch of T forward
-        check(launches == {"topk": 0, "attention_fwd": 6 * T,
-                           "attention_bwd": 2 * T},
-              f"entry: launches {launches}")
+        # each train batch 2T forward (remat) and T backward launches, each
+        # validation and test batch T forward
+        check(run_launches == launches(2 * n_train + n_val + 1, n_train),
+              f"entry: launches {run_launches}")
         bleu = {"val": _bleu_of(log, "EvalMode.VALIDATION"),
                 "test": _bleu_of(log, "EvalMode.TEST")}
         check(all(len(b) == 4 and all(math.isfinite(v) and 0 <= v <= 1
@@ -1090,34 +1550,18 @@ def phase_entry(enc_flat) -> dict:
                 check(im.format == "PNG" and im.width > 0,
                       f"entry: plot {name}")
         states = os.listdir(os.path.join(ckpt_dir, "train_state"))
-        check(states == ["2.pt"], f"entry: train states {states}")
-        state_bytes = os.path.getsize(os.path.join(ckpt_dir, "train_state",
-                                                   "2.pt"))
+        check(states == [f"{n_train}.pt"], f"entry: train states {states}")
+        state_bytes = os.path.getsize(os.path.join(
+            ckpt_dir, "train_state", f"{n_train}.pt"))
 
-        # (b) the same run through the Trainer as the CLI configures it; its
-        # first step sends this process SIGUSR1, which the handler that
-        # fit installs turns into a save at batch offset 1
+        # (b) preempted after its first step
         cut_dir = os.path.join(root, "cut")
-        args = build_arg_parser().parse_args(argv(cut_dir))
-        cfg = config_from_args(args)
-        set_seed(cfg.seed)
-        with contextlib.redirect_stdout(io.StringIO()):
-            trainer = Trainer(cfg, device=args.device)
-        plain_step, calls = trainer.train_step, []
-
-        def signalling_step(*a, **k):
-            calls.append(1)
-            if len(calls) == 1:
-                os.kill(os.getpid(), signal.SIGUSR1)
-            return plain_step(*a, **k)
-
-        trainer.train_step = signalling_step
-        cut, cut_seconds, cut_launches, cut_log = timed(trainer.fit)
+        cut, cut_seconds, cut_launches, cut_log, trainer = preempted_run(
+            cut_dir, "train_step")
         check(cut == {"preempted": True, "epoch": 1}
               and "Preempted at epoch 1 batch 1" in cut_log,
               f"entry: the SIGUSR1 run returned {cut}")
-        check(cut_launches == {"topk": 0, "attention_fwd": 2 * T,
-                               "attention_bwd": T},
+        check(cut_launches == launches(2, 1),
               f"entry: preempted run's launches {cut_launches}")
         states = os.listdir(os.path.join(cut_dir, "train_state"))
         check(states == ["1.pt"], f"entry: preempted train states {states}")
@@ -1137,25 +1581,55 @@ def phase_entry(enc_flat) -> dict:
         check("Resuming epoch 1 at batch offset 1" in resume_log
               and "EvalMode.TEST Epoch: 1\tBLEU-1 (" in resume_log
               and "bleu4" in resumed, f"entry: the resumed run {resumed}")
-        check(resume_launches == {"topk": 0, "attention_fwd": 4 * T,
-                                  "attention_bwd": T},
+        check(resume_launches == launches(2 * (n_train - 1) + n_val + 1,
+                                          n_train - 1),
               f"entry: resumed run's launches {resume_launches}")
-        diffs = {}
-        with np.load(os.path.join(ckpt_dir, "model_vgg19_1.npz")) as a, \
-                np.load(os.path.join(cut_dir, "model_vgg19_1.npz")) as b:
-            for k in a.files:
-                diffs[k] = float(np.abs(a[k] - b[k]).max())
-        ends = [torch.load(os.path.join(d, "train_state", "2.pt"),
-                           weights_only=True)["optimizer"]["state"]
-                for d in (ckpt_dir, cut_dir)]
-        for i, moments in ends[0].items():
-            for k in ("exp_avg", "exp_avg_sq"):
-                diffs[f"adam/{i}/{k}"] = float(
-                    (moments[k] - ends[1][i][k]).abs().max())
+        diffs = run_diff(ckpt_dir, cut_dir, n_train)
         resume_max_abs_diff = max(diffs.values())
         check(resume_max_abs_diff == 0,
               f"entry: the resumed run differs from the uninterrupted one: "
               f"{ {k: v for k, v in diffs.items() if v} }")
+
+        # (d-f) the same with --steps-per-dispatch: on the card the train
+        # blocks and validation replay CUDA graphs; the wrappers count each
+        # new graph's warm-up and capture (two blocks of 4 train steps,
+        # one block of the 2 validation batches), and the test batch
+        k_flag = ("--steps-per-dispatch", str(ENTRY_K))
+        blk_dir = os.path.join(root, "blocked")
+        blk_last, blk_seconds, blk_launches, blk_log = timed(
+            train_main, argv(blk_dir, *k_flag))
+        check(meter_rows(blk_log) == meter_rows(log),
+              "entry: the blocked run's meter rows differ from the "
+              "per-batch run's")
+        check(blk_launches == launches(2 * 2 + 2 + 1, 2),
+              f"entry: blocked run's host launches {blk_launches}")
+        blocked_diffs = run_diff(ckpt_dir, blk_dir, n_train)
+        blocked_max_abs_diff = max(blocked_diffs.values())
+        check(blocked_max_abs_diff == 0,
+              f"entry: the blocked run ends elsewhere than the per-batch "
+              f"run: { {k: v for k, v in blocked_diffs.items() if v} }")
+
+        bcut_dir = os.path.join(root, "blocked_cut")
+        bcut, bcut_seconds, bcut_launches, bcut_log, _ = preempted_run(
+            bcut_dir, "train_block", *k_flag)
+        check(bcut == {"preempted": True, "epoch": 1}
+              and f"Preempted at epoch 1 batch {ENTRY_K}" in bcut_log,
+              f"entry: the blocked SIGUSR1 run returned {bcut}")
+        check(bcut_launches == launches(4, 2),
+              f"entry: blocked preempted run's launches {bcut_launches}")
+        bresumed, bresume_seconds, bresume_launches, bresume_log = timed(
+            train_main, argv(bcut_dir, "--resume", *k_flag))
+        check(f"Resuming epoch 1 at batch offset {ENTRY_K}" in bresume_log
+              and "bleu4" in bresumed,
+              f"entry: the blocked resumed run {bresumed}")
+        check(bresume_launches == launches(2 * 2 + 2 + 1, 2),
+              f"entry: blocked resumed run's launches {bresume_launches}")
+        bdiffs = run_diff(blk_dir, bcut_dir, n_train)
+        blocked_resume_max_abs_diff = max(bdiffs.values())
+        check(blocked_resume_max_abs_diff == 0,
+              f"entry: the blocked resumed run differs from the "
+              f"uninterrupted blocked one: "
+              f"{ {k: v for k, v in bdiffs.items() if v} }")
 
         model = os.path.join(ckpt_dir, "model_vgg19_1.npz")
         cfg, dcfg, enc, dec, word_dict = load_model(
@@ -1171,16 +1645,23 @@ def phase_entry(enc_flat) -> dict:
         row = (tokens[:int(cap["length"][0]) + 1].tolist()
                if bool(cap["found"][0]) else [0])
         caption = " ".join(decode_caption(row, word_dict))
-    res = {"phase": "entry", "seconds": seconds, "launches": launches,
-           "test": last, "bleu": bleu,
+    res = {"phase": "entry", "images": ENTRY_IMAGES, "seconds": seconds,
+           "launches": run_launches, "test": last, "bleu": bleu,
            "test_seconds": test_seconds[0], "plots": len(plots),
            "train_state_bytes": state_bytes,
            "train_state_save_seconds": save_seconds,
            "preempted_seconds": cut_seconds, "preempted_launches":
            cut_launches, "resume_seconds": resume_seconds,
            "resume_launches": resume_launches,
-           "resume_max_abs_diff": resume_max_abs_diff, "caption": caption,
-           "log_tail": log.splitlines()[-6:]}
+           "resume_max_abs_diff": resume_max_abs_diff,
+           "blocked_k": ENTRY_K, "blocked_seconds": blk_seconds,
+           "blocked_launches": blk_launches,
+           "blocked_max_abs_diff": blocked_max_abs_diff,
+           "blocked_test": blk_last,
+           "blocked_preempted_seconds": bcut_seconds,
+           "blocked_resume_seconds": bresume_seconds,
+           "blocked_resume_max_abs_diff": blocked_resume_max_abs_diff,
+           "caption": caption, "log_tail": log.splitlines()[-6:]}
     emit(res)
     return res
 
@@ -1202,17 +1683,24 @@ def main():
     train = phase_train(args.seed)
     entry = phase_entry(enc_flat)
 
-    # each kernel's launches on its path: serving for topk and the forward
-    # (its train-step count is in the train phase), one default train step
-    # for the backward
+    # each kernel's launches on its path: for top-k and the forward, the
+    # main path's replayed batch, counted on the device by the profiler
+    # (`host_launches`: the wrappers' count of its first, capturing
+    # batch); for the backward, one default train step, eager, whose
+    # wrapper count the profiler confirmed (its blocks are in the train
+    # phase)
     for row in kernels:
-        row["launches"] = (train["launches"]["remat"] if row["name"]
-                           == "attention_bwd" else main_res["launches"])[
-            row["name"]]
+        name = row["name"]
+        if name == "attention_bwd":
+            row["launches"] = train["profile"]["kernel_calls"][name]
+            row["host_launches"] = train["launches"]["remat"][name]
+        else:
+            row["launches"] = main_res["device_launches"][name]
+            row["host_launches"] = main_res["host_launches"][name]
     summary = {"kernels": [{k: row.get(k) for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-        "bound_share", "cold_ms")}
+        "bound_share", "cold_ms", "host_launches")}
         for row in kernels]}
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:

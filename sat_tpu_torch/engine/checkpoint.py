@@ -19,8 +19,12 @@ for sat_tpu's Orbax tier: `<checkpoint_dir>/train_state/{step}.pt`, one
 `torch.save` of a dict of the decoder's and the optimizer's `state_dict`,
 `step`, `epoch`, `batch_offset` (batches of `epoch` already trained; 0
 when the epoch is complete) and the dropout generator's state with its
-device type. Its own directory lets sat_tpu's `orbax/` share one
-`--checkpoint-dir`. The port does not read Orbax states, and it has no
+device type. The optimizer's part is always in the form of a CPU run
+(`optimizer_file_state`): Adam's step counts on the host, a float lr,
+capturable off, whether the run that saved it was per-batch or blocked,
+on the card or not. So a state saved by either path resumes in the other,
+after `parallel.train_step.place_optimizer_state`. Its own directory lets
+sat_tpu's `orbax/` share one `--checkpoint-dir`. The port does not read Orbax states, and it has no
 older layout of its own, so sat_tpu's `train_state_has_key` probe has no
 counterpart.
 """
@@ -144,12 +148,24 @@ def latest_train_state_step(checkpoint_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
+def optimizer_file_state(optimizer: torch.optim.Optimizer) -> dict:
+    """`optimizer.state_dict()` in the train state's form: Adam's step
+    counts on the host, the lr a float and capturable off, as a CPU run's
+    Adam has them. The moments stay where they are."""
+    sd = optimizer.state_dict()
+    state = {i: {k: v.cpu() if k == "step" else v for k, v in s.items()}
+             for i, s in sd["state"].items()}
+    groups = [dict(g, lr=float(g["lr"]), capturable=False)
+              for g in sd["param_groups"]]
+    return {"state": state, "param_groups": groups}
+
+
 def restore_train_state(checkpoint_dir: str, step: int,
                         device: torch.device | str = "cpu") -> dict:
     """The tree that `save_train_state` wrote at `step`, its tensors on
-    `device`, except Adam's step counts: torch.optim.Adam keeps them on
-    the host, where a fresh optimizer has them (on the card a step count
-    would cost a sync per parameter per step)."""
+    `device`, except Adam's step counts, which stay on the host as the
+    file has them; `place_optimizer_state` moves them where the
+    optimizer that loads them runs."""
     path = os.path.join(_state_dir(checkpoint_dir), f"{step}.pt")
     tree = torch.load(path, map_location=device, weights_only=True)
     for state in tree["optimizer"]["state"].values():

@@ -17,16 +17,25 @@ step then ships only row indices), else gathered on the host. With
 Without `--cache-features` every step runs the encoder on the batch's
 images.
 
+With `--steps-per-dispatch K` and the bank, the epoch's full batches go
+in blocks of K steps (`make_bank_train_block`; on the card, K replays of
+one CUDA graph), and validation in blocks of K batches
+(`make_bank_eval_block`), as sat_tpu's `_train_epoch_blocked` and
+`_eval_blocked` do: a short tail batch takes the per-batch step, metrics
+are read once a block, one block behind, and the numbers are the
+per-batch run's, bit for bit. TEST keeps the per-batch path for its plots.
+Without the bank the option warns and the run is per-batch.
+
 A SIGTERM or SIGUSR1 during `fit` saves the train state at the next step
-boundary and ends the run (`{"preempted": True, ...}`): mid-epoch, with
-the batches already trained counted, or during validation, with the
-epoch counted complete. `--resume` continues from the newest state; the
+boundary (block boundary, when blocked) and ends the run (`{"preempted":
+True, ...}`): mid-epoch, with the batches already trained counted, or
+during validation, with the epoch counted complete. `--resume` continues
+from the newest state, per-batch or blocked whichever path saved it; the
 dropout generator's state is part of it, so a resumed run takes the same
 steps as one that was never stopped.
 
-Not ported yet, each named in ROADMAP.md Queue 1: the blocked K-step
-dispatch, the bf16 options, W&B, the profiler, NaN debugging, BERT and
-the device mesh.
+Not ported yet, each named in ROADMAP.md Queue 1: the bf16 options, W&B,
+the profiler, NaN debugging, BERT and the device mesh.
 """
 
 from __future__ import annotations
@@ -47,17 +56,20 @@ from sat_tpu_torch.compat.jax_params import decoder_from_jax, encoder_from_jax
 from sat_tpu_torch.config import Config, unported_options
 from sat_tpu_torch.data.dataset import BatchLoader, CacheBudget, CaptionDataset
 from sat_tpu_torch.data.transforms import denormalize
-from sat_tpu_torch.device import resolve_device
+from sat_tpu_torch.device import resolve_device, use_f32_math
 from sat_tpu_torch.engine import checkpoint as ckpt
 from sat_tpu_torch.engine.evaluate import (build_token_dict, compute_bleu,
                                            decode_caption)
 from sat_tpu_torch.models.decoder import DecoderConfig, init_decoder_params
 from sat_tpu_torch.models.encoder import encoder_forward, init_encoder_params
 from sat_tpu_torch.parallel.train_step import (init_train_state,
+                                               make_bank_eval_block,
                                                make_bank_eval_step,
+                                               make_bank_train_block,
                                                make_bank_train_step,
                                                make_eval_step,
-                                               make_train_step)
+                                               make_train_step,
+                                               place_optimizer_state)
 from sat_tpu_torch.utils.logging import MetricLogger
 from sat_tpu_torch.utils.meters import AverageMeter
 from sat_tpu_torch.utils.viz import save_attention_plot
@@ -92,6 +104,7 @@ class Trainer:
                     f"{flag} ({item})" for flag, item in unported))
         self.cfg = cfg
         self.device = resolve_device(device)
+        use_f32_math()
         self.logger = logger or MetricLogger(cfg.log_jsonl)
 
         with open(os.path.join(cfg.data, "word_dict.json")) as f:
@@ -187,11 +200,22 @@ class Trainer:
                       f"exceeds --feature-bank-hbm-gb; using host gather")
 
         # ---- steps
+        self.train_block = self.eval_block = None
         if self.use_bank:
             self.train_step = make_bank_train_step(
                 self.dcfg, cfg.alpha_c, rep_penalty_beta=cfg.rep_penalty_beta)
             self.eval_step = make_bank_eval_step(self.dcfg, cfg.alpha_c)
+            if cfg.steps_per_dispatch > 1:
+                self.train_block = make_bank_train_block(
+                    self.dcfg, cfg.alpha_c,
+                    rep_penalty_beta=cfg.rep_penalty_beta)
+                self.eval_block = make_bank_eval_block(self.dcfg,
+                                                       cfg.alpha_c)
         else:
+            if cfg.steps_per_dispatch > 1:
+                print("--steps-per-dispatch needs the device feature bank "
+                      "(--cache-features within --feature-bank-hbm-gb); "
+                      "falling back to per-batch dispatch")
             self.train_step = make_train_step(
                 self.dcfg, cfg.network, cfg.alpha_c,
                 from_features=cfg.cache_features,
@@ -218,6 +242,7 @@ class Trainer:
         tree = ckpt.restore_train_state(cfg.checkpoint_dir, step, self.device)
         self.state.decoder.load_state_dict(tree["decoder"])
         self.state.optimizer.load_state_dict(tree["optimizer"])
+        place_optimizer_state(self.state.optimizer)
         self.state.step = int(tree["step"])
         ckpt.set_generator_state(self.dropout_gen, tree["dropout_generator"])
         offset = int(tree["batch_offset"])
@@ -371,6 +396,10 @@ class Trainer:
                 "train_top5_acc_raw": top5.val,
             })
 
+        if self.train_block is not None:
+            self._train_epoch_blocked(epoch, lr, skip, finish)
+            return
+
         pending = deque()
         for batch_idx, (imgs, captions, _, idxs) in enumerate(
                 self.train_loader.epoch(epoch, skip=skip), start=skip):
@@ -390,6 +419,70 @@ class Trainer:
                 finish(*pending.popleft())
         while pending:
             finish(*pending.popleft())
+
+    def _block_schedule(self, items, K, size_fn=len):
+        """sat_tpu's block layout, shared by the blocked train and eval
+        epochs: the epoch's full-size batches in blocks of K (the last
+        block may be shorter), and a short final batch split off as the
+        tail for the per-batch step. Returns (blocks, tail, n_full), n_full
+        being the tail's position in the epoch's batch list."""
+        tail = None
+        if items and size_fn(items[-1]) != self.cfg.batch_size:
+            tail = items[-1]
+            items = items[:-1]
+        blocks = [items[i:i + K] for i in range(0, len(items), K)]
+        return blocks, tail, len(items)
+
+    def _train_epoch_blocked(self, epoch, lr, skip, finish):
+        """--steps-per-dispatch's epoch body (sat_tpu's
+        `_train_epoch_blocked`): K optimizer steps a dispatch, their
+        metrics read back once a block, one block behind, through the
+        per-batch loop's `finish`, so meters, stdout and logger rows are the
+        per-batch run's. Preemption is honoured at block boundaries, and the
+        block in flight is finished before the state is saved: its batches
+        are trained and a resumed run skips them."""
+        K = self.cfg.steps_per_dispatch
+        bank = self.bank["train"]
+        idx_batches = [idxs for (_, _, _, idxs)
+                       in self.train_loader.epoch(epoch, skip=skip)]
+        blocks, tail, n_full = self._block_schedule(idx_batches, K)
+
+        def finish_block(start_idx, metrics_k):
+            metrics_k = {k: v.cpu() for k, v in metrics_k.items()}
+            for j in range(len(metrics_k["loss"])):
+                finish(start_idx + j, {k: v[j] for k, v in metrics_k.items()})
+
+        def preempt(end):
+            self._save_train_state(epoch, batch_offset=end)
+            print(f"Preempted at epoch {epoch} batch {end}: train state "
+                  f"saved; rerun with --resume to continue")
+            raise TrainingPreempted()
+
+        pending = None
+        for blk_i, chunk in enumerate(blocks):
+            start_idx = skip + blk_i * K
+            img_idx, row_idx = self._bank_indices("train", np.stack(chunk))
+            self.state, metrics_k = self.train_block(
+                self.state, bank["feats"], bank["caps"], img_idx, row_idx, lr,
+                self.dropout_gen)
+            if self._preempt_requested:
+                if pending:
+                    finish_block(*pending)
+                finish_block(start_idx, metrics_k)
+                preempt(start_idx + len(chunk))
+            if pending:
+                finish_block(*pending)
+            pending = (start_idx, metrics_k)
+        if pending:
+            finish_block(*pending)
+
+        if tail is not None:
+            batch_idx = skip + n_full
+            self.state, metrics = self._run_train_step("train", None, None,
+                                                       tail, lr)
+            finish(batch_idx, metrics)     # trained; a resume skips it
+            if self._preempt_requested:
+                preempt(batch_idx + 1)
 
     def run_evaluation(self, epoch: int, loader: BatchLoader,
                        mode: EvalMode) -> dict:
@@ -454,24 +547,12 @@ class Trainer:
                                       caption=" ".join(words))
                 viz_count += 1
 
-        pending = deque()
-        for batch_idx, (imgs, captions, all_captions, idxs) in enumerate(
-                loader.epoch(epoch)):
-            metrics, pred_tokens, alphas = self._run_eval_step(
-                loader.split, imgs, captions, idxs)
-            # Validation honours a preemption too: the trained epoch is
-            # saved as complete, and the interrupted pass, which carries no
-            # state, is dropped.
-            if mode == EvalMode.VALIDATION and self._preempt_requested:
-                while pending:
-                    finish(*pending.popleft())
-                self._preempt_eval(epoch)
-            pending.append((batch_idx, imgs, captions, all_captions, metrics,
-                            pred_tokens, alphas))
-            if len(pending) >= 2:
-                finish(*pending.popleft())
-        while pending:
-            finish(*pending.popleft())
+        # Blocked validation (--steps-per-dispatch) for VALIDATION only:
+        # TEST needs each batch's alphas for its plots.
+        if self.eval_block is not None and mode == EvalMode.VALIDATION:
+            self._eval_blocked(epoch, loader, finish)
+        else:
+            self._eval_per_batch(epoch, loader, mode, finish)
 
         bleu = compute_bleu(decoded_all_captions, decoded_hypotheses)
         self.logger.log({
@@ -494,6 +575,75 @@ class Trainer:
               f"BLEU-4 ({bleu['bleu4']})\t")
         return {"loss": losses.avg, "top1": top1.avg, "top5": top5.avg,
                 **bleu}
+
+    def _eval_per_batch(self, epoch, loader, mode, finish):
+        pending = deque()
+        for batch_idx, (imgs, captions, all_captions, idxs) in enumerate(
+                loader.epoch(epoch)):
+            metrics, pred_tokens, alphas = self._run_eval_step(
+                loader.split, imgs, captions, idxs)
+            # Validation honours a preemption too: the trained epoch is
+            # saved as complete, and the interrupted pass, which carries no
+            # state, is dropped.
+            if mode == EvalMode.VALIDATION and self._preempt_requested:
+                while pending:
+                    finish(*pending.popleft())
+                self._preempt_eval(epoch)
+            pending.append((batch_idx, imgs, captions, all_captions, metrics,
+                            pred_tokens, alphas))
+            if len(pending) >= 2:
+                finish(*pending.popleft())
+        while pending:
+            finish(*pending.popleft())
+
+    def _eval_blocked(self, epoch, loader, finish):
+        """Blocked VALIDATION (sat_tpu's `_eval_blocked`): K eval batches a
+        dispatch, their metrics and tokens read once a block, one block
+        behind, through the per-batch pass's `finish`, so meters, stdout,
+        BLEU and the table are the per-batch pass's. A short tail batch
+        takes the per-batch eval step; a preemption lands on a block
+        boundary and, as in the per-batch pass, counts the epoch
+        complete."""
+        K = self.cfg.steps_per_dispatch
+        split = loader.split
+        bank = self.bank[split]
+        batches = list(loader.epoch(epoch))
+        blocks, tail, n_full = self._block_schedule(
+            batches, K, size_fn=lambda b: b[1].shape[0])
+
+        def finish_block(start_idx, chunk, metrics_k, toks_k):
+            metrics_k = {k: v.cpu() for k, v in metrics_k.items()}
+            toks_k = toks_k.cpu()
+            for j, (imgs, captions, all_captions, _) in enumerate(chunk):
+                finish(start_idx + j, imgs, captions, all_captions,
+                       {k: v[j] for k, v in metrics_k.items()}, toks_k[j],
+                       None)
+
+        pending = None
+        for blk_i, chunk in enumerate(blocks):
+            img_idx, row_idx = self._bank_indices(
+                split, np.stack([c[3] for c in chunk]))
+            metrics_k, toks_k = self.eval_block(
+                self.state.decoder, bank["feats"], bank["caps"], img_idx,
+                row_idx)
+            if self._preempt_requested:
+                if pending:
+                    finish_block(*pending)
+                self._preempt_eval(epoch)
+            if pending:
+                finish_block(*pending)
+            pending = (blk_i * K, chunk, metrics_k, toks_k)
+        if pending:
+            finish_block(*pending)
+
+        if tail is not None:
+            imgs, captions, all_captions, idxs = tail
+            metrics, pred_tokens, alphas = self._run_eval_step(
+                split, imgs, captions, idxs)
+            if self._preempt_requested:
+                self._preempt_eval(epoch)
+            finish(n_full, imgs, captions, all_captions, metrics,
+                   pred_tokens, alphas)
 
     def _preempt_eval(self, epoch: int) -> None:
         self.save_epoch(epoch)
@@ -531,7 +681,7 @@ class Trainer:
         """What `--resume` needs: `batch_offset` batches of `epoch` are
         trained, 0 meaning the whole epoch."""
         return {"decoder": self.state.decoder.state_dict(),
-                "optimizer": self.state.optimizer.state_dict(),
+                "optimizer": ckpt.optimizer_file_state(self.state.optimizer),
                 "step": self.state.step, "epoch": epoch,
                 "batch_offset": batch_offset,
                 "dropout_generator": ckpt.generator_state(self.dropout_gen)}

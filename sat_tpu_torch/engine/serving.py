@@ -2,19 +2,22 @@
 
 Port of sat_tpu/engine/serving.py::build_caption_step. The step takes the
 encoder and decoder modules as arguments, as sat_tpu's takes params: a
-server moves them to the device once and passes them on every call. AOT
-export, `decode="sample"`, `fast_topk` and `bf16` are not ported yet and
-raise.
+server moves them to the device once and passes them on every call. On the
+card the decode replays CUDA graphs (models/beam.py), which the step keeps
+in a GraphCache of its own, captured per batch shape and decoder: a
+server's step lives as long as the server. AOT export, `decode="sample"`,
+`fast_topk` and `bf16` are not ported yet and raise.
 """
 
 from __future__ import annotations
 
 import torch
 
-from sat_tpu_torch.device import resolve_device
+from sat_tpu_torch.device import resolve_device, use_f32_math
 from sat_tpu_torch.models.beam import beam_search_batched, greedy_caption
 from sat_tpu_torch.models.decoder import DecoderConfig
 from sat_tpu_torch.models.encoder import encoder_forward
+from sat_tpu_torch.utils.graphs import GraphCache
 
 
 def pack_scan(dcfg: DecoderConfig, tokens: torch.Tensor,
@@ -39,11 +42,13 @@ def pack_scan(dcfg: DecoderConfig, tokens: torch.Tensor,
 def build_caption_step(network: str, dcfg: DecoderConfig, beam_size: int,
                        fast_topk: bool = False, bf16: bool = False,
                        decode: str = "beam", mesh_data: int = 1,
-                       device="cuda"):
+                       device="cuda", graphs: bool = True):
     """step(encoder, decoder, images (B, S, S, 3)) -> result dict of
     tensors on `device`: tokens, length, score, found, alphas (the beam
     layout; greedy is packed into it by `pack_scan`). The modules must
-    already be on `device`; images may be numpy or a tensor anywhere."""
+    already be on `device`; images may be numpy or a tensor anywhere.
+    `graphs=False` decodes eagerly on the card too. `step.graphs` is the
+    step's GraphCache (None when eager)."""
     if decode == "sample":
         raise NotImplementedError(
             "decode='sample' is not ported yet (ROADMAP.md, Queue 1: "
@@ -55,16 +60,21 @@ def build_caption_step(network: str, dcfg: DecoderConfig, beam_size: int,
             "fast_topk, bf16 decode and mesh serving are not ported yet "
             "(ROADMAP.md, Queue 1)")
     dev = resolve_device(device)
+    use_f32_math()
+
+    cache = GraphCache() if graphs and dev.type == "cuda" else None
 
     def caption(encoder, decoder, images) -> dict:
         images = torch.as_tensor(images, dtype=torch.float32, device=dev)
         feats = encoder_forward(encoder, network, images)
         if decode == "greedy":
             return pack_scan(dcfg, *greedy_caption(decoder, feats,
-                                                   with_alphas=True))
-        res = beam_search_batched(decoder, feats, beam_size)
+                                                   with_alphas=True,
+                                                   graphs=cache))
+        res = beam_search_batched(decoder, feats, beam_size, graphs=cache)
         return {"tokens": res.tokens, "length": res.length,
                 "score": res.score, "found": res.found,
                 "alphas": res.alphas}
 
+    caption.graphs = cache
     return caption

@@ -18,12 +18,28 @@ beam (reference decoder.py:160-269), kept exactly:
   - alpha history row 0 is all-ones and the sentence includes the start
     token.
 
-Where sat_tpu's `lax.while_loop` tests its exit condition on the device,
-the loop here reads `(live_count > 0).any()` on the host each step: one
-device-to-host sync per step. The exact top-k is the CUDA kernel of
-ops/topk.py and the attention middle the one of ops/fused_attention.py on
-the card, their plain forms on the CPU. `fast_topk` (an approximate TPU
-top-k), `bf16` and `mesh_data > 1` are not ported and raise.
+sat_tpu runs the steps in one `lax.while_loop` whose exit test stays on
+the device. Here the loop's state lives in device buffers, updated in
+place, and its step counter is a device tensor, so a run of steps needs
+nothing from the host. The host reads the exit test once every
+`sync_every` (S) steps: the loop runs blocks of S steps, the last one cut
+to the steps left before `max_steps`. The steps of a block after every
+image has finished are no-ops, as finished images freeze (an image is
+active only while it has live beams). So every S gives the same tokens,
+lengths, scores, alphas and fallback alphas, and a decode never runs past
+`max_steps`.
+
+On the card, the S-step body (and the shorter last block), the start of a
+decode (keys, initial state) and the rebuild of the winning paths each
+replay as a CUDA graph (utils/graphs.py), captured once per (B, K, L, D,
+max_steps, dedup, backtrack) shape and block length, in the `graphs`
+GraphCache that the caller passes (the caption step keeps one per server);
+greedy decode is one graph of all its steps. Without a cache (`graphs=None`,
+the default) the same code runs eagerly, as the CPU always does. The exact
+top-k is the CUDA kernel of ops/topk.py and the
+attention middle the one of ops/fused_attention.py on the card, their
+plain forms on the CPU. `fast_topk` (an approximate TPU top-k), `bf16` and
+`mesh_data > 1` are not ported and raise.
 """
 
 from __future__ import annotations
@@ -38,6 +54,14 @@ from sat_tpu_torch.models.attention import precompute_attention_keys
 from sat_tpu_torch.models.decoder import (Decoder, decode_step, embed_tokens,
                                           init_lstm_state)
 from sat_tpu_torch.ops.topk import topk
+from sat_tpu_torch.utils.graphs import GraphCache
+
+# Beam steps between two host reads of the exit test. On the H100 at
+# B = 128 a read costs about 0.04 ms and a wasted step (after the last
+# image finished, up to S - 1 of them) about 0.55 ms; S = 1 was the
+# slowest, and S from 2 to 51 were within about 1 ms of each other
+# (PERF.md, Findings). 4 keeps both costs small.
+SYNC_EVERY = 4
 
 
 class BeamResult(NamedTuple):
@@ -49,9 +73,216 @@ class BeamResult(NamedTuple):
     fallback_alpha: torch.Tensor  # (B, L) last-step attention of row 0
 
 
+class _Spec(NamedTuple):
+    """What one decode's buffers and graphs are specialised to."""
+    B: int
+    K: int
+    L: int
+    D: int
+    E: int
+    V: int
+    max_steps: int
+    dedup: bool
+    backtrack: bool
+    start_token: int
+
+    @property
+    def T(self) -> int:      # token columns: the start token, then a step
+        return 1 + self.max_steps
+
+
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
                                f"Queue 1: still to port)")
+
+
+def _graph_cache(graphs: GraphCache | None, device: torch.device):
+    """The GraphCache to run in, or None to run eagerly."""
+    return graphs if device.type == "cuda" else None
+
+
+def _beam_buffers(spec: _Spec, device, features=None) -> dict:
+    """The decode's state, allocated once per shape. `features` (B, L, D)
+    serves as the input buffer when given (the eager path)."""
+    B, K, L, D, E, T = spec.B, spec.K, spec.L, spec.D, spec.E, spec.T
+
+    def new(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    i64 = torch.int64
+    G = B if spec.dedup else B * K          # rows of the grid and its keys
+    buf = {"features": new(B, L, D) if features is None else features,
+           "keys": new(G, L, E), "h": new(B * K, E), "c": new(B * K, E),
+           "ranks": torch.arange(K, device=device),
+           "rows": torch.arange(B, device=device),
+           "step": new(dtype=i64), "scores": new(B, K),
+           "prev": new(B, K, dtype=i64), "live": new(B, K, dtype=torch.bool),
+           "live_count": new(B, dtype=i64), "best_score": new(B),
+           "best_len": new(B, dtype=i64), "found": new(B, dtype=torch.bool),
+           "last_alpha0": new(B, L)}
+    buf["grid"] = buf["features"] if spec.dedup else new(G, L, D)
+    if spec.backtrack:
+        # Per-step records, write-only in the loop
+        buf.update(words=new(B, T, K, dtype=i64),
+                   parents=new(B, T, K, dtype=i64),
+                   alpha_steps=new(B, T, K, L),
+                   best_rank=new(B, dtype=i64),
+                   tokens=new(B, T, dtype=i64), alphas=new(B, T, L))
+    else:
+        buf.update(sentences=new(B, K, T, dtype=i64),
+                   alph_hist=new(B, K, T, L),
+                   best_tokens=new(B, T, dtype=i64),
+                   best_alphas=new(B, T, L))
+    return buf
+
+
+def _beam_start(dec: Decoder, spec: _Spec, buf: dict) -> None:
+    """The attention keys, the LSTM state and the loop state of a new
+    decode of buf["features"], written in place."""
+    B, K = spec.B, spec.K
+    feats = buf["features"]
+    if spec.dedup:
+        h, c = init_lstm_state(dec, feats)                     # (B, E)
+        h = h.repeat_interleave(K, dim=0)                      # (B*K, E)
+        c = c.repeat_interleave(K, dim=0)
+    else:
+        buf["grid"].view(B, K, *feats.shape[1:]).copy_(feats[:, None])
+        h, c = init_lstm_state(dec, buf["grid"])
+    buf["keys"].copy_(precompute_attention_keys(dec.attention, buf["grid"]))
+    buf["h"].copy_(h)
+    buf["c"].copy_(c)
+    buf["step"].fill_(1)
+    buf["scores"].zero_()
+    buf["prev"].fill_(spec.start_token)
+    buf["live"].copy_((buf["ranks"] == 0).expand(B, K))
+    buf["live_count"].fill_(K)
+    buf["best_score"].fill_(float("-inf"))
+    buf["best_len"].zero_()
+    buf["found"].zero_()
+    buf["last_alpha0"].zero_()
+    if spec.backtrack:
+        # The rebuild gathers through every parent it reads, also the
+        # ones it then masks out: they must be valid ranks.
+        buf["parents"].zero_()
+        buf["best_rank"].zero_()
+    else:
+        buf["sentences"].fill_(spec.start_token)
+        buf["alph_hist"].zero_()
+        buf["alph_hist"][:, :, 0] = 1.0
+        buf["best_tokens"].zero_()
+        buf["best_alphas"].zero_()
+
+
+def _beam_step(dec: Decoder, spec: _Spec, buf: dict) -> None:
+    """One expansion step of every image, in place."""
+    B, K, V, L = spec.B, spec.K, spec.V, spec.L
+    stop_a, stop_b = constants.BEAM_STOP_VANILLA
+    neg_inf = float("-inf")
+    rows, ranks, step = buf["rows"], buf["ranks"], buf["step"]
+    live_count = buf["live_count"]
+    active = live_count > 0                          # (B,) image not done
+
+    emb = embed_tokens(dec, buf["prev"].view(B * K))
+    h2, c2, logits, alpha, _ = decode_step(dec, buf["grid"], buf["keys"],
+                                           buf["h"], buf["c"], emb,
+                                           K if spec.dedup else 1)
+    logits = logits.view(B, K, V)
+    alpha_bk = alpha.view(B, K, L)
+
+    cand = (buf["scores"][..., None] + logits).masked_fill(
+        ~buf["live"][..., None], neg_inf)
+    values, flat_idx = topk(cand.reshape(B, K * V), K)    # (B, K)
+    parent = flat_idx // V
+    word = flat_idx % V
+    valid = ranks[None, :] < live_count[:, None]
+    at = step.view(1)                       # this step's column
+
+    if not spec.backtrack:
+        new_sent = buf["sentences"][rows[:, None], parent]     # (B, K, T)
+        new_sent.index_copy_(2, at, word[..., None])
+        new_alph = buf["alph_hist"][rows[:, None], parent]     # (B, K, T, L)
+        new_alph.index_copy_(2, at,
+                             alpha_bk[rows[:, None], parent][:, :, None])
+
+    is_stop = (word == stop_a) | (word == stop_b)
+    completed = valid & is_stop
+
+    comp_scores = values.masked_fill(~completed, neg_inf)  # (B, K)
+    bi = comp_scores.argmax(dim=1)                   # lowest rank on ties
+    step_best = comp_scores[rows, bi]
+    imp = active & (step_best > buf["best_score"])   # strict: earlier wins
+
+    live_new = valid & ~is_stop & active[:, None]
+
+    h2 = h2.view(B, K, -1)[rows[:, None], parent]
+    c2 = c2.view(B, K, -1)[rows[:, None], parent]
+    act = active[:, None]
+    act3 = active[:, None, None]
+
+    buf["scores"].copy_(torch.where(act, values.masked_fill(~live_new,
+                                                            neg_inf),
+                                    buf["scores"]))
+    buf["h"].copy_(torch.where(act3, h2, buf["h"].view(B, K, -1))
+                   .view(B * K, -1))
+    buf["c"].copy_(torch.where(act3, c2, buf["c"].view(B, K, -1))
+                   .view(B * K, -1))
+    buf["prev"].copy_(torch.where(act, word, buf["prev"]))
+    buf["live"].copy_(live_new)
+    buf["found"].copy_(buf["found"] | (active & completed.any(dim=1)))
+    live_count.sub_(torch.where(active, completed.sum(dim=1), 0))
+    buf["best_score"].copy_(torch.where(imp, step_best, buf["best_score"]))
+    buf["best_len"].copy_(torch.where(imp, step, buf["best_len"]))
+    buf["last_alpha0"].copy_(torch.where(act, alpha_bk[:, 0],
+                                         buf["last_alpha0"]))
+    if spec.backtrack:
+        # Inactive images write garbage at t > their best_len, which the
+        # rebuild masks out.
+        buf["words"].index_copy_(1, at, word[:, None])
+        buf["parents"].index_copy_(1, at, parent[:, None])
+        buf["alpha_steps"].index_copy_(1, at, alpha_bk[:, None])
+        buf["best_rank"].copy_(torch.where(imp, bi, buf["best_rank"]))
+    else:
+        buf["sentences"].copy_(torch.where(act[..., None], new_sent,
+                                           buf["sentences"]))
+        buf["alph_hist"].copy_(torch.where(act3[..., None], new_alph,
+                                           buf["alph_hist"]))
+        buf["best_tokens"].copy_(torch.where(imp[:, None], new_sent[rows, bi],
+                                             buf["best_tokens"]))
+        buf["best_alphas"].copy_(torch.where(imp[:, None, None],
+                                             new_alph[rows, bi],
+                                             buf["best_alphas"]))
+    step.add_(1)
+
+
+def _beam_steps(dec: Decoder, spec: _Spec, buf: dict, n: int) -> None:
+    for _ in range(n):
+        _beam_step(dec, spec, buf)
+
+
+def _beam_rebuild(spec: _Spec, buf: dict) -> None:
+    """The winning path of each image into buf["tokens"] and
+    buf["alphas"]: parents walked from (best_len, best_rank) back to step
+    1. The alpha recorded at step t is indexed by the candidate's parent
+    (the pre-expansion row). Positions beyond best_len hold the start
+    token and zero alphas, as in the direct-history form."""
+    rows, best_len, found = buf["rows"], buf["best_len"], buf["found"]
+    tokens, alphas = buf["tokens"], buf["alphas"]
+    tokens.fill_(spec.start_token)
+    alphas.zero_()
+    alphas[:, 0] = 1.0
+    r = buf["best_rank"]
+    for t in range(spec.T - 1, 0, -1):
+        on = t <= best_len                                      # (B,)
+        tok = buf["words"][rows, t, r]
+        par = buf["parents"][rows, t, r]
+        tokens[:, t] = torch.where(on, tok, spec.start_token)
+        alphas[:, t] = torch.where(on[:, None],
+                                   buf["alpha_steps"][rows, t, par], 0.0)
+        r = torch.where(on, par, r)
+    # Never-completed rows are all-zero in the direct-history form (its
+    # running best never updates from the zeros init).
+    tokens.masked_fill_(~found[:, None], 0)
+    alphas.masked_fill_(~found[:, None, None], 0.0)
 
 
 @torch.inference_mode()
@@ -59,8 +290,9 @@ def beam_search_batched(dec: Decoder, features: torch.Tensor, beam_size: int,
                         max_steps: int = constants.BEAM_MAX_STEPS,
                         dedup: bool = True, fast_topk: bool = False,
                         bf16: bool = False, chunk: int | None = 128,
-                        mesh_data: int = 1,
-                        backtrack: bool = True) -> BeamResult:
+                        mesh_data: int = 1, backtrack: bool = True,
+                        sync_every: int = SYNC_EVERY,
+                        graphs: GraphCache | None = None) -> BeamResult:
     """features (B, L, D) -> BeamResult with leading batch dim B.
 
     All B beams advance together over flat (B*K) decode rows with one
@@ -74,7 +306,9 @@ def beam_search_batched(dec: Decoder, features: torch.Tensor, beam_size: int,
     chunking does not change results. `backtrack=True` records per-step
     parent pointers and rebuilds the winning path once after the loop;
     False carries the whole token and alpha history per beam, reindexed by
-    parent each step. Both give the same result.
+    parent each step. Both give the same result. `sync_every` steps run
+    between two host reads of the exit test; `graphs` as in the module
+    note.
     """
     if fast_topk:
         raise _not_ported("fast_topk (the approximate TPU top-k)")
@@ -82,191 +316,115 @@ def beam_search_batched(dec: Decoder, features: torch.Tensor, beam_size: int,
         raise _not_ported("bf16 decode")
     if mesh_data > 1:
         raise _not_ported("mesh serving (mesh_data > 1)")
+    if sync_every < 1:
+        raise ValueError(f"sync_every must be >= 1, got {sync_every}")
     cfg = dec.cfg
     B = features.shape[0]
     if chunk and B > chunk:
         parts = [beam_search_batched(dec, features[s:s + chunk], beam_size,
                                      max_steps, dedup, chunk=None,
-                                     backtrack=backtrack)
+                                     backtrack=backtrack,
+                                     sync_every=sync_every, graphs=graphs)
                  for s in range(0, B, chunk)]
         return BeamResult(*(torch.cat(f, dim=0) for f in zip(*parts)))
 
     B, L, D = features.shape
-    K = beam_size
-    V = cfg.effective_vocab_size
-    stop_a, stop_b = constants.BEAM_STOP_VANILLA
-    dev, dt = features.device, features.dtype
-    neg_inf = float("-inf")
+    spec = _Spec(B, beam_size, L, D, cfg.embedding_size,
+                 cfg.effective_vocab_size, max_steps, dedup, backtrack,
+                 cfg.start_token)
+    cache = _graph_cache(graphs, features.device)
+    if cache is None:
+        buf = _beam_buffers(spec, features.device, features)
 
-    if dedup:
-        grid = features
-        keys = precompute_attention_keys(dec.attention, features)
-        h, c = init_lstm_state(dec, features)                  # (B, E)
-        h = h.repeat_interleave(K, dim=0)                      # (B*K, E)
-        c = c.repeat_interleave(K, dim=0)
-        rows_per_image = K
+        def run(name, fn):
+            fn(buf)
     else:
-        grid = features.repeat_interleave(K, dim=0)            # (B*K, L, D)
-        keys = precompute_attention_keys(dec.attention, grid)
-        h, c = init_lstm_state(dec, grid)
-        rows_per_image = 1
+        slot = cache.slot(("beam", spec), (dec,),
+                          lambda: _beam_buffers(spec, features.device))
+        buf = slot.buffers
+        buf["features"].copy_(features)
+        run = slot.run
 
-    T = 1 + max_steps
-    ranks = torch.arange(K, device=dev)
-    rows = torch.arange(B, device=dev)
-    scores = torch.zeros((B, K), dtype=dt, device=dev)
-    prev = torch.full((B, K), cfg.start_token, dtype=torch.int64, device=dev)
-    live = (ranks == 0).expand(B, K).clone()
-    live_count = torch.full((B,), K, dtype=torch.int64, device=dev)
-    best_score = torch.full((B,), neg_inf, dtype=torch.float32, device=dev)
-    best_len = torch.zeros((B,), dtype=torch.int64, device=dev)
-    found = torch.zeros((B,), dtype=torch.bool, device=dev)
-    last_alpha0 = torch.zeros((B, L), dtype=dt, device=dev)
+    run("start", lambda b: _beam_start(dec, spec, b))
+    done = 0
+    while done < max_steps and (done == 0
+                                or bool((buf["live_count"] > 0).any())):
+        n = min(sync_every, max_steps - done)
+        run(f"steps{n}", lambda b, n=n: _beam_steps(dec, spec, b, n))
+        done += n
     if backtrack:
-        # Write-only per-step records; the winning path is rebuilt once
-        # after the loop from (best_len, best_rank) through `parents`.
-        words = torch.full((B, T, K), cfg.start_token, dtype=torch.int64,
-                           device=dev)
-        parents = torch.zeros((B, T, K), dtype=torch.int64, device=dev)
-        alpha_steps = torch.zeros((B, T, K, L), dtype=dt, device=dev)
-        best_rank = torch.zeros((B,), dtype=torch.int64, device=dev)
+        run("rebuild", lambda b: _beam_rebuild(spec, b))
+        tokens, alphas = buf["tokens"], buf["alphas"]
     else:
-        sentences = torch.full((B, K, T), cfg.start_token, dtype=torch.int64,
-                               device=dev)
-        alph_hist = torch.zeros((B, K, T, L), dtype=dt, device=dev)
-        alph_hist[:, :, 0] = 1.0
-        best_tokens = torch.zeros((B, T), dtype=torch.int64, device=dev)
-        best_alphas = torch.zeros((B, T, L), dtype=dt, device=dev)
-
-    step = 1
-    while step <= max_steps and bool((live_count > 0).any()):
-        active = live_count > 0                          # (B,) image not done
-
-        emb = embed_tokens(dec, prev.reshape(B * K))
-        h2, c2, logits, alpha, _ = decode_step(dec, grid, keys, h, c, emb,
-                                               rows_per_image)
-        logits = logits.view(B, K, V)
-        alpha_bk = alpha.view(B, K, L)
-
-        cand = (scores[..., None] + logits).masked_fill(~live[..., None],
-                                                        neg_inf)
-        values, flat_idx = topk(cand.reshape(B, K * V), K)    # (B, K)
-        parent = flat_idx // V
-        word = flat_idx % V
-        valid = ranks[None, :] < live_count[:, None]
-
-        if not backtrack:
-            new_sent = sentences[rows[:, None], parent]        # (B, K, T)
-            new_sent[:, :, step] = word
-            new_alph = alph_hist[rows[:, None], parent]        # (B, K, T, L)
-            new_alph[:, :, step] = alpha_bk[rows[:, None], parent]
-
-        is_stop = (word == stop_a) | (word == stop_b)
-        completed = valid & is_stop
-
-        comp_scores = values.masked_fill(~completed, neg_inf)  # (B, K)
-        bi = comp_scores.argmax(dim=1)                   # lowest rank on ties
-        step_best = comp_scores[rows, bi]
-        improved = active & (step_best > best_score)     # strict: earlier wins
-
-        live_new = valid & ~is_stop & active[:, None]
-
-        h2 = h2.view(B, K, -1)[rows[:, None], parent]
-        c2 = c2.view(B, K, -1)[rows[:, None], parent]
-        act = active[:, None]
-        act3 = active[:, None, None]
-        imp = improved
-
-        scores = torch.where(act, values.masked_fill(~live_new, neg_inf),
-                             scores)
-        h = torch.where(act3, h2, h.view(B, K, -1)).view(B * K, -1)
-        c = torch.where(act3, c2, c.view(B, K, -1)).view(B * K, -1)
-        prev = torch.where(act, word, prev)
-        live = live_new
-        live_count = live_count - torch.where(active, completed.sum(dim=1), 0)
-        best_score = torch.where(imp, step_best, best_score)
-        best_len = torch.where(imp, step, best_len)
-        found = found | (active & completed.any(dim=1))
-        last_alpha0 = torch.where(act, alpha_bk[:, 0], last_alpha0)
-        if backtrack:
-            # Inactive images write garbage at t > their best_len, which the
-            # rebuild masks out.
-            words[:, step] = word
-            parents[:, step] = parent
-            alpha_steps[:, step] = alpha_bk
-            best_rank = torch.where(imp, bi, best_rank)
-        else:
-            sentences = torch.where(act[..., None], new_sent, sentences)
-            alph_hist = torch.where(act3[..., None], new_alph, alph_hist)
-            best_tokens = torch.where(imp[:, None], new_sent[rows, bi],
-                                      best_tokens)
-            best_alphas = torch.where(imp[:, None, None], new_alph[rows, bi],
-                                      best_alphas)
-        step += 1
-
-    if not backtrack:
-        return BeamResult(tokens=best_tokens, length=best_len,
-                          alphas=best_alphas, score=best_score, found=found,
-                          fallback_alpha=last_alpha0)
-
-    # Rebuild the winning path once: walk parents from (best_len, best_rank)
-    # back to step 1. The alpha recorded at step t is indexed by the
-    # candidate's parent (the pre-expansion row). Positions beyond best_len
-    # emit the start token and zero alphas, as the direct-history form does.
-    tokens = torch.full((B, T), cfg.start_token, dtype=torch.int64,
-                        device=dev)
-    alphas = torch.zeros((B, T, L), dtype=dt, device=dev)
-    alphas[:, 0] = 1.0
-    r = best_rank
-    for t in range(T - 1, 0, -1):
-        on = t <= best_len                                      # (B,)
-        tok = words[rows, t, r]
-        par = parents[rows, t, r]
-        tokens[:, t] = torch.where(on, tok, cfg.start_token)
-        alphas[:, t] = torch.where(on[:, None], alpha_steps[rows, t, par], 0.0)
-        r = torch.where(on, par, r)
-    # Never-completed rows are all-zero in the direct-history form (its
-    # running best never updates from the zeros init).
-    tokens = torch.where(found[:, None], tokens, 0)
-    alphas = torch.where(found[:, None, None], alphas, 0.0)
-    return BeamResult(tokens=tokens, length=best_len, alphas=alphas,
-                      score=best_score, found=found,
-                      fallback_alpha=last_alpha0)
+        tokens, alphas = buf["best_tokens"], buf["best_alphas"]
+    # copies: the buffers are the next decode's
+    return BeamResult(tokens=tokens.clone(), length=buf["best_len"].clone(),
+                      alphas=alphas.clone(), score=buf["best_score"].clone(),
+                      found=buf["found"].clone(),
+                      fallback_alpha=buf["last_alpha0"].clone())
 
 
-@torch.inference_mode()
-def greedy_caption(dec: Decoder, features: torch.Tensor,
-                   max_steps: int = constants.BEAM_MAX_STEPS,
-                   with_alphas: bool = False):
-    """Greedy (argmax) decode of a batch of images: features (B, L, D) ->
-    (tokens (B, max_steps), lengths (B,)). Tokens after a row's first stop
-    id repeat it; `lengths` is the index of that stop (max_steps when none
-    was emitted). `with_alphas=True` adds the per-step attention maps
-    (B, max_steps, L). Like sat_tpu's scan, it runs all max_steps."""
-    cfg = dec.cfg
+def _greedy_buffers(B: int, L: int, D: int, max_steps: int, device,
+                    features=None) -> dict:
+    def new(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=device)
+    return {"features": new(B, L, D) if features is None else features,
+            "tokens": new(B, max_steps, dtype=torch.int64),
+            "lengths": new(B, dtype=torch.int64),
+            "alphas": new(B, max_steps, L)}
+
+
+def _greedy_decode(dec: Decoder, max_steps: int, buf: dict) -> None:
+    """All max_steps greedy steps of buf["features"], into buf["tokens"],
+    buf["lengths"] and buf["alphas"]."""
+    features = buf["features"]
     B = features.shape[0]
     stop_a, stop_b = constants.BEAM_STOP_VANILLA
     keys = precompute_attention_keys(dec.attention, features)
     h, c = init_lstm_state(dec, features)
-    prev = torch.full((B,), cfg.start_token, dtype=torch.int64,
+    prev = torch.full((B,), dec.cfg.start_token, dtype=torch.int64,
                       device=features.device)
     done = torch.zeros((B,), dtype=torch.bool, device=features.device)
-    toks, alphas = [], []
-    for _ in range(max_steps):
+    toks = buf["tokens"]
+    for t in range(max_steps):
         emb = embed_tokens(dec, prev)
         h, c, logits, alpha, _ = decode_step(dec, features, keys, h, c, emb)
         nxt = torch.where(done, prev, logits.argmax(dim=1))
         done = done | (nxt == stop_a) | (nxt == stop_b)
         prev = nxt
-        toks.append(nxt)
-        alphas.append(alpha)
-    toks = torch.stack(toks, dim=1)                      # (B, max_steps)
+        toks[:, t] = nxt
+        buf["alphas"][:, t] = alpha
     is_stop = (toks == stop_a) | (toks == stop_b)
-    lengths = torch.where(is_stop.any(dim=1),
-                          is_stop.int().argmax(dim=1), max_steps)
-    if with_alphas:
-        return toks, lengths, torch.stack(alphas, dim=1)
-    return toks, lengths
+    buf["lengths"].copy_(torch.where(is_stop.any(dim=1),
+                                     is_stop.int().argmax(dim=1), max_steps))
+
+
+@torch.inference_mode()
+def greedy_caption(dec: Decoder, features: torch.Tensor,
+                   max_steps: int = constants.BEAM_MAX_STEPS,
+                   with_alphas: bool = False,
+                   graphs: GraphCache | None = None):
+    """Greedy (argmax) decode of a batch of images: features (B, L, D) ->
+    (tokens (B, max_steps), lengths (B,)). Tokens after a row's first stop
+    id repeat it; `lengths` is the index of that stop (max_steps when none
+    was emitted). `with_alphas=True` adds the per-step attention maps
+    (B, max_steps, L). Like sat_tpu's scan, it runs all max_steps: on the
+    card, given a GraphCache (`graphs` as in beam_search_batched), as one
+    CUDA graph."""
+    B, L, D = features.shape
+    cache = _graph_cache(graphs, features.device)
+    if cache is None:
+        buf = _greedy_buffers(B, L, D, max_steps, features.device, features)
+        _greedy_decode(dec, max_steps, buf)
+    else:
+        slot = cache.slot(("greedy", B, L, D, max_steps), (dec,),
+                          lambda: _greedy_buffers(B, L, D, max_steps,
+                                                  features.device))
+        buf = slot.buffers
+        buf["features"].copy_(features)
+        slot.run("decode", lambda b: _greedy_decode(dec, max_steps, b))
+    out = (buf["tokens"].clone(), buf["lengths"].clone())
+    return out + (buf["alphas"].clone(),) if with_alphas else out
 
 
 def extract_caption(result: BeamResult):

@@ -10,7 +10,8 @@ channels-last in memory. The conv module names are torchvision's
 
 Convolutions are F.conv2d, as sat_tpu left them to XLA. The grid is f32;
 on the card cuDNN runs f32 convs in TF32 unless
-`torch.backends.cudnn.allow_tf32` is off, which exact-parity callers set.
+`torch.backends.cudnn.allow_tf32` is off, and every entry point turns it
+off (`device.use_f32_math`), so the grids are sat_tpu's f32 grids.
 ResNet152, DenseNet161, bf16 compute and sat_tpu's space-to-depth first
 conv (a TPU-lane trick) are not ported.
 """

@@ -40,6 +40,15 @@ the du_h / dv sums cross the cluster through distributed shared memory in
 rank order, so a launch needs no device scratch and gives the same bits
 every run. The bulk copies need E and D to be multiples of 4 and keys and
 features to start on a 16-byte boundary; the wrappers raise otherwise.
+
+In a CUDA graph: both wrappers launch on the current stream and allocate
+through PyTorch, so a capture records them. The first launch of each shape
+runs the cluster placement check (csrc/cluster.cuh: cudaFuncSetAttribute,
+cudaOccupancyMaxActiveClusters), which must happen before a capture:
+utils/graphs.py's warm-up run makes it. `attention_fwd.launches` and
+`attention_bwd.launches` count on the host, where the wrappers run: a
+capture counts once and its replays never, so on a graph path count the
+kernels' rows in a profile instead.
 """
 from __future__ import annotations
 
@@ -90,7 +99,9 @@ def attention_plain(keys, feats, u_h, v, b_v, rows_per_image: int = 1):
 
 def attention_fwd(keys, feats, u_h, v, b_v, rows_per_image: int = 1):
     """keys (B, L, E), feats (B, L, D), u_h (B*R, E), v (E,), b_v (1,), all
-    f32 -> (ctx (B*R, D), alpha (B*R, L)), as `attention_plain`."""
+    f32 -> (ctx (B*R, D), alpha (B*R, L)), as `attention_plain`. A CUDA
+    graph may capture it once its shape has launched outside the capture
+    (module note)."""
     B, R, L, E, D = _shapes(keys, feats, u_h, v, b_v, rows_per_image)
     tensors = (keys, feats, u_h, v, b_v)
     if any(t.dtype != torch.float32 for t in tensors):
@@ -120,7 +131,7 @@ def attention_fwd(keys, feats, u_h, v, b_v, rows_per_image: int = 1):
     return ctx, alpha
 
 
-attention_fwd.launches = 0   # kernel launches; CPU calls do not count
+attention_fwd.launches = 0   # host calls that launch; not CPU, not replays
 
 
 def _bwd_check(keys, feats, u_h, v, alpha, dctx, dalpha):
@@ -158,7 +169,9 @@ def attention_bwd_plain(keys, feats, u_h, v, alpha, dctx, dalpha,
 def attention_bwd(keys, feats, u_h, v, alpha, dctx, dalpha,
                   want_dfeats: bool = True):
     """As `attention_bwd_plain`; on CUDA tensors one kernel launch, with
-    dfeats neither computed nor written unless `want_dfeats`."""
+    dfeats neither computed nor written unless `want_dfeats`. A CUDA graph
+    may capture it once its shape has launched outside the capture (module
+    note)."""
     B, L, E, D = _bwd_check(keys, feats, u_h, v, alpha, dctx, dalpha)
     tensors = (keys, feats, u_h, v, alpha, dctx, dalpha)
     if any(t.dtype != torch.float32 for t in tensors):
@@ -195,7 +208,7 @@ def attention_bwd(keys, feats, u_h, v, alpha, dctx, dalpha,
     return dkeys, dfeats, du_h, dv_part.sum(dim=0), dbv_part.sum().reshape(1)
 
 
-attention_bwd.launches = 0   # kernel launches; CPU calls do not count
+attention_bwd.launches = 0   # host calls that launch; not CPU, not replays
 
 
 class FusedAttention(torch.autograd.Function):

@@ -14,6 +14,15 @@ source note gives the bound and the design: for k <= 16 one pass over each
 row, split across a thread-block cluster of `cluster_size(B)` blocks, and
 for larger k one block per row and k rounds. `topk` runs the plain form for
 CPU tensors only; for a CUDA tensor it launches the kernel or raises.
+
+In a CUDA graph: the wrapper launches on the current stream and allocates
+through PyTorch, so a capture records it. The first launch of each shape
+(cluster size, shared memory) runs the kernel's placement check
+(csrc/cluster.cuh: cudaFuncSetAttribute, cudaOccupancyMaxActiveClusters),
+which must happen before a capture: utils/graphs.py's warm-up run makes it.
+`topk.launches` counts on the host, where the wrapper runs: a capture counts
+once and its replays never, so on a graph path count the kernel's rows in a
+profile instead.
 """
 
 from __future__ import annotations
@@ -49,7 +58,9 @@ def cluster_size(rows: int) -> int:
 
 def topk(x: torch.Tensor, k: int):
     """Exact top-k of each row of x (B, N) f32: (values (B, k) f32,
-    indices (B, k) int64), the same values and indices as `topk_plain`."""
+    indices (B, k) int64), the same values and indices as `topk_plain`.
+    A CUDA graph may capture it once its shape has launched outside the
+    capture (module note)."""
     if x.dim() != 2:
         raise ValueError(f"topk wants (B, N), got shape {tuple(x.shape)}")
     B, N = x.shape
@@ -84,4 +95,4 @@ def launch(x: torch.Tensor, k: int, cluster: int):
     return values, indices
 
 
-topk.launches = 0   # kernel launches; CPU calls do not count
+topk.launches = 0   # host calls that launch; not CPU calls, not replays

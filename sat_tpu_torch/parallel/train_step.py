@@ -10,17 +10,23 @@ and backward.
 Optimizer: sat_tpu's `scale_by_adam(b1=0.9, b2=0.999, eps=1e-8,
 eps_root=0)` with -lr applied outside is torch.optim.Adam with the same
 betas and eps; the learning rate is set on each call, so the host drives
-the StepLR schedule. The state a step updates in place is a `TrainState`:
-the decoder module, its optimizer and the step count.
+the StepLR schedule. On the card the Adam is capturable: its step counts,
+bias corrections and learning rate live on the device, so that a CUDA
+graph can hold its update; the per-batch steps use the same update, so a
+blocked run and a per-batch run compute the same bits. The state a step
+updates in place is a `TrainState`: the decoder module, its optimizer and
+the step count.
 
 Each `make_*` returns a function of the same arguments as sat_tpu's, with
 a torch.Generator in place of the rng (dropout; None turns it off). The
-K-step blocks (`make_bank_train_block`, `make_bank_eval_block`) are not
-ported yet.
+K-step blocks (`make_bank_train_block`, `make_bank_eval_block`) run K
+steps in one dispatch: on the card, K replays of one captured step
+(utils/graphs.py), as sat_tpu runs them in one `lax.scan`.
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 
 import torch
@@ -29,6 +35,7 @@ from sat_tpu_torch import constants
 from sat_tpu_torch.models.decoder import (Decoder, DecoderConfig,
                                           decoder_forward)
 from sat_tpu_torch.models.encoder import encoder_forward
+from sat_tpu_torch.utils.graphs import GraphCache
 from sat_tpu_torch.utils.metrics import (attention_regularization,
                                          calculate_caption_lengths,
                                          reference_packed_cross_entropy,
@@ -45,10 +52,41 @@ class TrainState:
 
 def make_optimizer(decoder: Decoder) -> torch.optim.Adam:
     """Adam over the decoder's trainable parameters; the lr is set on each
-    step."""
-    return torch.optim.Adam([p for p in decoder.parameters()
-                             if p.requires_grad],
-                            lr=0.0, betas=(0.9, 0.999), eps=1e-8)
+    step (`set_lr`). Capturable on the card, with the lr a device tensor
+    there."""
+    params = [p for p in decoder.parameters() if p.requires_grad]
+    optimizer = torch.optim.Adam(params, lr=0.0, betas=(0.9, 0.999),
+                                 eps=1e-8)
+    place_optimizer_state(optimizer)
+    return optimizer
+
+
+def place_optimizer_state(optimizer: torch.optim.Adam) -> None:
+    """Put each group's settings and step counts in the form its params'
+    device runs: capturable, with a device lr and device step counts, on
+    the card; a float lr and host step counts on the CPU. After
+    `load_state_dict`, which takes the saved form (the train state's is the
+    CPU form: engine/checkpoint.py::optimizer_file_state)."""
+    for group in optimizer.param_groups:
+        dev = group["params"][0].device
+        cuda = dev.type == "cuda"
+        lr = float(group["lr"])
+        group["capturable"] = cuda
+        group["lr"] = torch.full((), lr, device=dev) if cuda else lr
+        for p in group["params"]:
+            state = optimizer.state.get(p, {})
+            if "step" in state:
+                state["step"] = state["step"].to(dev if cuda else "cpu")
+
+
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """The learning rate of the coming steps: a device lr is filled in
+    place, where a captured update reads it."""
+    for group in optimizer.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = float(lr)
 
 
 def init_train_state(decoder: Decoder) -> TrainState:
@@ -92,13 +130,15 @@ def _loss_and_metrics(dcfg: DecoderConfig, alpha_c: float, decoder: Decoder,
     return loss, (metrics, preds, alphas)
 
 
-def _update(state: TrainState, loss, lr: float) -> None:
-    """Backward and one Adam step at `lr`."""
+def _update(state: TrainState, loss) -> None:
+    """Backward and one Adam step at the optimizer's lr."""
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
-    for group in state.optimizer.param_groups:
-        group["lr"] = float(lr)
-    state.optimizer.step()
+    with warnings.catch_warnings():
+        # Per-batch steps run the capturable update uncaptured on purpose
+        # (the same bits as a block's): torch warns once for that.
+        warnings.filterwarnings("ignore", message=".*capturable=True")
+        state.optimizer.step()
     state.step += 1
 
 
@@ -131,10 +171,21 @@ def make_train_step(dcfg: DecoderConfig, network: str, alpha_c: float,
         loss, (metrics, _, _) = _loss_and_metrics(
             dcfg, alpha_c, state.decoder, features, captions, generator, True,
             row_mask, rep_penalty_beta)
-        _update(state, loss, lr)
+        set_lr(state.optimizer, lr)
+        _update(state, loss)
         return state, metrics
 
     return step_fn
+
+
+def _bank_step(dcfg, alpha_c, rep_penalty_beta, state: TrainState,
+               feat_bank, caps_bank, img_idx, row_idx, generator, row_mask):
+    """One bank train step at the optimizer's lr: its metrics."""
+    loss, (metrics, _, _) = _loss_and_metrics(
+        dcfg, alpha_c, state.decoder, feat_bank[img_idx], caps_bank[row_idx],
+        generator, True, row_mask, rep_penalty_beta)
+    _update(state, loss)
+    return metrics
 
 
 def make_bank_train_step(dcfg: DecoderConfig, alpha_c: float,
@@ -146,11 +197,10 @@ def make_bank_train_step(dcfg: DecoderConfig, alpha_c: float,
 
     def step_fn(state: TrainState, feat_bank, caps_bank, img_idx, row_idx,
                 lr, generator, row_mask=None):
-        loss, (metrics, _, _) = _loss_and_metrics(
-            dcfg, alpha_c, state.decoder, feat_bank[img_idx],
-            caps_bank[row_idx], generator, True, row_mask, rep_penalty_beta)
-        _update(state, loss, lr)
-        return state, metrics
+        set_lr(state.optimizer, lr)
+        return state, _bank_step(dcfg, alpha_c, rep_penalty_beta, state,
+                                 feat_bank, caps_bank, img_idx, row_idx,
+                                 generator, row_mask)
 
     return step_fn
 
@@ -190,13 +240,146 @@ def make_eval_step(dcfg: DecoderConfig, network: str, alpha_c: float,
     return eval_fn
 
 
-def make_bank_train_block(*args, **kwargs):
-    raise NotImplementedError(
-        "K-step train blocks are not ported yet (ROADMAP.md, Queue 1: "
-        "blocked K-step dispatch)")
+def _replay_block(slot, body, generators, img_idx, row_idx,
+                  row_mask) -> dict:
+    """One run of the slot's graph "step" for each row of the (K, B) block:
+    before run i, the step's index (and mask) slots take row i by
+    device-to-device copies; after it, the run's outputs (buffers["out"],
+    which the eager warm-up run allocates) go to row i of the stacked
+    result, on the device."""
+    buf, K = slot.buffers, img_idx.shape[0]
+    stacked = None
+    for i in range(K):
+        buf["img_idx"].copy_(img_idx[i])
+        buf["row_idx"].copy_(row_idx[i])
+        if row_mask is not None:
+            buf["row_mask"].copy_(row_mask[i])
+        slot.run("step", body, generators)
+        if stacked is None:
+            stacked = {k: v.new_empty((K,) + v.shape)
+                       for k, v in buf["out"].items()}
+        for k, v in buf["out"].items():
+            stacked[k][i].copy_(v)
+    return stacked
 
 
-def make_bank_eval_block(*args, **kwargs):
-    raise NotImplementedError(
-        "K-step eval blocks are not ported yet (ROADMAP.md, Queue 1: "
-        "blocked K-step dispatch)")
+def _index_slots(feat_bank, img_idx, row_idx, row_mask):
+    """The buffers of one captured bank step: its row indices and mask."""
+    B, dev = img_idx.shape[1], feat_bank.device
+    buf = {"img_idx": torch.empty(B, dtype=img_idx.dtype, device=dev),
+           "row_idx": torch.empty(B, dtype=row_idx.dtype, device=dev),
+           "row_mask": None, "out": {}}
+    if row_mask is not None:
+        buf["row_mask"] = torch.empty(B, dtype=torch.bool, device=dev)
+    return buf
+
+
+def _write_out(buf, **values) -> None:
+    """Copy a run's outputs into buf["out"]; the warm-up run, eager,
+    allocates them, so a capture only records copies."""
+    for k, v in values.items():
+        if k not in buf["out"]:
+            buf["out"][k] = torch.empty_like(v)
+        buf["out"][k].copy_(v)
+
+
+def make_bank_train_block(dcfg: DecoderConfig, alpha_c: float,
+                          rep_penalty_beta: float = 0.0):
+    """K optimizer steps in one dispatch, the port of sat_tpu's `lax.scan`
+    block: `block(state, feat_bank (U, L, D), caps_bank (N, T), img_idx
+    (K, B), row_idx (K, B), lr, generator, row_mask (K, B) or None) ->
+    (state, metrics)`, each metric stacked to (K,) and left on the device,
+    so the host reads them once a block.
+
+    On the card one train step is captured per (B, T, decoder config,
+    mask) shape, and the block replays it K times. Before each replay the
+    step's index (and mask) slots are refreshed from the block's one upload
+    by device-to-device copies; after it, its metrics are copied into row i
+    of the stacked outputs. The first run of a new shape is the capture's
+    eager warm-up. The lr is the optimizer's device tensor, filled once a
+    block; the dropout generator is registered with the graph, so replay i
+    draws the masks that the i-th per-batch step would, and leaves the
+    generator where K per-batch steps leave it. On the CPU the block is K
+    per-batch steps. Either way the block computes what K consecutive
+    `make_bank_train_step` calls do, bit for bit. `block.graphs` is its
+    GraphCache."""
+    cache = GraphCache()
+
+    def block_fn(state: TrainState, feat_bank, caps_bank, img_idx, row_idx,
+                 lr, generator, row_mask=None):
+        K = img_idx.shape[0]
+        set_lr(state.optimizer, lr)
+
+        def step(ii, ri, mask):
+            return _bank_step(dcfg, alpha_c, rep_penalty_beta, state,
+                              feat_bank, caps_bank, ii, ri, generator, mask)
+
+        if feat_bank.device.type != "cuda":
+            runs = [step(img_idx[i], row_idx[i],
+                         None if row_mask is None else row_mask[i])
+                    for i in range(K)]
+            return state, {k: torch.stack([m[k] for m in runs])
+                           for k in runs[0]}
+
+        gens = () if generator is None else (generator,)
+        slot = cache.slot(
+            ("train", img_idx.shape[1], caps_bank.shape[1], dcfg,
+             row_mask is None),
+            (state.decoder, state.optimizer, feat_bank, caps_bank) + gens,
+            lambda: _index_slots(feat_bank, img_idx, row_idx, row_mask))
+
+        def body(b):
+            _write_out(b, **step(b["img_idx"], b["row_idx"], b["row_mask"]))
+
+        step0 = state.step      # the host's count; a replay runs no Python
+        metrics = _replay_block(slot, body, gens, img_idx, row_idx, row_mask)
+        state.step = step0 + K
+        return state, metrics
+
+    block_fn.graphs = cache
+    return block_fn
+
+
+def make_bank_eval_block(dcfg: DecoderConfig, alpha_c: float):
+    """K eval batches in one dispatch: `block(decoder, feat_bank, caps_bank,
+    img_idx (K, B), row_idx (K, B), row_mask (K, B) or None) -> (metrics,
+    tokens (K, B, T-1))`, each metric stacked to (K,), all on the device.
+    No alphas: the blocked path serves VALIDATION, where nothing reads
+    them. On the card one eval step is captured per (B, T, mask) shape and
+    replayed K times, as in `make_bank_train_block`; on the CPU the block is
+    K eval steps."""
+    cache = GraphCache()
+
+    def block_fn(decoder, feat_bank, caps_bank, img_idx, row_idx,
+                 row_mask=None):
+        K = img_idx.shape[0]
+
+        def step(ii, ri, mask):
+            metrics, tokens, _ = _eval(dcfg, alpha_c, decoder, feat_bank[ii],
+                                       caps_bank[ri], mask)
+            return metrics, tokens
+
+        if feat_bank.device.type != "cuda":
+            runs = [step(img_idx[i], row_idx[i],
+                         None if row_mask is None else row_mask[i])
+                    for i in range(K)]
+            return ({k: torch.stack([m[k] for m, _ in runs])
+                     for k in runs[0][0]},
+                    torch.stack([t for _, t in runs]))
+
+        slot = cache.slot(
+            ("eval", img_idx.shape[1], caps_bank.shape[1], dcfg,
+             row_mask is None),
+            (decoder, feat_bank, caps_bank),
+            lambda: _index_slots(feat_bank, img_idx, row_idx, row_mask))
+
+        def body(b):
+            metrics, tokens = step(b["img_idx"], b["row_idx"], b["row_mask"])
+            _write_out(b, tokens=tokens, **metrics)
+
+        out = _replay_block(slot, body, (), img_idx, row_idx, row_mask)
+        tokens = out.pop("tokens")
+        return out, tokens
+
+    block_fn.graphs = cache
+    return block_fn

@@ -10,9 +10,11 @@ Port of serve.py. Requests are newline-delimited JSON over TCP:
 or `{"id": "r2", "cached": 3}` for row 3 (modulo the pool size) of the
 image pool decoded at startup from --preload-images. Concurrent requests
 are coalesced into one batch (up to --max-batch, waiting at most
---batch-window-ms for stragglers) and decoded by one caption step
-(sat_tpu_torch.engine.serving.build_caption_step). PyTorch runs eagerly and
-compiles nothing per shape, so batches run at their own size, unpadded.
+--batch-window-ms for stragglers), padded up to a power-of-two bucket with
+copies of its last image, and decoded by one caption step
+(sat_tpu_torch.engine.serving.build_caption_step). The step replays CUDA
+graphs captured once per batch shape, so the buckets bound the captures to
+log2(--max-batch) + 1; the padded rows' results are dropped.
 
     python -m sat_tpu_torch.serve --model model/model_vgg19_8.npz \\
         --encoder-weights vgg19.npz --port 8765 --max-batch 32
@@ -43,7 +45,7 @@ import torch
 
 from sat_tpu_torch.config import Config
 from sat_tpu_torch.data.transforms import load_and_preprocess_image
-from sat_tpu_torch.device import resolve_device
+from sat_tpu_torch.device import resolve_device, use_f32_math
 
 
 class CaptionServer:
@@ -272,6 +274,15 @@ class CaptionServer:
                 break
         return batch
 
+    def _bucket(self, n: int) -> int:
+        """Smallest power of two >= n, capped at --max-batch (serve.py's
+        bucket at a quantum of 1): it bounds the batch shapes the step
+        captures."""
+        b = 1
+        while b < n:
+            b *= 2
+        return min(b, max(self._max_batch, n))
+
     def _load_images(self, batch):
         """Every request's image; returns (imgs, live) with load failures
         already answered."""
@@ -299,7 +310,8 @@ class CaptionServer:
         if not live:
             return None
         n = len(live)
-        arr = np.stack(imgs).astype(np.float32)
+        bucket = self._bucket(n)
+        arr = np.stack(imgs + [imgs[-1]] * (bucket - n)).astype(np.float32)
         try:
             out = self._caption_fn(arr)
         except Exception as e:
@@ -449,6 +461,7 @@ def build_server(args) -> CaptionServer:
         raise NotImplementedError(
             "--no-pallas-topk (sat_tpu's lax.top_k A/B arm) has no "
             "counterpart: the port's beam always uses its exact top-k")
+    use_f32_math()
     mesh_data = getattr(args, "mesh_data", 1)
     if mesh_data != 1:
         raise NotImplementedError(

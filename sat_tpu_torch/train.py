@@ -4,7 +4,8 @@
 
 The flags are train.py's (the reference's argparse surface plus sat_tpu's
 extensions); `--device` picks the card (cuda, the default) or the CPU,
-where every kernel runs its plain PyTorch form. A flag whose path is not
+where every kernel runs its plain PyTorch form. The run computes in float32
+(`device.use_f32_math`: no TF32). A flag whose path is not
 ported yet raises NotImplementedError naming its ROADMAP.md item. `main`
 returns what `Trainer.fit` does: the last evaluation's metrics, or
 `{"preempted": True, "epoch": e}` after a SIGTERM or SIGUSR1 (rerun with
@@ -20,7 +21,7 @@ import torch
 
 from sat_tpu_torch.config import (build_arg_parser, config_from_args,
                                   unported_options)
-from sat_tpu_torch.device import resolve_device
+from sat_tpu_torch.device import resolve_device, use_f32_math
 
 
 def set_seed(seed: int) -> None:
@@ -40,6 +41,7 @@ def main(argv=None) -> dict:
             "not ported yet (ROADMAP.md, Queue 1): " + ", ".join(
                 f"{flag} ({item})" for flag, item in unported))
     device = resolve_device(args.device)
+    use_f32_math()
     set_seed(cfg.seed)
     from sat_tpu_torch.engine.loop import run_training
     return run_training(cfg, device=device)

@@ -57,9 +57,12 @@ def sequence_accuracy(preds: torch.Tensor, targets: torch.Tensor, k: int,
 def calculate_caption_lengths(captions: torch.Tensor, skip_ids,
                               row_mask: torch.Tensor | None = None):
     """Count of tokens not in `skip_ids` over the whole batch (reference
-    utils.py:101-107)."""
-    skip = torch.as_tensor(skip_ids, device=captions.device)
-    mask = ~(captions[..., None] == skip).any(dim=-1)
+    utils.py:101-107). The ids are compared one at a time as Python ints:
+    a tensor made of them would be a host-to-device copy, which a CUDA
+    graph capture refuses."""
+    mask = torch.ones_like(captions, dtype=torch.bool)
+    for skip in skip_ids:
+        mask &= captions != skip
     if row_mask is not None:
         mask = mask & row_mask[:, None]
     return mask.sum()

@@ -388,3 +388,159 @@ def test_bank_train_steps_are_deterministic(cuda):
         assert torch.equal(t, p1[name]), name
     for (a0, b0), (a1, b1) in zip(m0, m1):
         assert torch.equal(a0, a1) and torch.equal(b0, b1)
+
+
+# ------------------------------------------------------------ CUDA graphs
+
+def _same_bits(a, b) -> bool:
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def _small_decoder(cuda, pinned=False):
+    from sat_tpu_torch.compat.jax_params import decoder_from_jax
+    from sat_tpu_torch.models.decoder import DecoderConfig, init_decoder_params
+
+    cfg = DecoderConfig(vocab_size=300, encoder_dim=64, use_ado=True,
+                        use_attention=True)
+    flat = init_decoder_params(cfg, torch.Generator().manual_seed(0))
+    bias = flat["ado/f_out/b"].copy()
+    bias[1] += 2.0          # some beams complete, at different steps
+    if pinned:
+        bias[[1, 102]] = -1e9
+    flat["ado/f_out/b"] = bias
+    return decoder_from_jax(flat, cfg, cuda)
+
+
+@pytest.mark.parametrize("B", [1, 7, 128])
+@pytest.mark.parametrize("pinned", [False, True], ids=["staggered", "worst"])
+def test_graph_beam_equals_eager(cuda, B, pinned):
+    """The beam's graphs (start, S-step body, rebuild) give the eager
+    path's bits, on the first call (captured) and the second (replayed)."""
+    from sat_tpu_torch.models.beam import beam_search_batched
+    from sat_tpu_torch.utils.graphs import GraphCache
+
+    dec = _small_decoder(cuda, pinned)
+    feats = torch.rand((B, 49, 64),
+                       generator=torch.Generator().manual_seed(B)).to(cuda)
+    eager = beam_search_batched(dec, feats, 5, graphs=None)
+    cache = GraphCache()
+    captures = []
+    for _ in range(2):
+        graph = beam_search_batched(dec, feats, 5, graphs=cache)
+        for name, a, b in zip(eager._fields, eager, graph):
+            assert _same_bits(a, b), name
+        captures.append(cache.captures)
+    # start, the S-step block, the rebuild, and in the worst case the last
+    # block's steps when S does not divide 51; the second call replays them
+    assert captures[0] == captures[1] >= 3
+    if pinned:
+        assert not eager.found.any()
+
+
+@pytest.mark.parametrize("B", [1, 7, 128])
+def test_graph_greedy_equals_eager(cuda, B):
+    from sat_tpu_torch.models.beam import greedy_caption
+    from sat_tpu_torch.utils.graphs import GraphCache
+
+    dec = _small_decoder(cuda)
+    feats = torch.rand((B, 49, 64),
+                       generator=torch.Generator().manual_seed(B)).to(cuda)
+    eager = greedy_caption(dec, feats, with_alphas=True, graphs=None)
+    cache = GraphCache()
+    for _ in range(2):
+        graph = greedy_caption(dec, feats, with_alphas=True, graphs=cache)
+        assert all(map(_same_bits, eager, graph))
+    assert cache.captures == 1
+
+
+def _bank_case(cuda, remat, dropout):
+    import dataclasses
+
+    from sat_tpu_torch.compat.jax_params import decoder_from_jax
+    from sat_tpu_torch.models.decoder import DecoderConfig, init_decoder_params
+
+    cfg = DecoderConfig(vocab_size=300, encoder_dim=64, use_tf=True,
+                        use_ado=True, use_attention=True,
+                        dropout_rate=dropout)
+    cfg = dataclasses.replace(cfg, remat_scan=remat)
+    flat = init_decoder_params(cfg, torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    feat_bank = torch.rand((10, 49, 64), generator=g).to(cuda)
+    caps_bank = torch.randint(4, 300, (12, 9), generator=g)
+    caps_bank[:, 0] = 0
+    img_idx = torch.randint(0, 10, (4, 6), generator=g).to(cuda)
+    row_idx = torch.randint(0, 12, (4, 6), generator=g).to(cuda)
+
+    def fresh():
+        from sat_tpu_torch.parallel.train_step import init_train_state
+        return (init_train_state(decoder_from_jax(flat, cfg, cuda,
+                                                  trainable=True)),
+                torch.Generator(device=cuda).manual_seed(5))
+    return cfg, feat_bank, caps_bank.to(cuda), img_idx, row_idx, fresh
+
+
+def _assert_same_state(a, b, gen_a, gen_b):
+    assert a.step == b.step
+    for name, t in a.decoder.state_dict().items():
+        assert _same_bits(t, b.decoder.state_dict()[name]), name
+    sa = a.optimizer.state_dict()["state"]
+    sb = b.optimizer.state_dict()["state"]
+    for i in sa:
+        for k in ("step", "exp_avg", "exp_avg_sq"):
+            assert _same_bits(sa[i][k], sb[i][k]), (i, k)
+    assert torch.equal(gen_a.get_state(), gen_b.get_state())
+
+
+@pytest.mark.parametrize("remat", [True, False])
+@pytest.mark.parametrize("dropout", [0.0, 0.5])
+def test_train_block_equals_per_batch_steps(cuda, remat, dropout):
+    """Two blocks of K = 4 replays of the captured step against 8 per-batch
+    steps from one state and one generator state: the same bits in every
+    parameter, Adam moment and step count, and in the generator."""
+    from sat_tpu_torch.parallel.train_step import (make_bank_train_block,
+                                                   make_bank_train_step)
+
+    cfg, fb, cb, img_idx, row_idx, fresh = _bank_case(cuda, remat, dropout)
+    (s1, g1), (s2, g2) = fresh(), fresh()
+    step = make_bank_train_step(cfg, 1.0)
+    block = make_bank_train_block(cfg, 1.0)
+    per_batch = []
+    for _ in range(2):
+        for i in range(4):
+            s1, m = step(s1, fb, cb, img_idx[i], row_idx[i], 1e-3, g1)
+            per_batch.append(m["loss"])
+        s2, mk = block(s2, fb, cb, img_idx, row_idx, 1e-3, g2)
+    _assert_same_state(s1, s2, g1, g2)
+    assert _same_bits(torch.stack(per_batch[4:]), mk["loss"])
+
+
+def test_two_blocked_dropout_runs_give_the_same_bits(cuda):
+    from sat_tpu_torch.parallel.train_step import make_bank_train_block
+
+    cfg, fb, cb, img_idx, row_idx, fresh = _bank_case(cuda, True, 0.5)
+    runs = []
+    for _ in range(2):
+        state, gen = fresh()
+        block = make_bank_train_block(cfg, 1.0)
+        for _ in range(2):
+            state, _ = block(state, fb, cb, img_idx, row_idx, 1e-3, gen)
+        runs.append((state, gen))
+    _assert_same_state(runs[0][0], runs[1][0], runs[0][1], runs[1][1])
+
+
+def test_eval_block_equals_per_batch_steps(cuda):
+    from sat_tpu_torch.parallel.train_step import (make_bank_eval_block,
+                                                   make_bank_eval_step)
+
+    cfg, fb, cb, img_idx, row_idx, fresh = _bank_case(cuda, True, 0.0)
+    state, _ = fresh()
+    step = make_bank_eval_step(cfg, 1.0)
+    metrics, tokens = make_bank_eval_block(cfg, 1.0)(
+        state.decoder, fb, cb, img_idx, row_idx)
+    for i in range(4):
+        m, tok, _ = step(state.decoder, fb, cb, img_idx[i], row_idx[i])
+        assert torch.equal(tok, tokens[i])
+        for k, v in m.items():
+            assert _same_bits(v, metrics[k][i]), k

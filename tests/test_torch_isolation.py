@@ -160,7 +160,7 @@ def test_training_cli_runs_without_jax_or_sat_tpu(tmp_path):
 
 def _port_files():
     files = sorted((REPO / "sat_tpu_torch").rglob("*.py"))
-    return files + [REPO / "chip_smoke.py"]
+    return files + [REPO / "chip_smoke.py", REPO / "time_train_step.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(),

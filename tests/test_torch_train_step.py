@@ -31,7 +31,6 @@ from sat_tpu_torch.engine.checkpoint import save_decoder_checkpoint
 from sat_tpu_torch.models.decoder import (Decoder, DecoderConfig, _dropout,
                                           decoder_forward)
 from sat_tpu_torch.parallel.train_step import (init_train_state,
-                                               make_bank_eval_block,
                                                make_bank_eval_step,
                                                make_bank_train_step)
 from sat_tpu_torch.utils.metrics import (attention_regularization,
@@ -231,5 +230,5 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="bf16"):
         Decoder(DecoderConfig(vocab_size=V, encoder_dim=D,
                               bf16_attention=True))
-    with pytest.raises(NotImplementedError, match="blocked"):
-        make_bank_eval_block(None, ALPHA_C)
+    with pytest.raises(NotImplementedError, match="BERT"):
+        Decoder(DecoderConfig(vocab_size=V, encoder_dim=D, use_bert=True))
