@@ -26,7 +26,11 @@ no result line is printed:
                cluster size; the forward at the beam's R = 5, B = 128,
                training's R = 1, B = 64 and greedy's R = 1, B = 128; the
                issue time of the precise tanhf, counted from cuobjdump's
-               SASS of a probe kernel
+               SASS of a probe kernel; the bf16 variants of the two
+               attention kernels (keys and features bf16) the same way,
+               the forward at R = 5, B = 128 and R = 1, B = 64, the
+               backward's bf16 dkeys within one bf16 unit in the last
+               place of the plain form's
   4. main    — the worst case (stop-token logits pinned to -1e9, so every
                beam runs all 51 steps) through a new build_caption_step,
                whose first batch captures the beam's CUDA graphs (the
@@ -42,7 +46,12 @@ no result line is printed:
                the exit-read interval S, worst case and seeded weights; 8
                of the images decoded eagerly on the GPU, beam and greedy,
                with their launch counts, and again on the CPU with the
-               plain forms, must agree
+               plain forms, must agree; then the bf16 path
+               (build_caption_step(bf16=True)): its capture's and its
+               replay's launches of top-k and attention_fwd_bf16, wall
+               ms in turns with the f32 step, the bf16 encoder's ms and
+               memory format, f32 and bf16 decodes captured apart in one
+               GraphCache, the bf16 decode of 8 grids against the CPU
   5. serve   — a checkpoint directory on disk, the port's build_server +
                CaptionServer on an ephemeral port (batches padded to
                power-of-two buckets), 16 concurrent requests and the
@@ -50,7 +59,9 @@ no result line is printed:
                requests padded to 8, each answered from its own row; a
                fresh `python -m sat_tpu_torch.serve` process, whose answer to
                one cached request must be this process's f32 answer bit
-               for bit (the CLI turns TF32 off itself)
+               for bit (the CLI turns TF32 off itself); a fresh
+               `serve --bf16-decode` process against this process's bf16
+               step, bit for bit
   6. train   — the flagship decoder (tf + ado + attention) in bank
                training at B = 64, captions (64, 27), a device bank of 512
                random feature grids: one step on the card against the same
@@ -64,7 +75,11 @@ no result line is printed:
                state (dropout 0, remat on and off) and two blocked runs
                with dropout 0.5, each bit for bit; a profile of one step
                and of one block; the loss falling over 20 steps on one
-               batch
+               batch; then --bf16-attention on a bf16 bank (remat on):
+               its launches (bf16 variants only), a block against 8
+               per-batch steps bit for bit, ms per step and peak memory
+               per batch and blocked in turns with the f32 path, the
+               bank's bytes, a step on images through the bf16 encoder
   7. entry   — a synthetic dataset on disk (512 train, 128 val and 16
                test rows of 224 px PNGs, a 2633-word vocabulary) through
                `python -m sat_tpu_torch.train`'s main for one epoch and
@@ -78,7 +93,8 @@ no result line is printed:
                must be the per-batch run's and whose resumed run must end
                where its uninterrupted run does; the first run's
                checkpoint loaded by the port's server code, which
-               captions one image
+               captions one image; one blocked run with --bf16-attention
+               --bank-dtype bfloat16 --bf16-encoder (bf16 launches only)
 
 Then come the `{"kernels": [...]}` line, the card's name and power limit as
 nvidia-smi gives them, and last `{"ok": true, "device": {...}}`. Details go
@@ -138,18 +154,40 @@ def card_peaks(name: str) -> dict:
     return {"bytes_s": 3.35e12, "f32_s": 66.9e12, "part": "H100 SXM"}
 
 
+# The kernels by the names of their rows and counts: the attention
+# kernels' bf16 variants are counted apart from their f32 ones.
+KERNELS = ("topk", "attention_fwd", "attention_bwd", "attention_fwd_bf16",
+           "attention_bwd_bf16")
+
+
 def reset_launches() -> None:
-    """Zero every kernel wrapper's launch count."""
+    """Zero every kernel wrapper's launch counts."""
     from sat_tpu_torch.ops.fused_attention import attention_bwd, attention_fwd
     from sat_tpu_torch.ops.topk import topk
     topk.launches = attention_fwd.launches = attention_bwd.launches = 0
+    attention_fwd.launches_bf16 = attention_bwd.launches_bf16 = 0
 
 
 def read_launches() -> dict:
     from sat_tpu_torch.ops.fused_attention import attention_bwd, attention_fwd
     from sat_tpu_torch.ops.topk import topk
     return {"topk": topk.launches, "attention_fwd": attention_fwd.launches,
-            "attention_bwd": attention_bwd.launches}
+            "attention_bwd": attention_bwd.launches,
+            "attention_fwd_bf16": attention_fwd.launches_bf16,
+            "attention_bwd_bf16": attention_bwd.launches_bf16}
+
+
+def counts(**nonzero) -> dict:
+    """A launch count of every kernel: those named, the rest 0."""
+    return {k: nonzero.get(k, 0) for k in KERNELS}
+
+
+def kernel_of(name: str):
+    """The count name of a device kernel's profiler row, or None."""
+    for k in ("topk", "attention_fwd", "attention_bwd"):
+        if k in name:
+            return k + ("_bf16" if "bfloat16" in name else "")
+    return None
 
 
 _SCRATCH = []
@@ -362,13 +400,21 @@ def phase_kernels(dev, gen) -> list[dict]:
                                     "bound_by", "bound_parts_ms",
                                     "bound_share", "bound_share_cold")}})
     rows.append(attention_bwd_row(peaks, sfu_s, issue_s, tanh_instr, hz, gen))
+    rows.append(attention_fwd_bf16_row(peaks, sfu_s, hz, gen))
+    rows.append(attention_bwd_row(peaks, sfu_s, issue_s, tanh_instr, hz, gen,
+                                  bf16=True))
     _SCRATCH.clear()          # the later phases' peak memory excludes it
     emit({"phase": "kernels", "peaks": peaks,
           "checks": {"topk": rows[0]["checks"],
                      "attention_fwd": errs,
                      "attention_fwd_bit_identical": determinism,
-                     "attention_bwd": rows[-1]["errors"],
-                     "attention_bwd_bit_identical": True},
+                     "attention_bwd": rows[2]["errors"],
+                     "attention_bwd_bit_identical": True,
+                     "attention_fwd_bf16": rows[3]["errors"],
+                     "attention_fwd_bf16_bit_identical":
+                         rows[3]["bit_identical"],
+                     "attention_bwd_bf16": rows[4]["errors"],
+                     "attention_bwd_bf16_bit_identical": True},
           "tanhf_instructions": tanh_instr["instructions"],
           "ms": {r["name"]: r["ms"] for r in rows},
           "cold_ms": {r["name"]: r.get("cold_ms") for r in rows},
@@ -379,7 +425,10 @@ def phase_kernels(dev, gen) -> list[dict]:
           "floor_ms": rows[0]["floor_ms"],
           "attention_fwd_ms": {k: (v["ms"], v["cold_ms"], v["stream_ms"],
                                    v["stream_cold_ms"])
-                               for k, v in variants.items()}})
+                               for k, v in variants.items()},
+          "attention_fwd_bf16_ms": {k: (v["ms"], v["cold_ms"], v["stream_ms"],
+                                        v["stream_cold_ms"])
+                                    for k, v in rows[3]["variants"].items()}})
     return rows
 
 
@@ -482,13 +531,16 @@ def fwd_inputs(gen, Bx: int, R: int):
     return keys, feats, u_h, v, b_v, R
 
 
-def fwd_bound_parts(Bx: int, R: int, peaks, sfu_s) -> dict:
+def fwd_bound_parts(Bx: int, R: int, peaks, sfu_s, grid_bytes: int = 4
+                    ) -> dict:
     """The forward's least times in ms: its bytes (inputs read once,
-    outputs written once) over the memory rate, its f32 operations (score
-    add and multiply-add, context multiply-add) over the f32 rate, and,
-    beside them, its tanh and exp over the special-function units (16
-    results per SM a clock)."""
-    bytes_ = 4 * (Bx * L * (E + D) + Bx * R * (E + D + L) + E + 1)
+    outputs written once; keys and features `grid_bytes` an element, 2 in
+    bf16) over the memory rate, its f32 operations (score add and
+    multiply-add, context multiply-add) over the f32 rate, and, beside
+    them, its tanh and exp over the special-function units (16 results per
+    SM a clock)."""
+    bytes_ = (grid_bytes * Bx * L * (E + D)
+              + 4 * (Bx * R * (E + D + L) + E + 1))
     tanh = Bx * R * L * E
     flops = 2 * tanh + 2 * Bx * R * L * D
     return {"bytes": bytes_ / peaks["bytes_s"] * 1e3,
@@ -496,22 +548,90 @@ def fwd_bound_parts(Bx: int, R: int, peaks, sfu_s) -> dict:
             "sfu": (tanh + Bx * R * L) / sfu_s * 1e3}
 
 
-def attention_bwd_row(peaks, sfu_s, issue_s, tanh_instr, hz, gen) -> dict:
+def bf16_err(got, want) -> float:
+    """The largest difference between two bf16 tensors in units of
+    2^-7 |want| + 1e-5: at most 1 where two f32 values within 1e-5 of each
+    other were rounded to bf16 (one unit in the last place apart)."""
+    g, w = got.float(), want.float()
+    return ((g - w).abs() / (2 ** -7 * w.abs() + 1e-5)).max().item()
+
+
+def attention_fwd_bf16_row(peaks, sfu_s, hz, gen) -> dict:
+    """The forward kernel's bf16 variant (keys and features bf16, the
+    rest and the math f32) against its plain form on the same inputs at
+    the bf16 beam's shape (R = 5, B = 128) and at training's (R = 1,
+    B = 64): ctx atol 1e-5, alpha atol 1e-6, as the f32 kernel (f32 math
+    on both sides); two launches bit for bit; times warm and cold beside
+    the bound of bf16 bytes."""
+    import torch
+    from sat_tpu_torch.ops.fused_attention import (attention_fwd,
+                                                   attention_plain)
+    errs, same, variants = {}, {}, {}
+    for key, Bx, R in (("r5_b128", B, BEAM), ("r1_b64", TRAIN_B, 1)):
+        keys, feats, u_h, v, b_v, _ = fwd_inputs(gen, Bx, R)
+        bf16 = torch.bfloat16
+        args = (keys.to(bf16), feats.to(bf16), u_h, v, b_v, R)
+        ctx, alpha = attention_fwd(*args)
+        pctx, palpha = attention_plain(*args)
+        again = attention_fwd(*args)
+        torch.cuda.synchronize()
+        errs[key] = {"ctx": (ctx - pctx).abs().max().item(),
+                     "alpha": (alpha - palpha).abs().max().item()}
+        check(errs[key]["ctx"] <= 1e-5 and errs[key]["alpha"] <= 1e-6,
+              f"attention_fwd_bf16 {key}: errors {errs[key]} above ctx "
+              f"1e-5, alpha 1e-6")
+        same[key] = all(map(same_bits, (ctx, alpha), again))
+        check(same[key], f"attention_fwd_bf16 {key}: two launches differ")
+        parts = fwd_bound_parts(Bx, R, peaks, sfu_s, grid_bytes=2)
+        var = {"shape": f"keys/feats ({Bx}, {L}, {E}) bf16, u_h "
+                        f"({Bx * R}, {E}), R={R}",
+               "ms": time_ms(lambda: attention_fwd(*args), hz),
+               "cold_ms": time_ms(lambda: attention_fwd(*args), hz,
+                                  cold=True),
+               "plain_ms": time_ms(lambda: attention_plain(*args), hz),
+               **stream_ms(lambda: (args[0].sum(), args[1].sum()), hz),
+               "bound_ms": max(parts["bytes"], parts["f32"]),
+               "bound_by": ("bytes" if parts["bytes"] >= parts["f32"]
+                            else "operations"),
+               "bound_parts_ms": parts}
+        var.update(shares(var))
+        variants[key] = var
+    main = variants["r5_b128"]
+    return {"name": "attention_fwd_bf16", "route": "cuda",
+            "source": "sat_tpu_torch/ops/csrc/attention_fwd.cu",
+            "replaces": "sat_tpu/ops/fused_attention.py:42",
+            "shape": main["shape"],
+            "max_abs_err": max(max(e.values()) for e in errs.values()),
+            "errors": errs, "bit_identical": same, "library_ms": None,
+            "variants": variants,
+            **{k: main[k] for k in ("ms", "cold_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "bound_parts_ms",
+                                    "bound_share", "bound_share_cold")}}
+
+
+def attention_bwd_row(peaks, sfu_s, issue_s, tanh_instr, hz, gen,
+                      bf16: bool = False) -> dict:
     """The backward kernel at the training shape (B = 64, R = 1) against
     its plain form, with dfeats asked and not, and two launches against
     each other; its times, warm and cold (the main path does not ask for
-    dfeats: bank features need no gradient), and bound."""
+    dfeats: bank features need no gradient), and bound. With `bf16` its
+    bf16 variant: keys and features bf16, dkeys and dfeats written in
+    bf16 and held to the plain form's within one bf16 unit in the last
+    place (`bf16_err` <= 1)."""
     import torch
     from sat_tpu_torch.ops.fused_attention import (attention_bwd,
                                                    attention_bwd_plain,
                                                    attention_plain)
     Bt = TRAIN_B
+    grid_bytes = 2 if bf16 else 4
     keys, feats, u_h, v, b_v, _ = fwd_inputs(gen, Bt, 1)
+    if bf16:
+        keys, feats = keys.to(torch.bfloat16), feats.to(torch.bfloat16)
     dctx = torch.randn((Bt, D), generator=gen).cuda()
     dalpha = torch.randn((Bt, L), generator=gen).cuda()
     _, alpha = attention_plain(keys, feats, u_h, v, b_v)
     args = (keys, feats, u_h, v, alpha, dctx, dalpha)
-    g = torch.bmm(feats, dctx[:, :, None])[:, :, 0] + dalpha
+    g = torch.bmm(feats.float(), dctx[:, :, None])[:, :, 0] + dalpha
     de_max = (alpha * (g - (alpha * g).sum(1, keepdim=True))).abs().max()
     errors = {}
     for want in (True, False):
@@ -528,9 +648,16 @@ def attention_bwd_row(peaks, sfu_s, issue_s, tanh_instr, hz, gen) -> dict:
         for name, a, b in zip(("dkeys", "dfeats", "du_h"), got, ref):
             if b is None:
                 continue
-            err[name] = (a - b).abs().max().item()
-            check(err[name] <= 1e-5,
-                  f"attention_bwd: {name} max err {err[name]} > 1e-5")
+            if bf16 and name != "du_h":
+                err[f"{name}_ulps"] = bf16_err(a, b)
+                check(err[f"{name}_ulps"] <= 1,
+                      f"attention_bwd_bf16: {name} {err[f'{name}_ulps']} "
+                      f"bf16 units from the plain form's")
+                b = b.float()
+            err[name] = (a.float() - b).abs().max().item()
+            if not (bf16 and name != "du_h"):
+                check(err[name] <= 1e-5,
+                      f"attention_bwd: {name} max err {err[name]} > 1e-5")
         # dv and db_v are sums over B*L = 12,544 terms, taken in another
         # order than the plain form's: error <= 1e-4 of their size. db_v
         # is zero in exact arithmetic (sum_l de = 0 for each image), so its
@@ -545,8 +672,9 @@ def attention_bwd_row(peaks, sfu_s, issue_s, tanh_instr, hz, gen) -> dict:
 
     def parts(with_dfeats: bool) -> dict:
         n_le, n_ld = Bt * L * E, Bt * L * D
-        bytes_ = 4 * (2 * n_le + n_ld + 2 * Bt * E + 2 * Bt * L + Bt * D
-                      + 2 * E + 1 + (n_ld if with_dfeats else 0))
+        bytes_ = (grid_bytes * (2 * n_le + n_ld
+                                + (n_ld if with_dfeats else 0))
+                  + 4 * (2 * Bt * E + 2 * Bt * L + Bt * D + 2 * E + 1))
         # per (b, l, e): add, square, subtract, two products, the du_h add
         # and the dv multiply-add; per (b, l, d): the g multiply-add, and
         # the dfeats product when asked
@@ -564,11 +692,14 @@ def attention_bwd_row(peaks, sfu_s, issue_s, tanh_instr, hz, gen) -> dict:
     bound_by = ("bytes" if main_parts["bytes"] >= main_parts["f32"]
                 else "operations")
     row = {
-        "name": "attention_bwd", "route": "cuda",
+        "name": "attention_bwd_bf16" if bf16 else "attention_bwd",
+        "route": "cuda",
         "source": "sat_tpu_torch/ops/csrc/attention_bwd.cu",
         "replaces": "sat_tpu/ops/fused_attention.py:107",
-        "shape": f"keys/feats ({Bt}, {L}, {E}), R=1, dfeats not asked",
-        "max_abs_err": max(max(e.values()) for e in errors.values()),
+        "shape": f"keys/feats ({Bt}, {L}, {E}){' bf16' if bf16 else ''}, "
+                 f"R=1, dfeats not asked",
+        "max_abs_err": max(v for e in errors.values() for k, v in e.items()
+                           if not k.endswith("_ulps")),
         "errors": errors,
         "ms": time_ms(lambda: attention_bwd(*args, want_dfeats=False), hz),
         "cold_ms": time_ms(lambda: attention_bwd(*args, want_dfeats=False),
@@ -681,8 +812,7 @@ def phase_main(dcfg, dec_flat, worst_flat, enc_flat, images) -> dict:
     host_launches = read_launches()
     capture_s = step.graphs.capture_seconds
     want = 2 * sum(beam_blocks(STEPS, SYNC_EVERY))
-    check(host_launches == {"topk": want, "attention_fwd": want,
-                            "attention_bwd": 0},
+    check(host_launches == counts(topk=want, attention_fwd=want),
           f"main path's capturing batch: host launches {host_launches}, "
           f"expected {want} of top-k and attention_fwd (S = {SYNC_EVERY})")
     t0 = time.perf_counter()
@@ -696,9 +826,8 @@ def phase_main(dcfg, dec_flat, worst_flat, enc_flat, images) -> dict:
                                                             images)))
     replay_host = read_launches()
     device_launches = main_profile.get("kernel_calls")
-    check(replay_host == {"topk": 0, "attention_fwd": 0, "attention_bwd": 0}
-          and device_launches == {"topk": STEPS, "attention_fwd": STEPS,
-                                  "attention_bwd": 0},
+    check(replay_host == counts()
+          and device_launches == counts(topk=STEPS, attention_fwd=STEPS),
           f"main path's replayed batch: host launches {replay_host}, device "
           f"{device_launches}; expected none and {STEPS} of top-k and "
           f"attention_fwd")
@@ -808,18 +937,18 @@ def phase_main(dcfg, dec_flat, worst_flat, enc_flat, images) -> dict:
                                device="cuda", graphs=False)(
             enc, dec_gpu, images[:n])
         torch.cuda.synchronize()
-        counts = read_launches()
+        got = read_launches()
         if decode == "greedy":       # all 51 steps, argmax and no top-k
-            check(counts == {"topk": 0, "attention_fwd": STEPS,
-                             "attention_bwd": 0},
-                  f"greedy: launches {counts}, expected attention_fwd "
-                  f"{STEPS} and no topk or attention_bwd")
+            check(got == counts(attention_fwd=STEPS),
+                  f"greedy: launches {got}, expected attention_fwd "
+                  f"{STEPS} and no other")
         else:                        # one of each a step, until all complete
-            check(counts["topk"] == counts["attention_fwd"]
-                  and 1 <= counts["topk"] <= STEPS
-                  and counts["attention_bwd"] == 0,
-                  f"beam: launches {counts}, expected equal counts in "
-                  f"1..{STEPS}")
+            check(got["topk"] == got["attention_fwd"]
+                  and 1 <= got["topk"] <= STEPS
+                  and got == counts(topk=got["topk"],
+                                    attention_fwd=got["topk"]),
+                  f"beam: launches {got}, expected equal counts of top-k "
+                  f"and attention_fwd in 1..{STEPS} and no other")
         c = build_caption_step("vgg19", dcfg, BEAM, decode=decode,
                                device="cpu")(enc_cpu, dec_cpu, images[:n])
         g = {k: v.cpu().numpy() for k, v in g.items()}
@@ -835,7 +964,7 @@ def phase_main(dcfg, dec_flat, worst_flat, enc_flat, images) -> dict:
                     "image": i,
                     "first_step": first_diff(g["tokens"][i], c["tokens"][i]),
                     "score_gap": float(abs(g["score"][i] - c["score"][i]))})
-        ref[decode] = {"agree": agree, "of": n, "launches": counts,
+        ref[decode] = {"agree": agree, "of": n, "launches": got,
                        "found": int(g["found"].sum()),
                        "max_score_err": float(np.max(np.abs(
                            np.where(g["found"], g["score"], 0)
@@ -865,8 +994,156 @@ def phase_main(dcfg, dec_flat, worst_flat, enc_flat, images) -> dict:
            "peak_mem_gb": peak_gb, "host_launches": host_launches,
            "cpu_check": ref,
            "profile": profile}
-    emit({k: v for k, v in res.items() if k != "profile"})
+    res["bf16"] = main_bf16(dcfg, enc, dec, dec_gpu, dec_cpu, images, step)
+    emit({k: v for k, v in res.items() if k != "profile"}
+         | {"bf16": {k: v for k, v in res["bf16"].items()
+                     if k != "profile"}})
     return res
+
+
+def main_bf16(dcfg, enc, dec, dec_gpu, dec_cpu, images, step32) -> dict:
+    """The bf16 main path (`build_caption_step(bf16=True)`, serve's
+    --bf16-decode) at B = 128, beam 5, worst case: a new step, whose first
+    batch captures its graphs (host launches of top-k and the forward's
+    bf16 variant exactly as the f32 path's, none of the f32 kernel), whose
+    second replays them under the profiler (no host launch; STEPS of
+    top-k and of attention_fwd_bf16 on the device); wall ms in turns with
+    the f32 step; the encoder's ms in f32 and bf16 and the memory format
+    its bf16 convs leave; the beam alone on one GraphCache that decodes f32
+    and bf16 in turns (their graphs captured apart, each replayed to its
+    first bits), decode ms by dtype in turns with profiles; the bf16 decode
+    of 8 images' bf16 grid on the card against the CPU's plain forms."""
+    import numpy as np
+    import torch
+    from sat_tpu_torch.engine.serving import build_caption_step
+    from sat_tpu_torch.models.beam import SYNC_EVERY, beam_search_batched
+    from sat_tpu_torch.models.encoder import encoder_forward, vgg19_forward
+    from sat_tpu_torch.utils.graphs import GraphCache
+
+    bf16 = torch.bfloat16
+    step = build_caption_step("vgg19", dcfg, BEAM, bf16=True, device="cuda")
+    reset_launches()
+    t0 = time.perf_counter()
+    first = step(enc, dec, images)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    host_launches = read_launches()
+    want = 2 * sum(beam_blocks(STEPS, SYNC_EVERY))
+    check(host_launches == counts(topk=want, attention_fwd_bf16=want),
+          f"bf16 main path's capturing batch: host launches "
+          f"{host_launches}, expected {want} of top-k and "
+          f"attention_fwd_bf16 and no other")
+    replayed = {}
+    reset_launches()
+    profile = {"main": profile_run(lambda: replayed.update(
+        step(enc, dec, images)))}
+    replay_host = read_launches()
+    device_launches = profile["main"].get("kernel_calls")
+    check(replay_host == counts() and device_launches
+          == counts(topk=STEPS, attention_fwd_bf16=STEPS),
+          f"bf16 main path's replayed batch: host launches {replay_host}, "
+          f"device {device_launches}; expected none and {STEPS} of top-k "
+          f"and attention_fwd_bf16")
+    check(not [k for k in first if not same_bits(first[k], replayed[k])],
+          "bf16 main path: a replayed batch differs from the captured one")
+    check(tuple(first["tokens"].shape) == (B, 1 + STEPS)
+          and not first["found"].any().item()
+          and bool(torch.isfinite(first["alphas"]).all()),
+          "bf16 main path: tokens, found or alphas wrong")
+    steps = {"f32": step32, "bf16": step}
+    wall_ms = {m: [] for m in steps}
+    for m in ("f32", "bf16", "bf16", "f32", "f32", "bf16"):
+        wall_ms[m].append(host_ms(lambda m=m: steps[m](enc, dec, images)))
+
+    encode = {m: (lambda dt=dt: encoder_forward(enc, "vgg19", images, dt))
+              for m, dt in (("f32", None), ("bf16", bf16))}
+    encoder_ms = {m: [] for m in encode}
+    for m in ("f32", "bf16", "bf16", "f32", "f32", "bf16"):
+        encoder_ms[m].append(host_ms(encode[m]))
+    profile["encoder"] = profile_run(encode["bf16"])
+    with torch.inference_mode():
+        conv = vgg19_forward(enc, torch.as_tensor(images[:8], device="cuda"),
+                             bf16).permute(0, 3, 1, 2)
+    memory_format = {"dtype": str(conv.dtype),
+                     "nchw_contiguous": conv.is_contiguous(),
+                     "channels_last": conv.is_contiguous(
+                         memory_format=torch.channels_last)}
+    feats = encode["f32"]()
+    grid16 = encode["bf16"]()
+    check(grid16.dtype == torch.float32 and grid16.is_contiguous()
+          and bool(torch.isfinite(grid16).all()),
+          "bf16 encoder: grid not f32, contiguous and finite")
+    grid_rel = ((grid16 - feats).abs().mean() / feats.abs().mean()).item()
+    check(grid_rel < 0.1, f"bf16 encoder: mean relative difference "
+                          f"{grid_rel} from the f32 grid (sat_tpu's bound "
+                          f"0.1)")
+
+    # one GraphCache, f32 and bf16 in turns
+    cache = GraphCache()
+    decode = {m: (lambda bf=bf: beam_search_batched(
+        dec, feats, BEAM, bf16=bf, graphs=cache))
+        for m, bf in (("f32", False), ("bf16", True))}
+    got, captures = {}, []
+    for m in ("f32", "bf16", "f32", "bf16"):
+        out = decode[m]()
+        captures.append(cache.captures)
+        if m in got:
+            diff = results_equal(got[m], out)
+            check(not diff, f"beam ({m}): a replay through the shared cache "
+                            f"differs in {diff}")
+        got[m] = out
+    check(captures[0] < captures[1] == captures[2] == captures[3],
+          f"f32 and bf16 graphs not captured apart: captures {captures}")
+    check(bool(results_equal(got["f32"], got["bf16"])),
+          "the bf16 decode gave the f32 decode's bits")
+    decode_ms = {m: [] for m in decode}
+    for m in ("f32", "bf16", "bf16", "f32", "f32", "bf16"):
+        decode_ms[m].append(host_ms(decode[m]))
+    for m in decode:
+        profile[f"decode_{m}"] = profile_run(decode[m])
+
+    # 8 images' bf16 grid, seeded weights (beams completing), the bf16 beam
+    # eager on the card and with the plain forms on the CPU
+    n = 8
+    g8 = grid16[:n].contiguous()
+    reset_launches()
+    card = beam_search_batched(dec_gpu, g8, BEAM, bf16=True)
+    torch.cuda.synchronize()
+    cpu_launches = read_launches()
+    check(cpu_launches["topk"] == cpu_launches["attention_fwd_bf16"]
+          and 1 <= cpu_launches["topk"] <= STEPS
+          and cpu_launches == counts(
+              topk=cpu_launches["topk"],
+              attention_fwd_bf16=cpu_launches["topk"]),
+          f"bf16 beam: launches {cpu_launches}")
+    cpu = beam_search_batched(dec_cpu, g8.cpu(), BEAM, bf16=True)
+    agree = sum(bool(np.array_equal(card.tokens[i].cpu().numpy(),
+                                    cpu.tokens[i].numpy())
+                     and card.found[i].item() == cpu.found[i].item())
+                for i in range(n))
+    check(agree >= n - 1, f"bf16 beam: card and CPU agree on {agree} of {n}")
+    check(bool(card.found.any()), "bf16 beam: no beam completed on 8 images")
+    found = card.found.cpu() & cpu.found
+    score_err = ((card.score.cpu()[found] - cpu.score[found]).abs().max()
+                 if found.any() else None)
+    return {"first_call_s": first_s, "capture_s": step.graphs.capture_seconds,
+            "host_launches": host_launches,
+            "device_launches": device_launches, "wall_ms": wall_ms,
+            "captions_per_s": {m: B * 1e3 / statistics.median(v)
+                               for m, v in wall_ms.items()},
+            "encoder_ms": encoder_ms, "encoder_memory_format": memory_format,
+            "grid_mean_rel_diff": grid_rel, "graph_captures": captures,
+            "decode_ms": decode_ms,
+            "device_busy_ms": {k: v.get("device_busy_ms")
+                               for k, v in profile.items()},
+            "device_busy_share": {k: v.get("device_busy_share")
+                                  for k, v in profile.items()},
+            "cpu_check": {"agree": agree, "of": n,
+                          "found": int(card.found.sum()),
+                          "max_score_err": None if score_err is None
+                          else float(score_err),
+                          "launches": cpu_launches},
+            "profile": profile}
 
 
 def profile_run(fn, top: int = 10) -> dict:
@@ -900,8 +1177,8 @@ def profile_run(fn, top: int = 10) -> dict:
     if not rows:
         return {"device_time": "not measured: the profiler saw no device "
                                "events"}
-    kernel_calls = {name: sum(n for k, _, n in rows if name in k)
-                    for name in ("topk", "attention_fwd", "attention_bwd")}
+    kernel_calls = {name: sum(n for k, _, n in rows if kernel_of(k) == name)
+                    for name in KERNELS}
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / wall_us,
             "kernel_calls": kernel_calls,
@@ -988,6 +1265,8 @@ def phase_serve(dcfg, dec_flat, enc_flat) -> dict:
         finally:
             server.stop()
         cli = cli_f32_check(model, enc_path, img_dir, server, word_dict)
+        cli_bf16 = cli_bf16_check(model, enc_path, img_dir, server,
+                                  word_dict)
     captions = [r.get("caption") for r in replies]
     check(all(c is not None for c in captions),
           f"errors in replies: {[r for r in replies if 'caption' not in r]}")
@@ -1020,7 +1299,7 @@ def phase_serve(dcfg, dec_flat, enc_flat) -> dict:
            "latency_p99_ms": stats.get("latency_p99_ms"),
            "nonempty_captions": sum(bool(c) for c in captions),
            "padded_batch_found": int(padded["found"][:7].sum()),
-           "cli_f32": cli}
+           "cli_f32": cli, "cli_bf16": cli_bf16}
     emit(res)
     return res
 
@@ -1050,10 +1329,51 @@ def cli_f32_check(model, enc_path, img_dir, server, word_dict) -> dict:
     finally:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+    got, seconds, code = cli_reply(model, enc_path, img_dir)
+    check(got == want, f"cli: the fresh serve process answered {got}, the "
+                       f"in-process f32 path {want}")
+    return {"seconds": seconds, "reply": got, "exit_code": code,
+            "tf32_in_process": tf32, "tf32_differs": tf32 != want}
+
+
+def cli_bf16_check(model, enc_path, img_dir, server, word_dict) -> dict:
+    """A fresh `python -m sat_tpu_torch.serve --bf16-decode` process
+    answers one cached request: its caption, score and completion must be
+    this process's bf16 caption step's for that image (B = 1, the
+    server's modules), bit for bit, and its score not the f32 one."""
+    import torch
+    from sat_tpu_torch.engine.evaluate import decode_caption
+    from sat_tpu_torch.engine.serving import build_caption_step
+    from sat_tpu_torch.serve import load_model
+
+    _, dcfg, enc, dec, _ = load_model(model, encoder_weights=enc_path,
+                                      device="cuda")
+    out = build_caption_step("vgg19", dcfg, BEAM, bf16=True, device="cuda")(
+        enc, dec, server._image_pool[:1])
+    found = bool(out["found"][0])
+    row = (out["tokens"][0, :int(out["length"][0]) + 1].tolist()
+           if found else [0])
+    want = {"caption": " ".join(decode_caption(row, word_dict)),
+            "score": float(out["score"][0].cpu()), "completed": found}
+    got, seconds, code = cli_reply(model, enc_path, img_dir, "--bf16-decode")
+    check(got == want, f"cli --bf16-decode: the fresh serve process "
+                       f"answered {got}, the in-process bf16 step {want}")
+    f32 = server._caption_fn(server._image_pool[:1])
+    f32_score = float(f32["score"][0].cpu())
+    check(not found or f32_score != got["score"],
+          "cli --bf16-decode: the score is the f32 path's")
+    return {"seconds": seconds, "reply": got, "exit_code": code,
+            "f32_score": f32_score}
+
+
+def cli_reply(model, enc_path, img_dir, *flags):
+    """(reply, seconds, exit code) of a fresh `python -m
+    sat_tpu_torch.serve` process with `flags`, asked for cached image 0 and
+    then shut down."""
     proc = subprocess.Popen(
         [sys.executable, "-m", "sat_tpu_torch.serve", "--model", model,
          "--encoder-weights", enc_path, "--port", "0", "--max-batch", "1",
-         "--preload-images", img_dir, "--preload-count", "1"],
+         "--preload-images", img_dir, "--preload-count", "1", *flags],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         cwd=os.path.dirname(os.path.abspath(__file__)),
         env=dict(os.environ, PYTHONUNBUFFERED="1"))
@@ -1083,11 +1403,8 @@ def cli_f32_check(model, enc_path, img_dir, server, word_dict) -> dict:
             proc.kill()
             proc.wait()
     seconds = time.perf_counter() - t0
-    got = {k: reply.get(k) for k in ("caption", "score", "completed")}
-    check(got == want, f"cli: the fresh serve process answered {got}, the "
-                       f"in-process f32 path {want}")
-    return {"seconds": seconds, "reply": got, "exit_code": proc.returncode,
-            "tf32_in_process": tf32, "tf32_differs": tf32 != want}
+    return ({k: reply.get(k) for k in ("caption", "score", "completed")},
+            seconds, proc.returncode)
 
 
 def make_captions(gen, rows: int):
@@ -1140,7 +1457,7 @@ def graph_pools():
     return pools
 
 
-def phase_train(seed: int) -> dict:
+def phase_train(seed: int, enc_flat) -> dict:
     """Bank training of the flagship decoder at full width on the card."""
     import dataclasses
 
@@ -1220,8 +1537,7 @@ def phase_train(seed: int) -> dict:
         run(mode, 1)
         torch.cuda.synchronize()
         launches[mode] = read_launches()
-        check(launches[mode] == {"topk": 0, "attention_fwd": fwd,
-                                 "attention_bwd": T},
+        check(launches[mode] == counts(attention_fwd=fwd, attention_bwd=T),
               f"train ({mode}): launches {launches[mode]}, expected "
               f"attention_fwd {fwd}, attention_bwd {T}, topk 0")
     for mode in steps:
@@ -1365,14 +1681,198 @@ def phase_train(seed: int) -> dict:
            "peak_mem_gb": max(timing["remat"]["peak_mem_gb"]),
            "fixed_batch_losses": losses, "profile": profile,
            "block_profile": block_profile}
+    res["bf16"] = train_bf16(dcfg, flat, bank_gpu, caps_gpu, batches_gpu,
+                             blk_img, blk_row, seed, enc_flat)
     emit({k: v for k, v in res.items()
-          if k not in ("parity", "profile", "block_profile")}
+          if k not in ("parity", "profile", "block_profile", "bf16")}
          | {"parity": {k: v for k, v in parity.items()
                        if k != "param_err"},
             "block_device_busy_share": block_profile.get(
                 "device_busy_share"),
-            "step_device_busy_share": profile.get("device_busy_share")})
+            "step_device_busy_share": profile.get("device_busy_share"),
+            "bf16": {k: v for k, v in res["bf16"].items()
+                     if k not in ("profile", "block_profile")}})
     return res
+
+
+def train_bf16(dcfg, flat, bank_gpu, caps_gpu, batches_gpu, blk_img,
+               blk_row, seed, enc_flat) -> dict:
+    """The bf16 training path at B = 64 (`--bf16-attention --bank-dtype
+    bfloat16`, remat on, dropout 0.5): the bank in bf16 (half the bytes);
+    one step's launches (counts reset just before, read just after: 2T of
+    the forward's bf16 variant, T of the backward's, no f32 attention
+    kernel) and its profile; the first step's loss beside the f32 path's
+    from the same state (dropout 0); a K = 8 block's host and device
+    launches, and against 8 per-batch steps bit for bit (dropout 0); ms a
+    step per batch and blocked, in turns with the f32 path's, with peak
+    memory and each block's graph pool; a step on 224 px images through
+    the bf16 encoder (`--bf16-encoder` without the bank)."""
+    import dataclasses
+
+    import torch
+    from sat_tpu_torch.compat.jax_params import (decoder_from_jax,
+                                                 encoder_from_jax)
+    from sat_tpu_torch.parallel.train_step import (init_train_state,
+                                                   make_bank_train_block,
+                                                   make_bank_train_step,
+                                                   make_train_step)
+
+    cfg = dataclasses.replace(dcfg, bf16_attention=True)
+    bank16 = bank_gpu.to(torch.bfloat16)
+    check(bank16.nbytes * 2 == bank_gpu.nbytes, "bf16 bank: not half")
+    cfgs = {"f32": dcfg, "bf16": cfg}
+    banks = {"f32": bank_gpu, "bf16": bank16}
+
+    def fresh(mode, dropout=True):
+        c = cfgs[mode] if dropout else dataclasses.replace(
+            cfgs[mode], dropout_rate=0.0)
+        return init_train_state(decoder_from_jax(flat, c, "cuda",
+                                                 trainable=True)), c
+
+    # the first step from one state, dropout 0: bf16 against f32
+    first_loss = {}
+    for mode in cfgs:
+        st, c = fresh(mode, dropout=False)
+        ii, ri = batches_gpu[0]
+        _, m = make_bank_train_step(c, 1.0)(st, banks[mode], caps_gpu, ii, ri,
+                                            PARITY_LR, None)
+        first_loss[mode] = float(m["loss"])
+    loss_rel = abs(first_loss["bf16"] - first_loss["f32"]) / abs(
+        first_loss["f32"])
+    check(math.isfinite(first_loss["bf16"]) and loss_rel < 1e-2,
+          f"bf16 train: first loss {first_loss} (relative {loss_rel})")
+
+    states, steps, blocks, gens = {}, {}, {}, {}
+    for mode in cfgs:
+        states[mode], _ = fresh(mode)
+        steps[mode] = make_bank_train_step(cfgs[mode], 1.0)
+        blocks[mode] = make_bank_train_block(cfgs[mode], 1.0)
+        gens[mode] = torch.Generator(device="cuda").manual_seed(seed)
+
+    def run(mode, n):
+        for i in range(n):
+            ii, ri = batches_gpu[i % len(batches_gpu)]
+            states[mode], m = steps[mode](states[mode], banks[mode], caps_gpu,
+                                          ii, ri, 1e-4, gens[mode])
+        return m
+
+    def run_blocks(mode, n):
+        for _ in range(n):
+            states[mode], m = blocks[mode](states[mode], banks[mode],
+                                           caps_gpu, blk_img, blk_row, 1e-4,
+                                           gens[mode])
+        return m
+
+    reset_launches()
+    run("bf16", 1)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(launches == counts(attention_fwd_bf16=2 * T, attention_bwd_bf16=T),
+          f"bf16 train step: launches {launches}, expected "
+          f"attention_fwd_bf16 {2 * T}, attention_bwd_bf16 {T} and no other")
+    run("f32", 1)
+    reset_launches()
+    profile = profile_run(lambda: run("bf16", 1))
+    counted = read_launches()
+    check(profile.get("kernel_calls") == counted,
+          f"bf16 train step: the profile shows {profile.get('kernel_calls')}"
+          f", the wrappers counted {counted}")
+    pool, block_launches = {}, None
+    for mode in cfgs:
+        before = graph_pools()
+        reset_launches()
+        run_blocks(mode, 1)
+        torch.cuda.synchronize()
+        after = graph_pools()
+        if mode == "bf16":
+            block_launches = read_launches()
+            check(block_launches == {k: 2 * v for k, v in launches.items()},
+                  f"bf16 train block: host launches {block_launches}, "
+                  f"expected twice a step's")
+        pool[mode] = {k: sum(v[k] for pid, v in after.items()
+                             if pid not in before)
+                      for k in ("reserved", "allocated")}
+    block_profile = profile_run(lambda: run_blocks("bf16", 1))
+    want = {k: K_BLOCK * v for k, v in launches.items()}
+    check(block_profile.get("kernel_calls") == want,
+          f"bf16 train block: the profile shows "
+          f"{block_profile.get('kernel_calls')}, expected {want}")
+
+    # Both paths' states, banks and graphs stay resident here, so each
+    # window's peak is read above what was allocated at its start: the
+    # step's working set (a block's with the free part of its pool)
+    n_timed = 2 * K_BLOCK
+    order = ["f32", "bf16", "bf16_blocked", "f32_blocked", "f32_blocked",
+             "bf16_blocked", "bf16", "f32"]
+    timing = {m: {"ms_per_step": [], "peak_mem_gb": [],
+                  "peak_with_pool_gb": [], "working_set_gb": []}
+              for m in dict.fromkeys(order)}
+    for key in order:
+        mode, blocked = key.split("_")[0], key.endswith("_blocked")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        if blocked:
+            run_blocks(mode, n_timed // K_BLOCK)
+        else:
+            run(mode, n_timed)
+        torch.cuda.synchronize()
+        timing[key]["ms_per_step"].append(
+            (time.perf_counter() - t0) * 1e3 / n_timed)
+        peak = torch.cuda.max_memory_allocated()
+        free_pool = (pool[mode]["reserved"] - pool[mode]["allocated"]
+                     if blocked else 0)
+        timing[key]["peak_mem_gb"].append(peak / 1e9)
+        timing[key]["peak_with_pool_gb"].append((peak + free_pool) / 1e9)
+        timing[key]["working_set_gb"].append((peak - base + free_pool)
+                                             / 1e9)
+    for t in timing.values():
+        t["mean_ms"] = statistics.mean(t["ms_per_step"])
+        t["rows_per_s"] = TRAIN_B * 1e3 / t["mean_ms"]
+
+    # a block against K per-batch steps from one state, dropout 0
+    pair = [fresh("bf16", dropout=False)[0] for _ in range(2)]
+    exact = dataclasses.replace(cfg, dropout_rate=0.0)
+    one = make_bank_train_step(exact, 1.0)
+    for ii, ri in batches_gpu:
+        pair[0], _ = one(pair[0], bank16, caps_gpu, ii, ri, PARITY_LR, None)
+    pair[1], _ = make_bank_train_block(exact, 1.0)(
+        pair[1], bank16, caps_gpu, blk_img, blk_row, PARITY_LR, None)
+    block_diff = state_diff(*pair)
+    check(block_diff == 0.0, f"bf16 train block: {K_BLOCK} replays differ "
+                             f"from {K_BLOCK} per-batch steps by "
+                             f"{block_diff}")
+
+    # the image path through the bf16 encoder
+    enc = encoder_from_jax(enc_flat, "vgg19", "cuda")
+    imgs = torch.randn((TRAIN_B, SIZE, SIZE, 3),
+                       generator=torch.Generator().manual_seed(seed + 3))
+    caps = caps_gpu[batches_gpu[0][1]]
+    img_step = make_train_step(cfg, "vgg19", 1.0, bf16_encoder=True)
+    st, _ = fresh("bf16")
+    img_step(st, enc, imgs, caps, 1e-4, gens["bf16"])         # warm-up
+    reset_launches()
+    t0 = time.perf_counter()
+    st, m = img_step(st, enc, imgs, caps, 1e-4, gens["bf16"])
+    img_loss = float(m["loss"])
+    image_step_ms = (time.perf_counter() - t0) * 1e3
+    img_launches = read_launches()
+    check(math.isfinite(img_loss) and img_launches == launches,
+          f"bf16 image step: loss {img_loss}, launches {img_launches}")
+    return {"bank_bytes": bank16.nbytes, "f32_bank_bytes": bank_gpu.nbytes,
+            "first_loss": first_loss, "first_loss_rel_diff": loss_rel,
+            "launches": launches, "block_launches": block_launches,
+            "block_device_launches": block_profile.get("kernel_calls"),
+            "block_pool_gb": {m: {k: v / 1e9 for k, v in p.items()}
+                              for m, p in pool.items()},
+            "block_max_abs_diff": block_diff, "timing": timing,
+            "step_device_busy_share": profile.get("device_busy_share"),
+            "block_device_busy_share": block_profile.get("device_busy_share"),
+            "step_device_busy_ms": profile.get("device_busy_ms"),
+            "block_device_busy_ms": block_profile.get("device_busy_ms"),
+            "image_step_ms": image_step_ms, "image_step_loss": img_loss,
+            "profile": profile, "block_profile": block_profile}
 
 
 def _bleu_of(log: str, mode: str) -> dict:
@@ -1457,7 +1957,7 @@ def phase_entry(enc_flat) -> dict:
         return res, time.perf_counter() - t0, read_launches(), out.getvalue()
 
     def launches(fwd, bwd):
-        return {"topk": 0, "attention_fwd": fwd * T, "attention_bwd": bwd * T}
+        return counts(attention_fwd=fwd * T, attention_bwd=bwd * T)
 
     with tempfile.TemporaryDirectory() as root:
         words = ["<start>", "<eos>", "<unk>", "<pad>"] + [
@@ -1631,6 +2131,24 @@ def phase_entry(enc_flat) -> dict:
               f"uninterrupted blocked one: "
               f"{ {k: v for k, v in bdiffs.items() if v} }")
 
+        # (g) the bf16 options through the CLI, blocked: --bf16-attention,
+        # --bank-dtype bfloat16, --bf16-encoder (the precompute); every
+        # attention launch is a bf16 variant's
+        bf_dir = os.path.join(root, "bf16")
+        bf_last, bf_seconds, bf_launches, bf_log = timed(train_main, argv(
+            bf_dir, "--bf16-attention", "--bank-dtype", "bfloat16",
+            "--bf16-encoder", *k_flag))
+        want = launches(2 * 2 + 2 + 1, 2)
+        check(bf_launches == counts(
+            attention_fwd_bf16=want["attention_fwd"],
+            attention_bwd_bf16=want["attention_bwd"]),
+            f"entry: bf16 run's host launches {bf_launches}")
+        check("bfloat16)" in bf_log
+              and "EvalMode.TEST Epoch: 1\tBLEU-1 (" in bf_log
+              and math.isfinite(bf_last["loss"]),
+              f"entry: the bf16 run {bf_last}")
+        bf_bleu = _bleu_of(bf_log, "EvalMode.TEST")
+
         model = os.path.join(ckpt_dir, "model_vgg19_1.npz")
         cfg, dcfg, enc, dec, word_dict = load_model(
             model, encoder_weights=enc_path, device="cuda")
@@ -1661,6 +2179,8 @@ def phase_entry(enc_flat) -> dict:
            "blocked_preempted_seconds": bcut_seconds,
            "blocked_resume_seconds": bresume_seconds,
            "blocked_resume_max_abs_diff": blocked_resume_max_abs_diff,
+           "bf16_seconds": bf_seconds, "bf16_launches": bf_launches,
+           "bf16_test": bf_last, "bf16_test_bleu": bf_bleu,
            "caption": caption, "log_tail": log.splitlines()[-6:]}
     emit(res)
     return res
@@ -1680,7 +2200,7 @@ def main():
     dcfg, dec_flat, worst_flat, enc_flat, images = make_weights(args.seed)
     main_res = phase_main(dcfg, dec_flat, worst_flat, enc_flat, images)
     serve = phase_serve(dcfg, dec_flat, enc_flat)
-    train = phase_train(args.seed)
+    train = phase_train(args.seed, enc_flat)
     entry = phase_entry(enc_flat)
 
     # each kernel's launches on its path: for top-k and the forward, the
@@ -1689,11 +2209,19 @@ def main():
     # batch); for the backward, one default train step, eager, whose
     # wrapper count the profiler confirmed (its blocks are in the train
     # phase)
+    # (the bf16 variants: the bf16 main path's replayed batch and one bf16
+    # train step)
     for row in kernels:
         name = row["name"]
         if name == "attention_bwd":
             row["launches"] = train["profile"]["kernel_calls"][name]
             row["host_launches"] = train["launches"]["remat"][name]
+        elif name == "attention_bwd_bf16":
+            row["launches"] = train["bf16"]["profile"]["kernel_calls"][name]
+            row["host_launches"] = train["bf16"]["launches"][name]
+        elif name == "attention_fwd_bf16":
+            row["launches"] = main_res["bf16"]["device_launches"][name]
+            row["host_launches"] = main_res["bf16"]["host_launches"][name]
         else:
             row["launches"] = main_res["device_launches"][name]
             row["host_launches"] = main_res["host_launches"][name]

@@ -158,9 +158,6 @@ def unported_options(cfg: Config):
          "parallel and multi-process"),
         ("--mesh-model > 1", cfg.mesh_model > 1,
          "parallel and multi-process"),
-        ("--bf16-attention", cfg.bf16_attention, "bf16"),
-        ("--bf16-encoder", cfg.bf16_encoder, "bf16"),
-        ("--bank-dtype bfloat16", cfg.bank_dtype != "float32", "bf16"),
         ("--wandb", cfg.wandb, "CLIs and tooling"),
         ("--profile-dir", cfg.profile_dir, "CLIs and tooling"),
         ("--debug-nans", cfg.debug_nans, "CLIs and tooling"),
@@ -216,7 +213,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--mesh-model", type=int, default=1,
                         help="model-parallel axis size (not ported above 1)")
     parser.add_argument("--bf16-encoder", action="store_true", default=False,
-                        help="bfloat16 encoder convolutions (not ported)")
+                        help="run encoder convolutions in bfloat16")
     parser.add_argument("--checkpoint-dir", type=str, default="model",
                         help="directory for checkpoints + model_config.json")
     parser.add_argument("--resume", action="store_true", default=False,
@@ -250,7 +247,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                              "(default 0.0 = off, reference parity)")
     parser.add_argument("--bf16-attention", action="store_true",
                         default=False,
-                        help="bfloat16 attention tanh (not ported)")
+                        help="store the attention keys and features in "
+                             "bfloat16 (the middle is computed in float32)")
     parser.add_argument("--remat-scan", action="store_true", default=True,
                         help="recompute each decoder step's forward in the "
                              "backward pass (default on)")
@@ -259,8 +257,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         help="save each step's activations instead")
     parser.add_argument("--bank-dtype", choices=["float32", "bfloat16"],
                         default="float32",
-                        help="feature-bank storage dtype (bfloat16 not "
-                             "ported)")
+                        help="feature-bank storage dtype; bfloat16 halves "
+                             "the bank, each step widens its rows to "
+                             "float32")
     parser.add_argument("--steps-per-dispatch", type=int, default=1,
                         help="bank-mode training: K optimizer steps per "
                              "dispatch (K replays of one CUDA graph); "

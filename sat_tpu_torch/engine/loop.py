@@ -17,6 +17,13 @@ step then ships only row indices), else gathered on the host. With
 Without `--cache-features` every step runs the encoder on the batch's
 images.
 
+bf16, as in sat_tpu: `--bf16-encoder` runs the encoder in bf16, for the
+precompute and on the per-batch image path (the feature-cache key carries
+the flag); `--bank-dtype bfloat16` stores the bank in bf16, whose rows the
+steps widen to f32 after the gather (the budget is still counted in f32
+bytes, as sat_tpu counts it); `--bf16-attention` stores the attention keys
+and features of the unroll in bf16 (models/decoder.py).
+
 With `--steps-per-dispatch K` and the bank, the epoch's full batches go
 in blocks of K steps (`make_bank_train_block`; on the card, K replays of
 one CUDA graph), and validation in blocks of K batches
@@ -34,8 +41,8 @@ from the newest state, per-batch or blocked whichever path saved it; the
 dropout generator's state is part of it, so a resumed run takes the same
 steps as one that was never stopped.
 
-Not ported yet, each named in ROADMAP.md Queue 1: the bf16 options, W&B,
-the profiler, NaN debugging, BERT and the device mesh.
+Not ported yet, each named in ROADMAP.md Queue 1: W&B, the profiler, NaN
+debugging, BERT and the device mesh.
 """
 
 from __future__ import annotations
@@ -183,17 +190,20 @@ class Trainer:
                   f"images in {time.time() - t0:.1f}s")
             self.use_bank = total_bytes <= cfg.feature_bank_hbm_gb * (1 << 30)
             if self.use_bank:
+                bank_dtype = getattr(torch, cfg.bank_dtype)
                 for loader in loaders:
                     split = loader.split
                     self.bank[split] = {
-                        "feats": torch.as_tensor(self.features[split],
-                                                 device=self.device),
+                        "feats": torch.as_tensor(self.features[split]).to(
+                            bank_dtype).to(self.device),
                         "caps": torch.as_tensor(loader.dataset.captions,
                                                 device=self.device),
                         "rows": torch.as_tensor(self.row_map[split],
                                                 dtype=torch.long)}
+                bank_bytes = sum(b["feats"].nbytes for b in self.bank.values())
                 print(f"Feature bank resident in device memory "
-                      f"({total_bytes / (1 << 20):.0f} MB total)")
+                      f"({bank_bytes / (1 << 20):.0f} MB total, "
+                      f"{cfg.bank_dtype})")
                 self.features = {s: None for s in self.features}
             else:
                 print(f"Feature cache ({total_bytes / (1 << 30):.1f} GB) "
@@ -218,10 +228,12 @@ class Trainer:
                       "falling back to per-batch dispatch")
             self.train_step = make_train_step(
                 self.dcfg, cfg.network, cfg.alpha_c,
+                bf16_encoder=cfg.bf16_encoder,
                 from_features=cfg.cache_features,
                 rep_penalty_beta=cfg.rep_penalty_beta)
             self.eval_step = make_eval_step(self.dcfg, cfg.network,
                                             cfg.alpha_c,
+                                            bf16_encoder=cfg.bf16_encoder,
                                             from_features=cfg.cache_features)
 
         print(f"Starting training with {cfg}")
@@ -310,8 +322,9 @@ class Trainer:
         for start in range(0, len(unique), batch):
             imgs = np.stack([ds.load_image(first_row[p])
                              for p in unique[start:start + batch]])
-            chunks.append(encoder_forward(self.encoder, cfg.network,
-                                          imgs).cpu().numpy())
+            chunks.append(encoder_forward(
+                self.encoder, cfg.network, imgs,
+                torch.bfloat16 if cfg.bf16_encoder else None).cpu().numpy())
         feats = (np.concatenate(chunks) if chunks
                  else np.zeros((0, 1, cfg.encoder_dim), np.float32))
 

@@ -5,8 +5,11 @@ encoder and decoder modules as arguments, as sat_tpu's takes params: a
 server moves them to the device once and passes them on every call. On the
 card the decode replays CUDA graphs (models/beam.py), which the step keeps
 in a GraphCache of its own, captured per batch shape and decoder: a
-server's step lives as long as the server. AOT export, `decode="sample"`,
-`fast_topk` and `bf16` are not ported yet and raise.
+server's step lives as long as the server. `bf16=True` is sat_tpu's bf16
+decode: the encoder runs in bf16 (its grid comes back f32) for beam and
+greedy alike, and the beam stores its grid and keys in bf16, while greedy
+decodes in f32, as sat_tpu's does. AOT export, `decode="sample"` and
+`fast_topk` are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -55,10 +58,10 @@ def build_caption_step(network: str, dcfg: DecoderConfig, beam_size: int,
             "sample decode)")
     if decode not in ("beam", "greedy"):
         raise ValueError(f"unknown decode mode {decode!r}")
-    if fast_topk or bf16 or mesh_data > 1:
+    if fast_topk or mesh_data > 1:
         raise NotImplementedError(
-            "fast_topk, bf16 decode and mesh serving are not ported yet "
-            "(ROADMAP.md, Queue 1)")
+            "fast_topk and mesh serving are not ported yet (ROADMAP.md, "
+            "Queue 1)")
     dev = resolve_device(device)
     use_f32_math()
 
@@ -66,12 +69,14 @@ def build_caption_step(network: str, dcfg: DecoderConfig, beam_size: int,
 
     def caption(encoder, decoder, images) -> dict:
         images = torch.as_tensor(images, dtype=torch.float32, device=dev)
-        feats = encoder_forward(encoder, network, images)
+        feats = encoder_forward(encoder, network, images,
+                                torch.bfloat16 if bf16 else None)
         if decode == "greedy":
             return pack_scan(dcfg, *greedy_caption(decoder, feats,
                                                    with_alphas=True,
                                                    graphs=cache))
-        res = beam_search_batched(decoder, feats, beam_size, graphs=cache)
+        res = beam_search_batched(decoder, feats, beam_size, bf16=bf16,
+                                  graphs=cache)
         return {"tokens": res.tokens, "length": res.length,
                 "score": res.score, "found": res.found,
                 "alphas": res.alphas}

@@ -32,14 +32,22 @@ lengths, scores, alphas and fallback alphas, and a decode never runs past
 On the card, the S-step body (and the shorter last block), the start of a
 decode (keys, initial state) and the rebuild of the winning paths each
 replay as a CUDA graph (utils/graphs.py), captured once per (B, K, L, D,
-max_steps, dedup, backtrack) shape and block length, in the `graphs`
+max_steps, dedup, backtrack, bf16) shape and block length, in the `graphs`
 GraphCache that the caller passes (the caption step keeps one per server);
 greedy decode is one graph of all its steps. Without a cache (`graphs=None`,
 the default) the same code runs eagerly, as the CPU always does. The exact
 top-k is the CUDA kernel of ops/topk.py and the
 attention middle the one of ops/fused_attention.py on the card, their
-plain forms on the CPU. `fast_topk` (an approximate TPU top-k), `bf16` and
+plain forms on the CPU. `fast_topk` (an approximate TPU top-k) and
 `mesh_data > 1` are not ported and raise.
+
+`bf16=True` is sat_tpu's bf16 decode: the attention keys are computed and
+the LSTM state initialised from the f32 grid, and then the grid and the
+keys are stored in bf16, in both layouts (dedup and flat), for the
+attention kernel's bf16 variant to read; h, c, the scores and the alphas
+stay f32, and the middle is f32 (ops/fused_attention.py). The dtype is
+part of the spec that keys a GraphCache: one process that serves f32 and
+bf16 captures their graphs apart.
 """
 
 from __future__ import annotations
@@ -85,6 +93,11 @@ class _Spec(NamedTuple):
     dedup: bool
     backtrack: bool
     start_token: int
+    bf16: bool
+
+    @property
+    def grid_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.bf16 else torch.float32
 
     @property
     def T(self) -> int:      # token columns: the start token, then a step
@@ -103,7 +116,9 @@ def _graph_cache(graphs: GraphCache | None, device: torch.device):
 
 def _beam_buffers(spec: _Spec, device, features=None) -> dict:
     """The decode's state, allocated once per shape. `features` (B, L, D)
-    serves as the input buffer when given (the eager path)."""
+    serves as the input buffer when given (the eager path). The grid that
+    the steps read is that buffer in the f32 dedup layout, else a buffer
+    of its own, of (B*K, L, D) in the flat layout, in the grid's dtype."""
     B, K, L, D, E, T = spec.B, spec.K, spec.L, spec.D, spec.E, spec.T
 
     def new(*shape, dtype=torch.float32):
@@ -111,8 +126,10 @@ def _beam_buffers(spec: _Spec, device, features=None) -> dict:
 
     i64 = torch.int64
     G = B if spec.dedup else B * K          # rows of the grid and its keys
+    grid = spec.grid_dtype
     buf = {"features": new(B, L, D) if features is None else features,
-           "keys": new(G, L, E), "h": new(B * K, E), "c": new(B * K, E),
+           "keys": new(G, L, E, dtype=grid), "h": new(B * K, E),
+           "c": new(B * K, E),
            "ranks": torch.arange(K, device=device),
            "rows": torch.arange(B, device=device),
            "step": new(dtype=i64), "scores": new(B, K),
@@ -120,7 +137,8 @@ def _beam_buffers(spec: _Spec, device, features=None) -> dict:
            "live_count": new(B, dtype=i64), "best_score": new(B),
            "best_len": new(B, dtype=i64), "found": new(B, dtype=torch.bool),
            "last_alpha0": new(B, L)}
-    buf["grid"] = buf["features"] if spec.dedup else new(G, L, D)
+    buf["grid"] = (buf["features"] if spec.dedup and not spec.bf16
+                   else new(G, L, D, dtype=grid))
     if spec.backtrack:
         # Per-step records, write-only in the loop
         buf.update(words=new(B, T, K, dtype=i64),
@@ -138,17 +156,26 @@ def _beam_buffers(spec: _Spec, device, features=None) -> dict:
 
 def _beam_start(dec: Decoder, spec: _Spec, buf: dict) -> None:
     """The attention keys, the LSTM state and the loop state of a new
-    decode of buf["features"], written in place."""
+    decode of buf["features"], written in place. The keys and the state
+    come from the f32 grid of the layout; the grid and the keys are then
+    stored in the grid's dtype (bf16: copy_ rounds to nearest even)."""
     B, K = spec.B, spec.K
     feats = buf["features"]
     if spec.dedup:
-        h, c = init_lstm_state(dec, feats)                     # (B, E)
+        grid = feats
+    elif spec.bf16:
+        grid = feats[:, None].expand(B, K, *feats.shape[1:]).reshape(
+            B * K, *feats.shape[1:])
+    else:
+        grid = buf["grid"]
+        grid.view(B, K, *feats.shape[1:]).copy_(feats[:, None])
+    h, c = init_lstm_state(dec, grid)
+    if spec.dedup:                                             # (B, E)
         h = h.repeat_interleave(K, dim=0)                      # (B*K, E)
         c = c.repeat_interleave(K, dim=0)
-    else:
-        buf["grid"].view(B, K, *feats.shape[1:]).copy_(feats[:, None])
-        h, c = init_lstm_state(dec, buf["grid"])
-    buf["keys"].copy_(precompute_attention_keys(dec.attention, buf["grid"]))
+    buf["keys"].copy_(precompute_attention_keys(dec.attention, grid))
+    if buf["grid"] is not grid:
+        buf["grid"].copy_(grid)
     buf["h"].copy_(h)
     buf["c"].copy_(c)
     buf["step"].fill_(1)
@@ -307,13 +334,11 @@ def beam_search_batched(dec: Decoder, features: torch.Tensor, beam_size: int,
     parent pointers and rebuilds the winning path once after the loop;
     False carries the whole token and alpha history per beam, reindexed by
     parent each step. Both give the same result. `sync_every` steps run
-    between two host reads of the exit test; `graphs` as in the module
-    note.
+    between two host reads of the exit test; `graphs` and `bf16` as in the
+    module note.
     """
     if fast_topk:
         raise _not_ported("fast_topk (the approximate TPU top-k)")
-    if bf16:
-        raise _not_ported("bf16 decode")
     if mesh_data > 1:
         raise _not_ported("mesh serving (mesh_data > 1)")
     if sync_every < 1:
@@ -322,7 +347,7 @@ def beam_search_batched(dec: Decoder, features: torch.Tensor, beam_size: int,
     B = features.shape[0]
     if chunk and B > chunk:
         parts = [beam_search_batched(dec, features[s:s + chunk], beam_size,
-                                     max_steps, dedup, chunk=None,
+                                     max_steps, dedup, bf16=bf16, chunk=None,
                                      backtrack=backtrack,
                                      sync_every=sync_every, graphs=graphs)
                  for s in range(0, B, chunk)]
@@ -331,7 +356,7 @@ def beam_search_batched(dec: Decoder, features: torch.Tensor, beam_size: int,
     B, L, D = features.shape
     spec = _Spec(B, beam_size, L, D, cfg.embedding_size,
                  cfg.effective_vocab_size, max_steps, dedup, backtrack,
-                 cfg.start_token)
+                 cfg.start_token, bf16)
     cache = _graph_cache(graphs, features.device)
     if cache is None:
         buf = _beam_buffers(spec, features.device, features)

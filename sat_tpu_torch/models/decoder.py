@@ -14,8 +14,9 @@ reference Decoder's (reference decoder.py:40-66), so a reference
 
 `decode_step` is one step of decoding; `decoder_forward` is the training
 and evaluation unroll over a caption, teacher-forced or autoregressive,
-with dropout on h before the output head when training. BERT embeddings
-and the bf16 attention tanh are not ported yet and raise.
+with dropout on h before the output head when training. With
+`bf16_attention` the unroll stores the attention keys and features in
+bf16 (models/attention.py). BERT embeddings are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -70,9 +71,6 @@ def _check_ported(cfg: DecoderConfig) -> None:
     if cfg.use_bert:
         raise NotImplementedError(
             "BERT embeddings are not ported yet (ROADMAP.md, Queue 1: BERT)")
-    if cfg.bf16_attention:
-        raise NotImplementedError(
-            "bf16_attention is not ported yet (ROADMAP.md, Queue 1: bf16)")
 
 
 class Decoder(nn.Module):
@@ -186,8 +184,10 @@ def _recur(dec: Decoder, features, keys, h, c, token_emb, rows_per_image=1):
         context, alpha = soft_attention(dec.attention, features, h, keys, R)
         gated_context = torch.sigmoid(dec.f_beta(h)) * context
     else:
-        alpha = features.new_full((features.shape[0] * R, L), 1.0 / L)
-        context = features.mean(dim=1).repeat_interleave(R, dim=0)
+        # a bf16 grid (the bf16 beam) gives bf16 values, widened as JAX's
+        # promotion widens them
+        alpha = features.new_full((features.shape[0] * R, L), 1.0 / L).float()
+        context = features.mean(dim=1).float().repeat_interleave(R, dim=0)
         gated_context = context
     x = torch.cat([token_emb, gated_context], dim=-1)
     h, c = lstm_cell(dec.lstm, x, h, c)
@@ -239,7 +239,11 @@ def decoder_forward(dec: Decoder, cfg: DecoderConfig, features: torch.Tensor,
     dropout acts on h before the head; the autoregressive branch draws all
     T masks before the loop and passes each into its step, so a recomputed
     step redraws nothing. With cfg.remat_scan and autograd on, each step
-    runs under torch.utils.checkpoint.
+    runs under torch.utils.checkpoint. With cfg.bf16_attention (and
+    attention) the keys and features are cast to bf16 once, after the LSTM
+    state is read from the f32 features, as sat_tpu casts them; the
+    gradient that reaches the keys through the cast is bf16, as under
+    JAX's astype.
 
     Returns (preds (B, T, V), alphas (B, T, L)).
     """
@@ -249,6 +253,10 @@ def decoder_forward(dec: Decoder, cfg: DecoderConfig, features: torch.Tensor,
     captions = captions.long()
     h, c = init_lstm_state(dec, features)
     keys = precompute_attention_keys(dec.attention, features)
+    if cfg.bf16_attention and cfg.use_attention:
+        # re-read at every step, forward and backward: bf16 halves it
+        keys = keys.to(torch.bfloat16)
+        features = features.to(torch.bfloat16)
     gen = generator if train else None
     remat = cfg.remat_scan and torch.is_grad_enabled()
 

@@ -46,6 +46,10 @@ SIGNATURES = {
     "sat_attention_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _P, _I, _I, _I, _I, _P),
 }
+# The bf16 variants take the same arguments, keys and feats (and dkeys and
+# dfeats) in bf16.
+SIGNATURES["sat_attention_fwd_bf16"] = SIGNATURES["sat_attention_fwd_f32"]
+SIGNATURES["sat_attention_bwd_bf16"] = SIGNATURES["sat_attention_bwd_f32"]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

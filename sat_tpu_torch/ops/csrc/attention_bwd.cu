@@ -12,6 +12,12 @@
 //   dkeys[b]     = dpre;   du_h[b] = sum_l dpre
 //   dv_part[b]   = sum_l att[l, :] * de[l];   dbv_part[b] = sum_l de[l]
 //
+// Keys and features are float or bf16, and dkeys and dfeats are written in
+// their type, rounded to nearest even from the float value: the bits that
+// autograd makes of a float dkeys on its way back through the cast of the
+// keys to bf16 (the TPU kernel writes float; the caller casts). The rest
+// is float, and so is all the math.
+//
 // The caller sums dv_part and dbv_part over images, in a fixed order: no
 // atomics, so a run gives the same bits every time. (The TPU kernel's
 // (8, 128)-padded partials are a Mosaic tiling artefact and are not kept.)
@@ -19,7 +25,7 @@
 // Bound on the H100 (3.35 TB/s): at the training shape (64 images,
 // L = 196, E = D = 512) the kernel must read keys and feats (25.7 MB each)
 // and write dkeys (25.7 MB), plus dfeats (25.7 MB) when asked: 77 MB,
-// 23 us, or 103 MB, 31 us. The tanh is one per (b, l, e), 6.4 M, a few us
+// 23 us, or 103 MB, 31 us; in bf16 half of that, 39 or 52 MB. The tanh is one per (b, l, e), 6.4 M, a few us
 // of issue slots. Eager PyTorch's autograd of the plain attention would
 // instead save the (B, L, E) tanh in the forward and read it back here.
 //
@@ -37,6 +43,8 @@
 // order. du_h is final; dv and db_v leave one partial per image. One
 // launch, no device scratch. tanhf (not the approximate intrinsic) matches
 // the forward kernel and the plain form to float rounding.
+// bf16 inputs take the same kernel with half the bytes a row: a slot holds
+// 8 bf16 feature rows (two a warp) or 8 key rows, where it holds 4 f32.
 
 #include "attention_common.cuh"
 
@@ -48,15 +56,17 @@ using namespace sat_attention;
 struct BwdLayout {
   int chunk;        // rows per block: ceil(L / kCluster)
   int tf, tk;       // rows per feature tile (a warp each) and per key tile
-  int slot_floats;  // floats per ring slot
+  int slot_bytes;   // bytes per ring slot
   size_t dctx, u, v, alpha, g, acc, red, bytes;
 
-  BwdLayout(int L, int E, int D) {
+  // elem: bytes of a key or feature element, 4 (float) or 2 (bf16)
+  BwdLayout(int L, int E, int D, int elem) {
     chunk = ceil_div(L, kCluster);
-    tf = clamp_int(kSlotBytes / (4 * D), 1, kWarps < chunk ? kWarps : chunk);
-    tk = clamp_int(kSlotBytes / (4 * E), 1, chunk);
-    slot_floats = tk * E > tf * D ? tk * E : tf * D;
-    dctx = kBarrierBytes + static_cast<size_t>(kStages) * slot_floats * 4;
+    const int warp_rows = kWarps * (4 / elem);  // g a warp per row
+    tf = tile_rows(elem * D, warp_rows < chunk ? warp_rows : chunk);
+    tk = tile_rows(elem * E, chunk);
+    slot_bytes = elem * (tk * E > tf * D ? tk * E : tf * D);
+    dctx = kBarrierBytes + static_cast<size_t>(kStages) * slot_bytes;
     u = dctx + floats16(D);
     v = u + floats16(E);
     alpha = v + floats16(E);
@@ -67,16 +77,18 @@ struct BwdLayout {
   }
 };
 
+// T: the storage type of keys, features, dkeys and dfeats.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-attention_bwd(const float* __restrict__ keys, const float* __restrict__ feats,
+attention_bwd(const T* __restrict__ keys, const T* __restrict__ feats,
               const float* __restrict__ u_h, const float* __restrict__ v,
               const float* __restrict__ alpha, const float* __restrict__ dctx,
-              const float* __restrict__ dalpha, float* __restrict__ dkeys,
-              float* __restrict__ dfeats, float* __restrict__ du_h,
+              const float* __restrict__ dalpha, T* __restrict__ dkeys,
+              T* __restrict__ dfeats, float* __restrict__ du_h,
               float* __restrict__ dv_part, float* __restrict__ dbv_part, int L,
               int E, int D, BwdLayout lay) {
   extern __shared__ __align__(128) unsigned char smem[];
-  Ring ring(smem, lay.slot_floats);
+  Ring ring(smem, lay.slot_bytes);
   float* s_dctx = reinterpret_cast<float*>(smem + lay.dctx);
   float* s_u = reinterpret_cast<float*>(smem + lay.u);
   float* s_v = reinterpret_cast<float*>(smem + lay.v);
@@ -101,7 +113,7 @@ attention_bwd(const float* __restrict__ keys, const float* __restrict__ feats,
     const int width = feat ? D : E;
     const int rows = min(feat ? lay.tf : lay.tk, own.n - i0);
     ring.load(t, (feat ? feats : keys) + (grid0 + i0) * width,
-              static_cast<uint32_t>(rows) * width * 4);
+              static_cast<uint32_t>(rows * width * sizeof(T)));
   };
 
   if (tid == 0) ring.init();
@@ -121,23 +133,24 @@ attention_bwd(const float* __restrict__ keys, const float* __restrict__ feats,
   // dfeats = alpha dctx for this block's rows, while the first tiles land.
   const float4* dctx4 = reinterpret_cast<const float4*>(s_dctx);
   if (dfeats != nullptr) {
-    float4* out = reinterpret_cast<float4*>(dfeats) + grid0 * D4;
+    T* out = dfeats + grid0 * D;
     for (int i = tid; i < own.n * D4; i += kThreads) {
       const float a = s_alpha[i / D4];
       const float4 d = dctx4[i % D4];
-      out[i] = make_float4(a * d.x, a * d.y, a * d.z, a * d.w);
+      store4(out + 4 * static_cast<size_t>(i),
+             make_float4(a * d.x, a * d.y, a * d.z, a * d.w));
     }
   }
 
   // Pass 1: g[l] = feats[l] . dctx + dalpha[l], a warp per feature row.
   for (int t = 0; t < nf; ++t) {
-    const float4* tile = reinterpret_cast<const float4*>(ring.wait(t));
+    const T* tile = ring.wait<T>(t);
     const int i0 = t * lay.tf, rows = min(lay.tf, own.n - i0);
     for (int i = warp; i < rows; i += kWarps) {
-      const float4* frow = tile + static_cast<size_t>(i) * D4;
+      const T* frow = tile + static_cast<size_t>(i) * D;
       float acc = 0.f;
       for (int c = lane; c < D4; c += 32) {
-        const float4 f = frow[c], d = dctx4[c];
+        const float4 f = load4(frow + 4 * c), d = dctx4[c];
         acc = fmaf(f.x, d.x, acc);
         acc = fmaf(f.y, d.y, acc);
         acc = fmaf(f.z, d.z, acc);
@@ -175,15 +188,15 @@ attention_bwd(const float* __restrict__ keys, const float* __restrict__ feats,
   // and dv sums stay in shared memory from tile to tile.
   const float4* u4 = reinterpret_cast<const float4*>(s_u);
   const float4* v4 = reinterpret_cast<const float4*>(s_v);
-  float4* dk = reinterpret_cast<float4*>(dkeys) + grid0 * E4;
+  T* dk = dkeys + grid0 * E;
   for (int t = nf; t < ntiles; ++t) {
-    const float4* tile = reinterpret_cast<const float4*>(ring.wait(t));
+    const T* tile = ring.wait<T>(t);
     const int i0 = (t - nf) * lay.tk, rows = min(lay.tk, own.n - i0);
     for (int c = tid; c < E4; c += kThreads) {
       const float4 u = u4[c], w = v4[c];
       float4 du = s_du[c], dv = s_dv[c];
       for (int i = 0; i < rows; ++i) {
-        const float4 k = tile[static_cast<size_t>(i) * E4 + c];
+        const float4 k = load4(tile + static_cast<size_t>(i) * E + 4 * c);
         const float de = s_g[i0 + i];
         const float ax = tanhf(k.x + u.x), ay = tanhf(k.y + u.y);
         const float az = tanhf(k.z + u.z), aw = tanhf(k.w + u.w);
@@ -191,7 +204,7 @@ attention_bwd(const float* __restrict__ keys, const float* __restrict__ feats,
                                       (de * w.y) * (1.f - ay * ay),
                                       (de * w.z) * (1.f - az * az),
                                       (de * w.w) * (1.f - aw * aw));
-        dk[static_cast<size_t>(i0 + i) * E4 + c] = dp;
+        store4(dk + static_cast<size_t>(i0 + i) * E + 4 * c, dp);
         add4(du, dp);
         add4(dv, make_float4(ax * de, ay * de, az * de, aw * de));
       }
@@ -217,6 +230,23 @@ attention_bwd(const float* __restrict__ keys, const float* __restrict__ feats,
   cluster_sync();  // no block leaves while another reads its shared memory
 }
 
+// The launch of one storage type: an error for what the bulk copies cannot
+// take (rows that are not whole 16-byte units).
+template <typename T>
+int launch_bwd(const T* keys, const T* feats, const float* u_h,
+               const float* v, const float* alpha, const float* dctx,
+               const float* dalpha, T* dkeys, T* dfeats, float* du_h,
+               float* dv_part, float* dbv_part, int images, int L, int E,
+               int D, cudaStream_t stream) {
+  constexpr int kGroup = 16 / sizeof(T);  // elements in 16 bytes
+  if (E % kGroup != 0 || D % kGroup != 0 || images < 1 || L < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BwdLayout lay(L, E, D, sizeof(T));
+  return launch_clusters(attention_bwd<T>, images, lay.bytes, stream, keys,
+                         feats, u_h, v, alpha, dctx, dalpha, dkeys, dfeats,
+                         du_h, dv_part, dbv_part, L, E, D, lay);
+}
+
 }  // namespace
 
 // keys (B, L, E), feats (B, L, D), u_h (B, E), v (E,), alpha (B, L),
@@ -232,10 +262,18 @@ extern "C" int sat_attention_bwd_f32(const float* keys, const float* feats,
                                      float* dfeats, float* du_h, float* dv_part,
                                      float* dbv_part, int images, int L, int E,
                                      int D, cudaStream_t stream) {
-  if (E % 4 != 0 || D % 4 != 0 || images < 1 || L < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const BwdLayout lay(L, E, D);
-  return launch_clusters(attention_bwd, images, lay.bytes, stream, keys, feats,
-                         u_h, v, alpha, dctx, dalpha, dkeys, dfeats, du_h,
-                         dv_part, dbv_part, L, E, D, lay);
+  return launch_bwd(keys, feats, u_h, v, alpha, dctx, dalpha, dkeys, dfeats,
+                    du_h, dv_part, dbv_part, images, L, E, D, stream);
+}
+
+// As sat_attention_bwd_f32 with keys, feats, dkeys and dfeats in bf16, E
+// and D multiples of 8; everything else f32.
+extern "C" int sat_attention_bwd_bf16(
+    const __nv_bfloat16* keys, const __nv_bfloat16* feats, const float* u_h,
+    const float* v, const float* alpha, const float* dctx,
+    const float* dalpha, __nv_bfloat16* dkeys, __nv_bfloat16* dfeats,
+    float* du_h, float* dv_part, float* dbv_part, int images, int L, int E,
+    int D, cudaStream_t stream) {
+  return launch_bwd(keys, feats, u_h, v, alpha, dctx, dalpha, dkeys, dfeats,
+                    du_h, dv_part, dbv_part, images, L, E, D, stream);
 }

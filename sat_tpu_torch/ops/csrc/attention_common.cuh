@@ -7,13 +7,21 @@
 // cluster: block `rank` owns the contiguous rows [rank * chunk, ...) with
 // chunk = ceil(L / kCluster), which may be empty when L < kCluster. The
 // rows of one image are contiguous in memory, so a tile of them is one
-// bulk copy of rows * width * 4 bytes: no tensor map is needed. Sums that
-// cross the cluster go through distributed shared memory, always in rank
-// order, so every run gives the same bits and no scratch in device memory
-// or second kernel is needed.
+// bulk copy of rows * width * sizeof(T) bytes: no tensor map is needed. Sums
+// that cross the cluster go through distributed shared memory, always in
+// rank order, so every run gives the same bits and no scratch in device
+// memory or second kernel is needed.
+//
+// Keys and features (and, in the backward, dkeys and dfeats) are stored as
+// T, float or __nv_bfloat16; every other tensor is float, and all the
+// arithmetic is float in registers. A thread reads and writes a T row in
+// groups of four elements (load4, store4): one float4, or two
+// __nv_bfloat162 widened and narrowed by the conversion intrinsics, the
+// narrowing rounding to nearest even.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -34,6 +42,10 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kStages = 2;             // ring slots, each one bulk copy
 constexpr int kSlotBytes = 8 * 1024;   // a slot's size unless one row is wider
+// bf16 rows are half as wide, so the same 8 KB slot takes twice the rows:
+// a block has the same bytes in flight (kStages x 8 KB) in both types and
+// issues half as many copies in bf16. Tiles scored a warp per row may
+// then hold 2 x kWarps rows, two for each warp.
 constexpr int kBarrierBytes = 128;     // the kStages mbarriers, padded
 
 __host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
@@ -42,6 +54,32 @@ __host__ __device__ inline int clamp_int(int x, int lo, int hi) {
 }
 __host__ __device__ inline size_t floats16(size_t n) {  // n floats, 16-byte padded
   return (4 * n + 15) & ~static_cast<size_t>(15);
+}
+
+// Rows of `row_bytes` bytes in one ring slot: kSlotBytes worth, at least
+// one, at most `cap`.
+__host__ inline int tile_rows(int row_bytes, int cap) {
+  return clamp_int(kSlotBytes / row_bytes, 1, cap);
+}
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const __nv_bfloat162* q = reinterpret_cast<const __nv_bfloat162*>(p);
+  const float2 lo = __bfloat1622float2(q[0]), hi = __bfloat1622float2(q[1]);
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+__device__ __forceinline__ void store4(float* p, const float4& x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float4& x) {
+  __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
+  q[0] = __floats2bfloat162_rn(x.x, x.y);
+  q[1] = __floats2bfloat162_rn(x.z, x.w);
 }
 
 // The rows of an image that block `rank` of its cluster owns: [l0, l0 + n).
@@ -110,13 +148,13 @@ __device__ __forceinline__ float4 cluster_sum4(const float4* local) {
 // so kStages copies stay in flight while the block computes.
 struct Ring {
   uint64_t* bars;
-  float* slots;
-  int slot_floats;
+  unsigned char* slots;
+  int slot_bytes;  // a multiple of 16
 
-  __device__ Ring(unsigned char* smem, int slot_floats_)
+  __device__ Ring(unsigned char* smem, int slot_bytes_)
       : bars(reinterpret_cast<uint64_t*>(smem)),
-        slots(reinterpret_cast<float*>(smem + kBarrierBytes)),
-        slot_floats(slot_floats_) {}
+        slots(smem + kBarrierBytes),
+        slot_bytes(slot_bytes_) {}
 
   // One thread, before any copy; a __syncthreads must follow.
   __device__ void init() {
@@ -130,7 +168,7 @@ struct Ring {
 
   // One thread: copy `bytes` (a multiple of 16, from a 16-byte aligned
   // global address) into the slot of tile t.
-  __device__ void load(int t, const float* src, uint32_t bytes) {
+  __device__ void load(int t, const void* src, uint32_t bytes) {
     const int s = t % kStages;
     const uint32_t bar = smem_u32(&bars[s]);
     asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
@@ -139,13 +177,14 @@ struct Ring {
                  : "memory");
     asm volatile(
         "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];" ::"r"(smem_u32(slots + s * slot_floats)),
+        "[%0], [%1], %2, [%3];" ::"r"(smem_u32(slots + s * slot_bytes)),
         "l"(src), "r"(bytes), "r"(bar)
         : "memory");
   }
 
   // Every thread: wait until tile t has landed; returns its slot.
-  __device__ const float* wait(int t) {
+  template <typename T>
+  __device__ const T* wait(int t) {
     const int s = t % kStages;
     const uint32_t bar = smem_u32(&bars[s]);
     const uint32_t parity = (t / kStages) & 1;
@@ -161,7 +200,7 @@ struct Ring {
           : "r"(bar), "r"(parity)
           : "memory");
     } while (!done);
-    return slots + s * slot_floats;
+    return reinterpret_cast<const T*>(slots + s * slot_bytes);
   }
 };
 

@@ -8,11 +8,14 @@
 //   ctx[r, d] = sum_l alpha[r, l] * feats[b, l, d]
 //
 // R = 1 is the TPU kernel's function; R = K serves the de-duplicated beam,
-// whose K rows of an image share one copy of its keys and features.
+// whose K rows of an image share one copy of its keys and features. Keys
+// and features are float or bf16 (the TPU kernel takes both and computes
+// in f32 either way); the rest is float, and so is all the math.
 //
 // Bound on the H100 (3.35 TB/s, 67 TFLOP/s f32): at the beam's shape (128
 // images, R = 5, L = 196, E = D = 512) the inputs are 106 MB, 32 us; at the
-// training shape (64 images, R = 1) 51 MB, 15 us. The tanh is the other
+// training shape (64 images, R = 1) 51 MB, 15 us; with bf16 keys and
+// features about half of each (55 and 26 MB). The tanh is the other
 // near-limit at R = 5: 64 M precise tanhf of about a dozen FP32
 // instructions each take some 30 us of the card's issue slots, so the
 // kernel can approach the byte bound but not reach it. Eager PyTorch would
@@ -25,7 +28,8 @@
 // streams them through a ring of kStages shared-memory tiles filled by 1-D
 // bulk copies, keys first, then features, so that the first feature tiles
 // are in flight during the softmax exchange. Scores: a warp per key row
-// reads the row once from shared memory (float4) and scores it against all
+// reads the row once from shared memory (four elements at a time, widened
+// to a float4 when bf16) and scores it against all
 // R hidden rows, which sit in shared memory with v. Softmax: each block's
 // R maxima, then its R sums of exp(e - M), are exchanged through
 // distributed shared memory (two cluster barriers), so every block forms
@@ -35,6 +39,8 @@
 // and adds the 8 partials in rank order. One launch, no device scratch,
 // the same bits every run. tanhf and expf (not the approximate intrinsics)
 // keep alpha within 1e-6 of the plain PyTorch form, which beam parity needs.
+// bf16 inputs take the same kernel with half the bytes a row: a slot holds
+// 8 bf16 key rows (two a warp) or 8 feature rows, where it holds 4 f32.
 
 #include "attention_common.cuh"
 
@@ -46,19 +52,21 @@ using namespace sat_attention;
 struct FwdLayout {
   int chunk;        // rows per block: ceil(L / kCluster)
   int tk, tf;       // rows per key tile and per feature tile
-  int slot_floats;  // floats per ring slot
+  int slot_bytes;   // bytes per ring slot
   size_t rows;      // (R, E) hidden rows while scoring, then (R, D) context
   size_t v;         // (E,)
   size_t p;         // (R, chunk) scores, then alpha
   size_t red;       // (2, R) this block's maxima and sums
   size_t bytes;
 
-  FwdLayout(int R, int L, int E, int D) {
+  // elem: bytes of a key or feature element, 4 (float) or 2 (bf16)
+  FwdLayout(int R, int L, int E, int D, int elem) {
     chunk = ceil_div(L, kCluster);
-    tk = clamp_int(kSlotBytes / (4 * E), 1, kWarps < chunk ? kWarps : chunk);
-    tf = clamp_int(kSlotBytes / (4 * D), 1, chunk);
-    slot_floats = tk * E > tf * D ? tk * E : tf * D;
-    rows = kBarrierBytes + static_cast<size_t>(kStages) * slot_floats * 4;
+    const int warp_rows = kWarps * (4 / elem);  // scored a warp per row
+    tk = tile_rows(elem * E, warp_rows < chunk ? warp_rows : chunk);
+    tf = tile_rows(elem * D, chunk);
+    slot_bytes = elem * (tk * E > tf * D ? tk * E : tf * D);
+    rows = kBarrierBytes + static_cast<size_t>(kStages) * slot_bytes;
     v = rows + floats16(static_cast<size_t>(R) * (E > D ? E : D));
     p = v + floats16(E);
     red = p + floats16(static_cast<size_t>(R) * chunk);
@@ -68,16 +76,17 @@ struct FwdLayout {
 
 // kRows hidden rows per pass, a divisor of R chosen by the host (5 for the
 // beam, 1 for training and greedy), so that every pass scores exactly
-// kRows rows with no guard between their independent tanh chains.
-template <int kRows>
+// kRows rows with no guard between their independent tanh chains. T: the
+// storage type of keys and features.
+template <typename T, int kRows>
 __global__ void __launch_bounds__(kThreads)
-attention_fwd(const float* __restrict__ keys, const float* __restrict__ feats,
+attention_fwd(const T* __restrict__ keys, const T* __restrict__ feats,
               const float* __restrict__ u_h, const float* __restrict__ v,
               const float* __restrict__ b_v, float* __restrict__ ctx,
               float* __restrict__ alpha, int R, int L, int E, int D,
               FwdLayout lay) {
   extern __shared__ __align__(128) unsigned char smem[];
-  Ring ring(smem, lay.slot_floats);
+  Ring ring(smem, lay.slot_bytes);
   float* s_rows = reinterpret_cast<float*>(smem + lay.rows);
   float* s_v = reinterpret_cast<float*>(smem + lay.v);
   float* s_p = reinterpret_cast<float*>(smem + lay.p);
@@ -100,7 +109,7 @@ attention_fwd(const float* __restrict__ keys, const float* __restrict__ feats,
     const int rows = min(key ? lay.tk : lay.tf, own.n - i0);
     ring.load(t, (key ? keys : feats) +
                      (static_cast<size_t>(b) * L + own.l0 + i0) * width,
-              static_cast<uint32_t>(rows) * width * 4);
+              static_cast<uint32_t>(rows * width * sizeof(T)));
   };
 
   if (tid == 0) ring.init();
@@ -116,16 +125,16 @@ attention_fwd(const float* __restrict__ keys, const float* __restrict__ feats,
   const float4* u4 = reinterpret_cast<const float4*>(s_rows);
   const float4* v4 = reinterpret_cast<const float4*>(s_v);
   for (int t = 0; t < nk; ++t) {
-    const float4* tile = reinterpret_cast<const float4*>(ring.wait(t));
+    const T* tile = ring.wait<T>(t);
     const int i0 = t * lay.tk, rows = min(lay.tk, own.n - i0);
     for (int i = warp; i < rows; i += kWarps) {
-      const float4* krow = tile + static_cast<size_t>(i) * E4;
+      const T* krow = tile + static_cast<size_t>(i) * E;
       for (int r0 = 0; r0 < R; r0 += kRows) {
         float acc[kRows];
 #pragma unroll
         for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
         for (int c = lane; c < E4; c += 32) {
-          const float4 k = krow[c], w = v4[c];
+          const float4 k = load4(krow + 4 * c), w = v4[c];
           float4 u[kRows];
 #pragma unroll
           for (int r = 0; r < kRows; ++r)
@@ -186,7 +195,7 @@ attention_fwd(const float* __restrict__ keys, const float* __restrict__ feats,
   for (int i = tid; i < R * D4; i += kThreads) part[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();
   for (int t = nk; t < ntiles; ++t) {
-    const float4* tile = reinterpret_cast<const float4*>(ring.wait(t));
+    const T* tile = ring.wait<T>(t);
     const int i0 = (t - nk) * lay.tf, rows = min(lay.tf, own.n - i0);
     for (int r0 = 0; r0 < R; r0 += kRows) {
       for (int c = tid; c < D4; c += kThreads) {
@@ -195,7 +204,7 @@ attention_fwd(const float* __restrict__ keys, const float* __restrict__ feats,
         for (int r = 0; r < kRows; ++r)
           acc[r] = part[static_cast<size_t>(r0 + r) * D4 + c];
         for (int i = 0; i < rows; ++i) {
-          const float4 f = tile[static_cast<size_t>(i) * D4 + c];
+          const float4 f = load4(tile + static_cast<size_t>(i) * D + 4 * c);
 #pragma unroll
           for (int r = 0; r < kRows; ++r) {
             const float a = s_p[(r0 + r) * lay.chunk + i0 + i];
@@ -228,6 +237,29 @@ attention_fwd(const float* __restrict__ keys, const float* __restrict__ feats,
   cluster_sync();  // no block leaves while another reads its shared memory
 }
 
+// The launch of one storage type: an error for what the bulk copies cannot
+// take (rows that are not whole 16-byte units), else the kernel of the
+// largest kRows that divides R.
+template <typename T>
+int launch_fwd(const T* keys, const T* feats, const float* u_h,
+               const float* v, const float* b_v, float* ctx, float* alpha,
+               int images, int R, int L, int E, int D, cudaStream_t stream) {
+  constexpr int kGroup = 16 / sizeof(T);  // elements in 16 bytes
+  if (E % kGroup != 0 || D % kGroup != 0 || images < 1 || L < 1 || R < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const FwdLayout lay(R, L, E, D, sizeof(T));
+#define SAT_LAUNCH_FWD(ROWS)                                                  \
+  return launch_clusters(attention_fwd<T, ROWS>, images, lay.bytes, stream,  \
+                         keys, feats, u_h, v, b_v, ctx, alpha, R, L, E, D, lay)
+  if (R % 8 == 0) SAT_LAUNCH_FWD(8);
+  if (R % 5 == 0) SAT_LAUNCH_FWD(5);
+  if (R % 4 == 0) SAT_LAUNCH_FWD(4);
+  if (R % 3 == 0) SAT_LAUNCH_FWD(3);
+  if (R % 2 == 0) SAT_LAUNCH_FWD(2);
+  SAT_LAUNCH_FWD(1);
+#undef SAT_LAUNCH_FWD
+}
+
 }  // namespace
 
 // keys (B, L, E), feats (B, L, D), u_h (B*R, E), v (E,), b_v (1,), all f32
@@ -239,18 +271,19 @@ extern "C" int sat_attention_fwd_f32(const float* keys, const float* feats,
                                      const float* b_v, float* ctx, float* alpha,
                                      int images, int rows_per_image, int L,
                                      int E, int D, cudaStream_t stream) {
-  if (E % 4 != 0 || D % 4 != 0 || images < 1 || L < 1 || rows_per_image < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const FwdLayout lay(rows_per_image, L, E, D);
-  const int R = rows_per_image;
-#define SAT_LAUNCH_FWD(ROWS)                                                  \
-  return launch_clusters(attention_fwd<ROWS>, images, lay.bytes, stream,     \
-                         keys, feats, u_h, v, b_v, ctx, alpha, R, L, E, D, lay)
-  if (R % 8 == 0) SAT_LAUNCH_FWD(8);
-  if (R % 5 == 0) SAT_LAUNCH_FWD(5);
-  if (R % 4 == 0) SAT_LAUNCH_FWD(4);
-  if (R % 3 == 0) SAT_LAUNCH_FWD(3);
-  if (R % 2 == 0) SAT_LAUNCH_FWD(2);
-  SAT_LAUNCH_FWD(1);
-#undef SAT_LAUNCH_FWD
+  return launch_fwd(keys, feats, u_h, v, b_v, ctx, alpha, images,
+                    rows_per_image, L, E, D, stream);
+}
+
+// As sat_attention_fwd_f32 with keys and feats in bf16, E and D multiples
+// of 8; everything else f32.
+extern "C" int sat_attention_fwd_bf16(const __nv_bfloat16* keys,
+                                      const __nv_bfloat16* feats,
+                                      const float* u_h, const float* v,
+                                      const float* b_v, float* ctx,
+                                      float* alpha, int images,
+                                      int rows_per_image, int L, int E, int D,
+                                      cudaStream_t stream) {
+  return launch_fwd(keys, feats, u_h, v, b_v, ctx, alpha, images,
+                    rows_per_image, L, E, D, stream);
 }

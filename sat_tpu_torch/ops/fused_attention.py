@@ -49,6 +49,22 @@ utils/graphs.py's warm-up run makes it. `attention_fwd.launches` and
 `attention_bwd.launches` count on the host, where the wrappers run: a
 capture counts once and its replays never, so on a graph path count the
 kernels' rows in a profile instead.
+
+bf16: keys and features may both be stored in bfloat16 (sat_tpu's
+`--bf16-attention` and bf16 decode), and every other input stays float32.
+The middle is computed in float32 on every device: the tanh, the scores,
+the softmax and the context, from the keys and features widened exactly,
+which is what sat_tpu's Pallas kernels compute on bf16 inputs. On the card
+the bf16 variants of the two kernels (sat_attention_{fwd,bwd}_bf16, the
+same CUDA templated on the storage type) read half the bytes a row; on the
+CPU the plain forms widen first. ctx, alpha, du_h, dv and db_v are float32;
+the backward returns dkeys (and dfeats) in the dtype of keys (features),
+rounded to nearest even from the float32 value, the bits autograd would
+make of a float32 dkeys on its way back through the cast of the keys. A
+bf16 call needs E and D multiples of 8 (16-byte rows). Any other mix of
+dtypes raises: nothing is widened quietly to run the float32 kernel. The
+bf16 launches are counted apart, in `attention_fwd.launches_bf16` and
+`attention_bwd.launches_bf16`.
 """
 from __future__ import annotations
 
@@ -75,21 +91,40 @@ def _shapes(keys, feats, u_h, v, b_v, rows_per_image):
     return B, R, L, E, D
 
 
+GRID_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _grid_dtype(name, keys, feats, others):
+    """The storage dtype of keys and features: both float32 or both
+    bfloat16, with every other tensor float32."""
+    if (keys.dtype != feats.dtype or keys.dtype not in GRID_DTYPES
+            or any(t.dtype != torch.float32 for t in others)):
+        raise TypeError(
+            f"{name} takes keys and feats both float32 or both bfloat16 and "
+            f"the rest float32, got keys {keys.dtype}, feats {feats.dtype}, "
+            f"others {sorted({str(t.dtype) for t in others})}")
+    return keys.dtype
+
+
 def _check_layout(name, keys, feats):
-    """What the CUDA kernels' bulk copies need: rows of E and D floats that
-    are whole 16-byte units, from 16-byte aligned starts."""
+    """What the CUDA kernels' bulk copies need: rows of E and D elements
+    that are whole 16-byte units (E and D multiples of 4 in float32, of 8
+    in bf16), from 16-byte aligned starts."""
     E, D = keys.shape[2], feats.shape[2]
-    if E % 4 or D % 4:
-        raise ValueError(f"{name} on CUDA wants E and D multiples of 4, got "
-                         f"E = {E}, D = {D}")
+    group = 16 // keys.element_size()
+    if E % group or D % group:
+        raise ValueError(f"{name} on CUDA wants E and D multiples of "
+                         f"{group} for {keys.dtype}, got E = {E}, D = {D}")
     if keys.data_ptr() % 16 or feats.data_ptr() % 16:
         raise ValueError(f"{name} on CUDA wants keys and feats 16-byte "
                          f"aligned")
 
 
 def attention_plain(keys, feats, u_h, v, b_v, rows_per_image: int = 1):
-    """(ctx (B*R, D), alpha (B*R, L)) by plain tensor ops."""
+    """(ctx (B*R, D), alpha (B*R, L)) by plain tensor ops, in float32 from
+    keys and features widened (module note)."""
     B, R, L, E, D = _shapes(keys, feats, u_h, v, b_v, rows_per_image)
+    keys, feats = keys.float(), feats.float()
     att = torch.tanh(keys[:, None] + u_h.view(B, R, 1, E))     # (B, R, L, E)
     e = att @ v + b_v                                           # (B, R, L)
     alpha = torch.softmax(e, dim=-1)
@@ -98,14 +133,14 @@ def attention_plain(keys, feats, u_h, v, b_v, rows_per_image: int = 1):
 
 
 def attention_fwd(keys, feats, u_h, v, b_v, rows_per_image: int = 1):
-    """keys (B, L, E), feats (B, L, D), u_h (B*R, E), v (E,), b_v (1,), all
-    f32 -> (ctx (B*R, D), alpha (B*R, L)), as `attention_plain`. A CUDA
-    graph may capture it once its shape has launched outside the capture
-    (module note)."""
+    """keys (B, L, E), feats (B, L, D) both f32 or both bf16, u_h (B*R, E),
+    v (E,), b_v (1,) f32 -> (ctx (B*R, D), alpha (B*R, L)) f32, as
+    `attention_plain`. A CUDA graph may capture it once its shape has
+    launched outside the capture (module note)."""
     B, R, L, E, D = _shapes(keys, feats, u_h, v, b_v, rows_per_image)
     tensors = (keys, feats, u_h, v, b_v)
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("attention_fwd is float32-only")
+    bf16 = _grid_dtype("attention_fwd", keys, feats,
+                       (u_h, v, b_v)) == torch.bfloat16
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"attention_fwd inputs on several devices: {devices}")
@@ -121,17 +156,24 @@ def attention_fwd(keys, feats, u_h, v, b_v, rows_per_image: int = 1):
     ctx = torch.empty((B * R, D), dtype=torch.float32, device=dev)
     alpha = torch.empty((B * R, L), dtype=torch.float32, device=dev)
     lib = _kernels.library()
+    entry = (lib.sat_attention_fwd_bf16 if bf16
+             else lib.sat_attention_fwd_f32)
     with torch.cuda.device(dev):
-        rc = lib.sat_attention_fwd_f32(
+        rc = entry(
             keys.data_ptr(), feats.data_ptr(), u_h.data_ptr(), v.data_ptr(),
             b_v.data_ptr(), ctx.data_ptr(), alpha.data_ptr(),
             B, R, L, E, D, torch.cuda.current_stream().cuda_stream)
     _kernels.check_launch("attention_fwd", rc)
-    attention_fwd.launches += 1
+    if bf16:
+        attention_fwd.launches_bf16 += 1
+    else:
+        attention_fwd.launches += 1
     return ctx, alpha
 
 
-attention_fwd.launches = 0   # host calls that launch; not CPU, not replays
+# host calls that launch the f32 and the bf16 kernel; not CPU, not replays
+attention_fwd.launches = 0
+attention_fwd.launches_bf16 = 0
 
 
 def _bwd_check(keys, feats, u_h, v, alpha, dctx, dalpha):
@@ -155,15 +197,21 @@ def attention_bwd_plain(keys, feats, u_h, v, alpha, dctx, dalpha,
                         want_dfeats: bool = True):
     """The VJP of `attention_plain` at R = 1, by plain tensor ops:
     (dkeys (B, L, E), dfeats (B, L, D) or None, du_h (B, E), dv (E,),
-    db_v (1,)). The tanh is recomputed from keys and u_h."""
+    db_v (1,)). The tanh is recomputed from keys and u_h. In float32 from
+    keys and features widened; dkeys and dfeats are rounded to their
+    dtypes (module note)."""
     _bwd_check(keys, feats, u_h, v, alpha, dctx, dalpha)
+    grid_dtype = keys.dtype
+    keys, feats = keys.float(), feats.float()
     att = torch.tanh(keys + u_h[:, None, :])                     # (B, L, E)
     dfeats = alpha[:, :, None] * dctx[:, None, :] if want_dfeats else None
     g = torch.bmm(feats, dctx[:, :, None])[:, :, 0] + dalpha       # (B, L)
     de = alpha * (g - (alpha * g).sum(dim=1, keepdim=True))       # (B, L)
     dpre = (de[:, :, None] * v) * (1.0 - att * att)
     dv = (att * de[:, :, None]).sum(dim=(0, 1))
-    return dpre, dfeats, dpre.sum(dim=1), dv, de.sum().reshape(1)
+    return (dpre.to(grid_dtype),
+            None if dfeats is None else dfeats.to(grid_dtype),
+            dpre.sum(dim=1), dv, de.sum().reshape(1))
 
 
 def attention_bwd(keys, feats, u_h, v, alpha, dctx, dalpha,
@@ -174,8 +222,8 @@ def attention_bwd(keys, feats, u_h, v, alpha, dctx, dalpha,
     note)."""
     B, L, E, D = _bwd_check(keys, feats, u_h, v, alpha, dctx, dalpha)
     tensors = (keys, feats, u_h, v, alpha, dctx, dalpha)
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("attention_bwd is float32-only")
+    grid_dtype = _grid_dtype("attention_bwd", keys, feats,
+                             (u_h, v, alpha, dctx, dalpha))
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"attention_bwd inputs on several devices: {devices}")
@@ -190,25 +238,34 @@ def attention_bwd(keys, feats, u_h, v, alpha, dctx, dalpha,
         raise ValueError("attention_bwd wants contiguous inputs")
     _check_layout("attention_bwd", keys, feats)
     f32 = {"dtype": torch.float32, "device": dev}
-    dkeys = torch.empty((B, L, E), **f32)
-    dfeats = torch.empty((B, L, D), **f32) if want_dfeats else None
+    grid = {"dtype": grid_dtype, "device": dev}
+    dkeys = torch.empty((B, L, E), **grid)
+    dfeats = torch.empty((B, L, D), **grid) if want_dfeats else None
     du_h = torch.empty((B, E), **f32)
     dv_part = torch.empty((B, E), **f32)      # one partial per image, summed
     dbv_part = torch.empty((B,), **f32)       # below in a fixed order
     lib = _kernels.library()
+    bf16 = grid_dtype == torch.bfloat16
+    entry = (lib.sat_attention_bwd_bf16 if bf16
+             else lib.sat_attention_bwd_f32)
     with torch.cuda.device(dev):
-        rc = lib.sat_attention_bwd_f32(
+        rc = entry(
             keys.data_ptr(), feats.data_ptr(), u_h.data_ptr(), v.data_ptr(),
             alpha.data_ptr(), dctx.data_ptr(), dalpha.data_ptr(),
             dkeys.data_ptr(), dfeats.data_ptr() if want_dfeats else None,
             du_h.data_ptr(), dv_part.data_ptr(), dbv_part.data_ptr(),
             B, L, E, D, torch.cuda.current_stream().cuda_stream)
     _kernels.check_launch("attention_bwd", rc)
-    attention_bwd.launches += 1
+    if bf16:
+        attention_bwd.launches_bf16 += 1
+    else:
+        attention_bwd.launches += 1
     return dkeys, dfeats, du_h, dv_part.sum(dim=0), dbv_part.sum().reshape(1)
 
 
-attention_bwd.launches = 0   # host calls that launch; not CPU, not replays
+# host calls that launch the f32 and the bf16 kernel; not CPU, not replays
+attention_bwd.launches = 0
+attention_bwd.launches_bf16 = 0
 
 
 class FusedAttention(torch.autograd.Function):

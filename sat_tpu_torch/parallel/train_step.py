@@ -22,6 +22,12 @@ a torch.Generator in place of the rng (dropout; None turns it off). The
 K-step blocks (`make_bank_train_block`, `make_bank_eval_block`) run K
 steps in one dispatch: on the card, K replays of one captured step
 (utils/graphs.py), as sat_tpu runs them in one `lax.scan`.
+
+bf16: a feature bank stored in bf16 (`--bank-dtype bfloat16`) is read
+through `bank_rows`, which widens the gathered rows to f32 inside the step
+(and inside a captured block), so the decoder computes in f32 from
+bf16-rounded features. `bf16_encoder` runs the image path's encoder in
+bf16 (models/encoder.py).
 """
 
 from __future__ import annotations
@@ -142,12 +148,20 @@ def _update(state: TrainState, loss) -> None:
     state.step += 1
 
 
-def _features(enc, network: str, imgs, from_features: bool, device):
+def _features(enc, network: str, imgs, from_features: bool, device,
+              bf16_encoder: bool = False):
     if from_features:
         return torch.as_tensor(imgs, dtype=torch.float32, device=device)
     # encoder_forward runs in inference mode; clone() makes a normal
     # tensor that autograd may save
-    return encoder_forward(enc, network, imgs).clone()
+    return encoder_forward(enc, network, imgs,
+                           torch.bfloat16 if bf16_encoder else None).clone()
+
+
+def bank_rows(feat_bank, img_idx):
+    """The bank's rows `img_idx` in f32: a bf16 bank is widened right
+    after the gather (a no-op for an f32 bank)."""
+    return feat_bank[img_idx].float()
 
 
 def _device(state_or_decoder) -> torch.device:
@@ -156,17 +170,18 @@ def _device(state_or_decoder) -> torch.device:
 
 
 def make_train_step(dcfg: DecoderConfig, network: str, alpha_c: float,
-                    from_features: bool = False,
+                    bf16_encoder: bool = False, from_features: bool = False,
                     rep_penalty_beta: float = 0.0):
     """`step(state, encoder, imgs, captions, lr, generator, row_mask=None)
     -> (state, metrics)`. With `from_features` the third argument is the
-    annotation grid (B, L, D) and the encoder is skipped. (sat_tpu's
-    `bf16_encoder` is not ported: ROADMAP.md, Queue 1, bf16.)"""
+    annotation grid (B, L, D) and the encoder is skipped; else the encoder
+    runs in bf16 under `bf16_encoder`."""
 
     def step_fn(state: TrainState, encoder, imgs, captions, lr, generator,
                 row_mask=None):
         dev = _device(state)
-        features = _features(encoder, network, imgs, from_features, dev)
+        features = _features(encoder, network, imgs, from_features, dev,
+                             bf16_encoder)
         captions = torch.as_tensor(captions, device=dev)
         loss, (metrics, _, _) = _loss_and_metrics(
             dcfg, alpha_c, state.decoder, features, captions, generator, True,
@@ -182,8 +197,8 @@ def _bank_step(dcfg, alpha_c, rep_penalty_beta, state: TrainState,
                feat_bank, caps_bank, img_idx, row_idx, generator, row_mask):
     """One bank train step at the optimizer's lr: its metrics."""
     loss, (metrics, _, _) = _loss_and_metrics(
-        dcfg, alpha_c, state.decoder, feat_bank[img_idx], caps_bank[row_idx],
-        generator, True, row_mask, rep_penalty_beta)
+        dcfg, alpha_c, state.decoder, bank_rows(feat_bank, img_idx),
+        caps_bank[row_idx], generator, True, row_mask, rep_penalty_beta)
     _update(state, loss)
     return metrics
 
@@ -191,7 +206,8 @@ def _bank_step(dcfg, alpha_c, rep_penalty_beta, state: TrainState,
 def make_bank_train_step(dcfg: DecoderConfig, alpha_c: float,
                          rep_penalty_beta: float = 0.0):
     """Feature-bank step: the frozen encoder's grids of every unique image
-    live in device memory, and a step gathers its rows by index.
+    live in device memory, f32 or bf16, and a step gathers its rows by
+    index.
     `step(state, feat_bank (U, L, D), caps_bank (N, T), img_idx (B,),
     row_idx (B,), lr, generator, row_mask=None) -> (state, metrics)`."""
 
@@ -219,21 +235,22 @@ def make_bank_eval_step(dcfg: DecoderConfig, alpha_c: float):
 
     def eval_fn(decoder, feat_bank, caps_bank, img_idx, row_idx,
                 row_mask=None):
-        return _eval(dcfg, alpha_c, decoder, feat_bank[img_idx],
+        return _eval(dcfg, alpha_c, decoder, bank_rows(feat_bank, img_idx),
                      caps_bank[row_idx], row_mask)
 
     return eval_fn
 
 
 def make_eval_step(dcfg: DecoderConfig, network: str, alpha_c: float,
-                   from_features: bool = False):
+                   bf16_encoder: bool = False, from_features: bool = False):
     """`eval(decoder, encoder, imgs, captions, row_mask=None) -> (metrics,
-    pred_tokens (B, T), alphas (B, T, L))`; `from_features` as in
-    make_train_step."""
+    pred_tokens (B, T), alphas (B, T, L))`; `bf16_encoder` and
+    `from_features` as in make_train_step."""
 
     def eval_fn(decoder, encoder, imgs, captions, row_mask=None):
         dev = _device(decoder)
-        features = _features(encoder, network, imgs, from_features, dev)
+        features = _features(encoder, network, imgs, from_features, dev,
+                             bf16_encoder)
         return _eval(dcfg, alpha_c, decoder, features,
                      torch.as_tensor(captions, device=dev), row_mask)
 
@@ -355,7 +372,8 @@ def make_bank_eval_block(dcfg: DecoderConfig, alpha_c: float):
         K = img_idx.shape[0]
 
         def step(ii, ri, mask):
-            metrics, tokens, _ = _eval(dcfg, alpha_c, decoder, feat_bank[ii],
+            metrics, tokens, _ = _eval(dcfg, alpha_c, decoder,
+                                       bank_rows(feat_bank, ii),
                                        caps_bank[ri], mask)
             return metrics, tokens
 

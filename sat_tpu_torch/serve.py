@@ -22,9 +22,10 @@ log2(--max-batch) + 1; the padded rows' results are dropped.
 The flags are serve.py's for beam and greedy decode; --device (default
 cuda) is added. Sampling's flags (--temperature, --top-k, --top-p, --seed)
 and --bert-vocab come with sample decode and BERT, and are rejected until
-then. Flags for what the port does not have yet (--decode sample,
---fast-topk, --bf16-decode, --mesh-data > 1, --no-pallas-topk, BERT
-checkpoints) raise at startup.
+then. --bf16-decode runs the encoder in bf16 and the beam on a bf16 grid
+(engine/serving.py). Flags for what the port does not have yet (--decode
+sample, --fast-topk, --mesh-data > 1, --no-pallas-topk, BERT checkpoints)
+raise at startup.
 
 Shutdown: SIGTERM/SIGINT, or a client line {"cmd": "shutdown"}.
 """

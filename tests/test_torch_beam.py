@@ -110,10 +110,10 @@ def test_greedy_matches_sat_tpu(seed):
     np.testing.assert_allclose(to_np(ga), np.asarray(alphas), atol=1e-5)
 
 
-@pytest.mark.parametrize("option", ["fast_topk", "bf16", "mesh_data"])
+@pytest.mark.parametrize("option", ["fast_topk", "mesh_data"])
 def test_unported_options_raise(option):
     _, _, dec = decoder_pair(V, D, True, True)
-    kwargs = {"fast_topk": True, "bf16": True, "mesh_data": 2}
+    kwargs = {"fast_topk": True, "mesh_data": 2}
     with pytest.raises(NotImplementedError):
         port_beam(dec, torch.zeros(1, L, D), 3,
                   **{option: kwargs[option]})

@@ -544,3 +544,246 @@ def test_eval_block_equals_per_batch_steps(cuda):
         assert torch.equal(tok, tokens[i])
         for k, v in m.items():
             assert _same_bits(v, metrics[k][i]), k
+
+
+# ---------------------------------------------------------------- bf16
+# The bf16 variants of the attention kernels: keys and features stored in
+# bf16, everything else f32, the math f32. Against the plain forms on the
+# same bf16 inputs: ctx, alpha and du_h as the f32 kernels (f32 math on
+# both sides); dkeys and dfeats, written in bf16, within one bf16 unit in
+# the last place (2^-7 of the value) plus the f32 tolerance, where the two
+# f32 values round to neighbours.
+
+BF16 = torch.bfloat16
+
+
+def _assert_bf16_close(got, want, name):
+    assert got.dtype == want.dtype == BF16, name
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= 2 ** -7 * want.float().abs() + 1e-5).all()), name
+    assert float((err > 0).float().mean()) < 0.01, name
+
+
+@pytest.mark.parametrize("B,R,L,E,D", [(2, 1, 9, 64, 48), (4, 3, 16, 64, 32),
+                                       (128, 5, 196, 512, 512),
+                                       (64, 1, 196, 512, 512),
+                                       (2, 1, 3, 64, 48), (3, 5, 3, 64, 32),
+                                       (4, 5, 49, 512, 2208),
+                                       (640, 1, 196, 512, 512)])
+def test_attention_bf16_kernel_matches_plain(cuda, B, R, L, E, D):
+    keys, feats, u_h, v, b_v = _fwd_inputs(B * R + 1, B, R, L, E, D, cuda)
+    keys, feats = keys.to(BF16), feats.to(BF16)
+    before = (attention_fwd.launches, attention_fwd.launches_bf16)
+    ctx, alpha = attention_fwd(keys, feats, u_h, v, b_v, R)
+    assert (attention_fwd.launches, attention_fwd.launches_bf16) == (
+        before[0], before[1] + 1)
+    pctx, palpha = attention_plain(keys, feats, u_h, v, b_v, R)
+    torch.cuda.synchronize()
+    assert ctx.dtype == alpha.dtype == torch.float32
+    np.testing.assert_allclose(ctx.cpu().numpy(), pctx.cpu().numpy(),
+                               atol=1e-5)
+    np.testing.assert_allclose(alpha.cpu().numpy(), palpha.cpu().numpy(),
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("want_dfeats", [True, False],
+                         ids=["dfeats", "no-dfeats"])
+@pytest.mark.parametrize("B,L,E,D", [(1, 5, 16, 8), (3, 9, 64, 48),
+                                     (64, 196, 512, 512), (2, 3, 64, 48),
+                                     (4, 49, 512, 2208)])
+def test_attention_bwd_bf16_kernel_matches_plain(cuda, B, L, E, D,
+                                                 want_dfeats):
+    keys, feats, u_h, v, _, alpha, dctx, dalpha = _bwd_inputs(
+        B * L + 1, B, L, E, D, cuda)
+    args = (keys.to(BF16), feats.to(BF16), u_h, v, alpha, dctx, dalpha)
+    before = (attention_bwd.launches, attention_bwd.launches_bf16)
+    got = attention_bwd(*args, want_dfeats=want_dfeats)
+    assert (attention_bwd.launches, attention_bwd.launches_bf16) == (
+        before[0], before[1] + 1)
+    want = attention_bwd_plain(*args, want_dfeats=want_dfeats)
+    torch.cuda.synchronize()
+    _assert_bf16_close(got[0], want[0], "dkeys")
+    if want_dfeats:
+        _assert_bf16_close(got[1], want[1], "dfeats")
+    else:
+        assert got[1] is None
+    np.testing.assert_allclose(got[2].cpu().numpy(), want[2].cpu().numpy(),
+                               atol=1e-5)
+    _assert_sum_close(got[3], want[3])
+    _assert_sum_close(got[4], want[4],
+                      _de_max(args[1].float(), alpha, dctx, dalpha))
+
+
+def test_bf16_launches_give_the_same_bits(cuda):
+    for R in (5, 1):
+        keys, feats, u_h, v, b_v = _fwd_inputs(R, 16, R, 196, 512, 512, cuda)
+        args = (keys.to(BF16), feats.to(BF16), u_h, v, b_v, R)
+        first, second = attention_fwd(*args), attention_fwd(*args)
+        assert all(map(_same_bits, first, second)), R
+    keys, feats, u_h, v, _, alpha, dctx, dalpha = _bwd_inputs(
+        5, 64, 196, 512, 512, cuda)
+    args = (keys.to(BF16), feats.to(BF16), u_h, v, alpha, dctx, dalpha)
+    first, second = attention_bwd(*args), attention_bwd(*args)
+    for name, a, b in zip(("dkeys", "dfeats", "du_h", "dv", "db_v"), first,
+                          second):
+        assert torch.equal(a, b), name
+
+
+def test_bf16_wrappers_refuse_misaligned_and_mixed_input(cuda):
+    """bf16 rows must be whole 16-byte units (E and D multiples of 8) from
+    16-byte aligned starts; keys and features share one dtype, the rest is
+    f32. Nothing is widened quietly to run the f32 kernel."""
+    keys, feats, u_h, v, b_v = _fwd_inputs(0, 2, 1, 5, 12, 16, cuda)
+    alpha = torch.full((2, 5), 0.2, device=cuda)
+    before = (attention_fwd.launches, attention_fwd.launches_bf16,
+              attention_bwd.launches, attention_bwd.launches_bf16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        attention_fwd(keys.to(BF16), feats.to(BF16), u_h, v, b_v)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        attention_bwd(keys.to(BF16), feats.to(BF16), u_h, v, alpha,
+                      torch.zeros((2, 16), device=cuda), alpha)
+    base = torch.zeros(2 * 5 * 16 + 4, device=cuda, dtype=BF16)
+    shifted = base[4:].view(2, 5, 16)           # 8 bytes past a 16-byte unit
+    keys16, feats16, u16, v16, bv16 = _fwd_inputs(0, 2, 1, 5, 16, 16, cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        attention_fwd(shifted, feats16.to(BF16), u16, v16, bv16)
+    with pytest.raises(TypeError):
+        attention_fwd(keys16.to(BF16), feats16, u16, v16, bv16)
+    with pytest.raises(TypeError):
+        attention_fwd(keys16.to(BF16), feats16.to(BF16), u16.to(BF16), v16,
+                      bv16)
+    assert (attention_fwd.launches, attention_fwd.launches_bf16,
+            attention_bwd.launches, attention_bwd.launches_bf16) == before
+
+
+def test_fused_attention_bf16_grads_on_the_card(cuda):
+    """FusedAttention on bf16 keys and features (the --bf16-attention
+    unroll), card against the CPU's plain forms: dkeys in bf16."""
+    keys, feats, u_h, v, b_v, alpha, dctx, dalpha = _bwd_inputs(
+        7, 16, 196, 512, 512, "cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        leaves = [keys.to(BF16).to(dev).requires_grad_(),
+                  feats.to(BF16).to(dev), u_h.to(dev).requires_grad_(),
+                  v.to(dev).requires_grad_(), b_v.to(dev).requires_grad_()]
+        inputs = [t for t in leaves if t.requires_grad]
+        out[dev] = torch.autograd.grad(FusedAttention.apply(*leaves), inputs,
+                                       (dctx.to(dev), dalpha.to(dev)))
+    cpu, gpu = out["cpu"], [g.cpu() for g in out["cuda"]]
+    _assert_bf16_close(gpu[0], cpu[0], "dkeys")
+    np.testing.assert_allclose(gpu[1].numpy(), cpu[1].numpy(), atol=1e-5)
+    _assert_sum_close(gpu[2], cpu[2])
+    _assert_sum_close(gpu[3], cpu[3], _de_max(feats.to(BF16).float(), alpha,
+                                              dctx, dalpha))
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_bf16_bank_train_step_on_the_card_matches_the_cpu(cuda, remat):
+    """--bf16-attention with a bf16 bank: one Adam step, card against CPU,
+    and the launches: T bf16 forward (2T under remat) and T bf16 backward,
+    no f32 attention launch."""
+    import dataclasses
+
+    from sat_tpu_torch.compat.jax_params import (decoder_from_jax,
+                                                 decoder_to_jax)
+    from sat_tpu_torch.parallel.train_step import (init_train_state,
+                                                   make_bank_train_step)
+
+    cfg, fb, cb, img_idx, row_idx, _ = _bank_case(cuda, remat, 0.0)
+    cfg = dataclasses.replace(cfg, bf16_attention=True)
+    from sat_tpu_torch.models.decoder import init_decoder_params
+    flat = init_decoder_params(cfg, torch.Generator().manual_seed(0))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state = init_train_state(decoder_from_jax(flat, cfg, dev,
+                                                  trainable=True))
+        counts0 = (attention_fwd.launches, attention_fwd.launches_bf16,
+                   attention_bwd.launches, attention_bwd.launches_bf16)
+        state, m = make_bank_train_step(cfg, 1.0)(
+            state, fb.to(BF16).to(dev), cb.to(dev), img_idx[0].to(dev),
+            row_idx[0].to(dev), 1e-3, None)
+        counts = (attention_fwd.launches, attention_fwd.launches_bf16,
+                  attention_bwd.launches, attention_bwd.launches_bf16)
+        out[dev] = (float(m["loss"]), decoder_to_jax(state.decoder),
+                    tuple(a - b for a, b in zip(counts, counts0)))
+    T = cb.shape[1] - 1
+    assert out["cpu"][2] == (0, 0, 0, 0)
+    assert out["cuda"][2] == (0, (2 if remat else 1) * T, 0, T)
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    for name, w in out["cpu"][1].items():
+        np.testing.assert_allclose(out["cuda"][1][name], w, atol=3e-4,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("B", [1, 7, 128])
+def test_graph_bf16_beam_equals_eager_and_keeps_apart_from_f32(cuda, B):
+    """The bf16 beam's graphs give its eager bits, dedup and flat; one
+    GraphCache that decodes f32 and bf16 in turns captures each apart and
+    replays each to its own eager bits."""
+    from sat_tpu_torch.models.beam import beam_search_batched
+    from sat_tpu_torch.utils.graphs import GraphCache
+
+    dec = _small_decoder(cuda)
+    feats = torch.rand((B, 48, 64),
+                       generator=torch.Generator().manual_seed(B)).to(cuda)
+    for dedup in (True, False):
+        eager = {bf: beam_search_batched(dec, feats, 5, dedup=dedup, bf16=bf,
+                                         graphs=None) for bf in (False, True)}
+        assert not all(map(_same_bits, eager[False], eager[True]))
+        cache = GraphCache()
+        captures = []
+        for bf in (False, True, False, True):
+            graph = beam_search_batched(dec, feats, 5, dedup=dedup, bf16=bf,
+                                        graphs=cache)
+            for name, a, b in zip(graph._fields, eager[bf], graph):
+                assert _same_bits(a, b), (dedup, bf, name)
+            captures.append(cache.captures)
+        assert captures[0] < captures[1] == captures[2] == captures[3]
+
+
+def test_bf16_train_block_equals_per_batch_steps(cuda):
+    """--bf16-attention and a bf16 bank, remat on, dropout 0.5: two blocks
+    of K = 4 replays against 8 per-batch steps, the same bits."""
+    import dataclasses
+
+    from sat_tpu_torch.parallel.train_step import (make_bank_train_block,
+                                                   make_bank_train_step)
+
+    cfg, fb, cb, img_idx, row_idx, fresh = _bank_case(cuda, True, 0.5)
+    cfg = dataclasses.replace(cfg, bf16_attention=True)
+    fb = fb.to(BF16)
+    (s1, g1), (s2, g2) = fresh(), fresh()
+    step = make_bank_train_step(cfg, 1.0)
+    block = make_bank_train_block(cfg, 1.0)
+    for _ in range(2):
+        for i in range(4):
+            s1, _ = step(s1, fb, cb, img_idx[i], row_idx[i], 1e-3, g1)
+        s2, _ = block(s2, fb, cb, img_idx, row_idx, 1e-3, g2)
+    _assert_same_state(s1, s2, g1, g2)
+
+
+def test_bf16_encoder_on_the_card(cuda):
+    """The bf16 encoder's grid on the card: f32, contiguous, within the
+    bf16 rounding of the f32 grid (sat_tpu's 0.1 mean relative bound) and
+    of the CPU's bf16 grid (cuDNN and the CPU round bf16 at other
+    places)."""
+    from sat_tpu_torch.compat.jax_params import encoder_from_jax
+    from sat_tpu_torch.models.encoder import (encoder_forward,
+                                              init_encoder_params)
+
+    flat = init_encoder_params("vgg19", torch.Generator().manual_seed(0))
+    images = torch.randn((3, 64, 64, 3),
+                         generator=torch.Generator().manual_seed(1))
+    grids = {}
+    for dev in ("cpu", "cuda"):
+        enc = encoder_from_jax(flat, "vgg19", dev)
+        for dt in (None, BF16):
+            grids[dev, dt] = encoder_forward(enc, "vgg19", images, dt).cpu()
+            assert grids[dev, dt].dtype == torch.float32
+            assert grids[dev, dt].is_contiguous()
+
+    def rel(a, b):
+        return float((a - b).abs().mean() / b.abs().mean())
+
+    assert rel(grids["cuda", BF16], grids["cuda", None]) < 0.1
+    assert rel(grids["cuda", BF16], grids["cpu", BF16]) < 1e-2

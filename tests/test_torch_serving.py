@@ -170,8 +170,7 @@ def test_bad_cached_request_is_answered_alone(pool, cached):
 
 
 @pytest.mark.parametrize("flag", [["--decode", "sample"], ["--fast-topk"],
-                                  ["--bf16-decode"], ["--mesh-data", "2"],
-                                  ["--no-pallas-topk"]])
+                                  ["--mesh-data", "2"], ["--no-pallas-topk"]])
 def test_unported_server_flags_raise(ckpt, flag):
     args = build_parser().parse_args(
         ["--model", ckpt["model"], "--device", "cpu"] + flag)

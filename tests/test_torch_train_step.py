@@ -227,8 +227,5 @@ def test_checkpoint_loads_strictly_in_sat_tpu(tmp_path, ado):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="bf16"):
-        Decoder(DecoderConfig(vocab_size=V, encoder_dim=D,
-                              bf16_attention=True))
     with pytest.raises(NotImplementedError, match="BERT"):
         Decoder(DecoderConfig(vocab_size=V, encoder_dim=D, use_bert=True))

@@ -185,7 +185,6 @@ def test_step_lr_matches_sat_tpu():
 @pytest.mark.parametrize("flags", [
     ["--bert"], ["--bert-vocab", "v.txt"], ["--mesh-data", "2"],
     ["--mesh-model", "2"], ["--bert-embeddings", "e.npy"],
-    ["--bf16-attention"], ["--bf16-encoder"], ["--bank-dtype", "bfloat16"],
     ["--wandb"], ["--profile-dir", "p"], ["--debug-nans"]],
     ids=lambda f: f[0])
 def test_unported_training_flags_raise(flags):
