@@ -7,8 +7,9 @@ Run from the root of a checkout. It builds the CUDA kernels from the
 sources in the checkout and drives the port's serving path at the flagship
 width: VGG19 on 128 images of 224 px, then the beam at width 5 with the
 soft-attention + ado decoder (vocab 2633, E = D = 512), weights random from
---seed. Each phase prints one JSON line; a failed check exits non-zero and
-no result line is printed:
+--seed, then the same at the width of the ResNet152 and DenseNet161
+encoders, sample decode, and the CLIs. Each phase prints one JSON line; a
+failed check exits non-zero and no result line is printed:
 
   1. device  — needs CUDA; the card's name and power limit; TF32 off (the
                main path is exact f32)
@@ -94,7 +95,16 @@ no result line is printed:
                where its uninterrupted run does; the first run's
                checkpoint loaded by the port's server code, which
                captions one image; one blocked run with --bf16-attention
-               --bank-dtype bfloat16 --bf16-encoder (bf16 launches only)
+               --bank-dtype bfloat16 --bf16-encoder (bf16 launches only);
+               one blocked run with --network densenet161 (attention_bwd
+               at D = 2208 on the CLI's path)
+  7b. cli    — fresh processes on that dataset: generate_caption on a
+               ResNet152 model (beam and its PNG; --decode sample
+               --sample-seed 3 twice, one caption; the model as a `.pth`
+               of its decoder's state_dict, the `.npz`'s caption),
+               evaluate --split val (an in-process Trainer.validate's
+               rows and BLEU), caption_split at --pipeline-depth 1 and 2
+               (equal JSONL)
 
 Then come the `{"kernels": [...]}` line, the card's name and power limit as
 nvidia-smi gives them, and last `{"ok": true, "device": {...}}`. Details go
@@ -403,6 +413,7 @@ def phase_kernels(dev, gen) -> list[dict]:
     rows.append(attention_fwd_bf16_row(peaks, sfu_s, hz, gen))
     rows.append(attention_bwd_row(peaks, sfu_s, issue_s, tanh_instr, hz, gen,
                                   bf16=True))
+    wide = wide_rows(peaks, sfu_s, issue_s, tanh_instr, hz, gen)
     _SCRATCH.clear()          # the later phases' peak memory excludes it
     emit({"phase": "kernels", "peaks": peaks,
           "checks": {"topk": rows[0]["checks"],
@@ -428,8 +439,15 @@ def phase_kernels(dev, gen) -> list[dict]:
                                for k, v in variants.items()},
           "attention_fwd_bf16_ms": {k: (v["ms"], v["cold_ms"], v["stream_ms"],
                                         v["stream_cold_ms"])
-                                    for k, v in rows[3]["variants"].items()}})
-    return rows
+                                    for k, v in rows[3]["variants"].items()},
+          "wide": {r["name"]: {"shape": r["shape"],
+                               "max_abs_err": r["max_abs_err"],
+                               "ms": r["ms"], "cold_ms": r["cold_ms"],
+                               "bound_ms": r["bound_ms"],
+                               "plain_ms": r["plain_ms"],
+                               "library_ms": r["library_ms"]}
+                   for r in wide}})
+    return rows + wide
 
 
 def same_bits(a, b) -> bool:
@@ -520,19 +538,20 @@ def stream_ms(fn, hz) -> dict:
             "stream_cold_ms": time_ms(fn, hz, cold=True)}
 
 
-def fwd_inputs(gen, Bx: int, R: int):
-    """attention_fwd's arguments at the main path's widths, on the card."""
+def fwd_inputs(gen, Bx: int, R: int, Lx: int = L, Dx: int = D):
+    """attention_fwd's arguments at the main path's widths (or a grid of
+    Lx rows of Dx), on the card."""
     import torch
-    keys = torch.randn((Bx, L, E), generator=gen).cuda()
-    feats = torch.rand((Bx, L, D), generator=gen).cuda()
+    keys = torch.randn((Bx, Lx, E), generator=gen).cuda()
+    feats = torch.rand((Bx, Lx, Dx), generator=gen).cuda()
     u_h = torch.randn((Bx * R, E), generator=gen).cuda()
     v = (torch.randn((E,), generator=gen) / E ** 0.5).cuda()
     b_v = torch.randn((1,), generator=gen).cuda()
     return keys, feats, u_h, v, b_v, R
 
 
-def fwd_bound_parts(Bx: int, R: int, peaks, sfu_s, grid_bytes: int = 4
-                    ) -> dict:
+def fwd_bound_parts(Bx: int, R: int, peaks, sfu_s, grid_bytes: int = 4,
+                    L: int = L, D: int = D) -> dict:
     """The forward's least times in ms: its bytes (inputs read once,
     outputs written once; keys and features `grid_bytes` an element, 2 in
     bf16) over the memory rate, its f32 operations (score add and
@@ -610,7 +629,8 @@ def attention_fwd_bf16_row(peaks, sfu_s, hz, gen) -> dict:
 
 
 def attention_bwd_row(peaks, sfu_s, issue_s, tanh_instr, hz, gen,
-                      bf16: bool = False) -> dict:
+                      bf16: bool = False, L: int = L, D: int = D,
+                      row_name: str | None = None) -> dict:
     """The backward kernel at the training shape (B = 64, R = 1) against
     its plain form, with dfeats asked and not, and two launches against
     each other; its times, warm and cold (the main path does not ask for
@@ -624,7 +644,7 @@ def attention_bwd_row(peaks, sfu_s, issue_s, tanh_instr, hz, gen,
                                                    attention_plain)
     Bt = TRAIN_B
     grid_bytes = 2 if bf16 else 4
-    keys, feats, u_h, v, b_v, _ = fwd_inputs(gen, Bt, 1)
+    keys, feats, u_h, v, b_v, _ = fwd_inputs(gen, Bt, 1, L, D)
     if bf16:
         keys, feats = keys.to(torch.bfloat16), feats.to(torch.bfloat16)
     dctx = torch.randn((Bt, D), generator=gen).cuda()
@@ -692,12 +712,13 @@ def attention_bwd_row(peaks, sfu_s, issue_s, tanh_instr, hz, gen,
     bound_by = ("bytes" if main_parts["bytes"] >= main_parts["f32"]
                 else "operations")
     row = {
-        "name": "attention_bwd_bf16" if bf16 else "attention_bwd",
+        "name": row_name or ("attention_bwd_bf16" if bf16
+                             else "attention_bwd"),
         "route": "cuda",
         "source": "sat_tpu_torch/ops/csrc/attention_bwd.cu",
         "replaces": "sat_tpu/ops/fused_attention.py:107",
-        "shape": f"keys/feats ({Bt}, {L}, {E}){' bf16' if bf16 else ''}, "
-                 f"R=1, dfeats not asked",
+        "shape": f"keys ({Bt}, {L}, {E}), feats ({Bt}, {L}, {D})"
+                 f"{' bf16' if bf16 else ''}, R=1, dfeats not asked",
         "max_abs_err": max(v for e in errors.values() for k, v in e.items()
                            if not k.endswith("_ulps")),
         "errors": errors,
@@ -717,6 +738,113 @@ def attention_bwd_row(peaks, sfu_s, issue_s, tanh_instr, hz, gen,
             "bound_parts_ms": dfeats_parts}}
     row.update(shares(row))
     return row
+
+
+# The grids of the wider encoders: 7 x 7 rows of 2048 (ResNet152) and 2208
+# (DenseNet161) channels
+WIDE = {"resnet152": 2048, "densenet161": 2208}
+L_WIDE = 49
+SAMPLE_KS = (10, 50)        # the sample phase's top-k
+
+
+def fwd_row(name: str, peaks, sfu_s, hz, gen, Lx: int, Dx: int,
+            bf16: bool = False, R: int = BEAM, Bx: int = B) -> dict:
+    """attention_fwd (or its bf16 variant) at (Bx, Lx, E, Dx), R rows an
+    image, against its plain form (ctx atol 1e-5, alpha atol 1e-6, as at
+    the main path's shape), two launches bit for bit, times warm and cold
+    beside the bound."""
+    import torch
+    from sat_tpu_torch.ops.fused_attention import (attention_fwd,
+                                                   attention_plain)
+    keys, feats, u_h, v, b_v, _ = fwd_inputs(gen, Bx, R, Lx, Dx)
+    if bf16:
+        keys, feats = keys.to(torch.bfloat16), feats.to(torch.bfloat16)
+    args = (keys, feats, u_h, v, b_v, R)
+    ctx, alpha = attention_fwd(*args)
+    pctx, palpha = attention_plain(*args)
+    again = attention_fwd(*args)
+    torch.cuda.synchronize()
+    errs = {"ctx": (ctx - pctx).abs().max().item(),
+            "alpha": (alpha - palpha).abs().max().item()}
+    check(errs["ctx"] <= 1e-5 and errs["alpha"] <= 1e-6,
+          f"{name}: errors {errs} above ctx 1e-5, alpha 1e-6")
+    check(all(map(same_bits, (ctx, alpha), again)),
+          f"{name}: two launches differ")
+    parts = fwd_bound_parts(Bx, R, peaks, sfu_s, 2 if bf16 else 4, Lx, Dx)
+    row = {"name": name, "route": "cuda",
+           "source": "sat_tpu_torch/ops/csrc/attention_fwd.cu",
+           "replaces": "sat_tpu/ops/fused_attention.py:42",
+           "shape": f"keys ({Bx}, {Lx}, {E}), feats ({Bx}, {Lx}, {Dx})"
+                    f"{' bf16' if bf16 else ''}, u_h ({Bx * R}, {E}), R={R}",
+           "max_abs_err": max(errs.values()), "errors": errs,
+           "ms": time_ms(lambda: attention_fwd(*args), hz),
+           "cold_ms": time_ms(lambda: attention_fwd(*args), hz, cold=True),
+           "plain_ms": time_ms(lambda: attention_plain(*args), hz),
+           **stream_ms(lambda: (args[0].sum(), args[1].sum()), hz),
+           "library_ms": None,
+           "bound_ms": max(parts["bytes"], parts["f32"]),
+           "bound_by": ("bytes" if parts["bytes"] >= parts["f32"]
+                        else "operations"),
+           "bound_parts_ms": parts}
+    row.update(shares(row))
+    return row
+
+
+def sample_topk_row(k: int, peaks, hz, gen) -> dict:
+    """Top-k at the sampler's rows, (B, VOCAB) f32, at k: the cluster
+    kernel for k <= 16, the k-round kernel above; bit for bit against its
+    plain form on random and adversarial rows, two launches alike, times
+    warm and cold beside the bound and torch.topk's."""
+    import torch
+    from sat_tpu_torch.ops.topk import topk, topk_plain
+    x = torch.randn((B, VOCAB), generator=gen).cuda()
+    adv = torch.randn((B, VOCAB), generator=gen)
+    adv[0] = torch.randint(0, 3, (VOCAB,), generator=gen).float()
+    adv[1] = float("-inf")
+    adv[2, ::5] = float("nan")
+    adv[3, 7:] = float("-inf")
+    adv = adv.cuda()
+    for label, inp in (("random", x), ("adversarial", adv)):
+        kv, ki = topk(inp, k)
+        pv, pi = topk_plain(inp, k)
+        torch.cuda.synchronize()
+        check(torch.equal(ki, pi) and same_bits(kv, pv),
+              f"topk k={k}: differs from its plain form on {label} rows")
+    check(all(map(same_bits, topk(x, k), topk(x, k))),
+          f"topk k={k}: two launches differ")
+    n = x.numel()
+    t_bytes = (4 * n + B * k * (4 + 8)) / peaks["bytes_s"]
+    t_ops = n / peaks["f32_s"]
+    row = {"name": f"topk_k{k}", "route": "cuda",
+           "source": "sat_tpu_torch/ops/csrc/topk.cu",
+           "replaces": "sat_tpu/ops/topk.py:41",
+           "shape": f"x ({B}, {VOCAB}) f32, k={k}", "max_abs_err": 0.0,
+           "ms": time_ms(lambda: topk(x, k), hz),
+           "cold_ms": time_ms(lambda: topk(x, k), hz, cold=True),
+           "plain_ms": time_ms(lambda: topk_plain(x, k), hz),
+           "library_ms": time_ms(lambda: torch.topk(x, k, dim=1), hz),
+           **stream_ms(lambda: torch.amax(x, dim=1), hz),
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    row.update(shares(row))
+    return row
+
+
+def wide_rows(peaks, sfu_s, issue_s, tanh_instr, hz, gen) -> list[dict]:
+    """The kernels at the shapes this slice's paths give them: the forward
+    (f32 and bf16) on the two wider encoders' beam grids, the backward on
+    DenseNet161's training grid, top-k on the sampler's rows."""
+    rows = []
+    for net, Dx in WIDE.items():
+        for bf16 in (False, True):
+            rows.append(fwd_row(
+                f"attention_fwd{'_bf16' if bf16 else ''}_d{Dx}", peaks,
+                sfu_s, hz, gen, L_WIDE, Dx, bf16))
+    rows.append(attention_bwd_row(peaks, sfu_s, issue_s, tanh_instr, hz, gen,
+                                  L=L_WIDE, D=WIDE["densenet161"],
+                                  row_name="attention_bwd_d2208"))
+    rows += [sample_topk_row(k, peaks, hz, gen) for k in SAMPLE_KS]
+    return rows
 
 
 def make_weights(seed: int):
@@ -1146,6 +1274,291 @@ def main_bf16(dcfg, enc, dec, dec_gpu, dec_cpu, images, step32) -> dict:
             "profile": profile}
 
 
+def calibrate_batch_norms(enc, network: str, images) -> None:
+    """Set each batch norm's running statistics to those of its input on
+    `images`, layer by layer (a forward in training mode with momentum 1):
+    random weights then give grids of a trained network's scale, where
+    sat_tpu's identity statistics let ResNet152's residual sums grow to
+    1e10."""
+    import torch.nn.functional as F
+    from sat_tpu_torch.models import encoder as encoder_mod
+
+    plain = encoder_mod._batch_norm
+
+    def batch_stats(w, name, x):
+        return F.batch_norm(x, w[f"{name}.running_mean"],
+                            w[f"{name}.running_var"], w[f"{name}.weight"],
+                            w[f"{name}.bias"], True, 1.0, encoder_mod.BN_EPS)
+
+    encoder_mod._batch_norm = batch_stats
+    try:
+        encoder_mod.encoder_forward(enc, network, images)
+    finally:
+        encoder_mod._batch_norm = plain
+
+
+def wide_weights(seed: int, network: str, images):
+    """(decoder config, seeded and worst-case decoder archives, encoder
+    archive) of a wider encoder's model: sat_tpu's init for the encoder,
+    its batch norms calibrated on 32 of the images on the card; the
+    decoder drawn and its <eos> bias set as make_weights does, at the
+    encoder's width."""
+    import torch
+    from sat_tpu_torch.compat.jax_params import encoder_from_jax, encoder_to_jax
+    from sat_tpu_torch.models.decoder import DecoderConfig, init_decoder_params
+    from sat_tpu_torch.models.encoder import init_encoder_params
+
+    gen = torch.Generator().manual_seed(seed)
+    enc = encoder_from_jax(init_encoder_params(network, gen), network, "cuda")
+    calibrate_batch_norms(enc, network, images[:32])
+    dcfg = DecoderConfig(vocab_size=VOCAB, encoder_dim=WIDE[network],
+                         use_ado=True, use_attention=True)
+    dec = init_decoder_params(dcfg, gen)
+    bias = dec["ado/f_out/b"].copy()
+    bias[STOP_IDS[0]] += EOS_BOOST
+    dec["ado/f_out/b"] = bias
+    worst = dict(dec)
+    bias = bias.copy()
+    bias[list(STOP_IDS)] = -1e9
+    worst["ado/f_out/b"] = bias
+    return dcfg, dec, worst, encoder_to_jax(enc.state_dict(), network)
+
+
+SCORE_RTOL = 1e-4     # card against CPU, a beam's summed logits
+
+
+def rel_diff(a, b) -> float:
+    """Mean relative difference of two grids: mean |a - b| / mean |b|."""
+    return ((a - b).abs().mean() / b.abs().mean()).item()
+
+
+def phase_encoders(seed: int, images) -> dict:
+    """ResNet152 and DenseNet161 on the main path's batch (B = 128 images
+    of 224 px, beam 5, worst case), f32 and bf16 through new caption
+    steps: each step's capturing batch (host launches of top-k and of the
+    forward, f32 or bf16, exactly as phase_main's), a replay under the
+    profiler (no host launch, STEPS of each on the device), equal to the
+    capture bit for bit; wall ms, encoder ms and decode ms in turns f32 and
+    bf16; 2 images on the CPU (seeded weights, beams completing): tokens,
+    lengths and completion equal, scores within SCORE_RTOL; the bf16
+    grid's decode on the CPU too."""
+    import torch
+    from sat_tpu_torch.compat.jax_params import (decoder_from_jax,
+                                                 encoder_from_jax)
+    from sat_tpu_torch.engine.serving import build_caption_step
+    from sat_tpu_torch.models.beam import SYNC_EVERY, beam_search_batched
+    from sat_tpu_torch.models.encoder import encoder_forward
+    from sat_tpu_torch.utils.graphs import GraphCache
+
+    bf16 = torch.bfloat16
+    out, weights = {}, {}
+    for net_i, net in enumerate(WIDE):
+        dcfg, dec_flat, worst_flat, enc_flat = wide_weights(
+            seed + 10 + net_i, net, images)
+        weights[net] = (dcfg, dec_flat, enc_flat)
+        enc = encoder_from_jax(enc_flat, net, "cuda")
+        dec = decoder_from_jax(worst_flat, dcfg, "cuda")
+        res = {"host_launches": {}, "device_launches": {}, "profile": {}}
+        steps = {}
+        for mode, bf in (("f32", False), ("bf16", True)):
+            kname = "attention_fwd_bf16" if bf else "attention_fwd"
+            step = build_caption_step(net, dcfg, BEAM, bf16=bf,
+                                      device="cuda")
+            reset_launches()
+            first = step(enc, dec, images)
+            torch.cuda.synchronize()
+            host = read_launches()
+            want = 2 * sum(beam_blocks(STEPS, SYNC_EVERY))
+            check(host == counts(topk=want, **{kname: want}),
+                  f"{net} {mode}: capturing batch's host launches {host}, "
+                  f"expected {want} of top-k and {kname}")
+            replayed = {}
+            reset_launches()
+            prof = profile_run(lambda: replayed.update(
+                step(enc, dec, images)))
+            calls = prof.get("kernel_calls")
+            check(read_launches() == counts()
+                  and calls == counts(topk=STEPS, **{kname: STEPS}),
+                  f"{net} {mode}: replayed batch's device launches {calls}, "
+                  f"expected {STEPS} of top-k and {kname}, no host launch")
+            check(not [k for k in first
+                       if not same_bits(first[k], replayed[k])],
+                  f"{net} {mode}: a replay differs from the capture")
+            check(tuple(first["tokens"].shape) == (B, 1 + STEPS)
+                  and not first["found"].any().item()
+                  and bool(torch.isfinite(first["alphas"]).all())
+                  and first["alphas"].shape[-1] == L_WIDE,
+                  f"{net} {mode}: tokens, found or alphas wrong")
+            res["host_launches"][mode] = host
+            res["device_launches"][mode] = calls
+            res["profile"][mode] = prof
+            res[f"capture_s_{mode}"] = step.graphs.capture_seconds
+            steps[mode] = step
+        order = ("f32", "bf16", "bf16", "f32", "f32", "bf16")
+        wall = {m: [] for m in steps}
+        for m in order:
+            wall[m].append(host_ms(lambda m=m: steps[m](enc, dec, images)))
+        encode = {m: (lambda dt=dt: encoder_forward(enc, net, images, dt))
+                  for m, dt in (("f32", None), ("bf16", bf16))}
+        enc_ms = {m: [] for m in encode}
+        for m in order:
+            enc_ms[m].append(host_ms(encode[m]))
+        res["profile"]["encoder_f32"] = profile_run(encode["f32"])
+        res["profile"]["encoder_bf16"] = profile_run(encode["bf16"])
+        grids = {m: encode[m]() for m in encode}
+        check(all(bool(torch.isfinite(g).all()) for g in grids.values())
+              and not torch.equal(grids["bf16"], grids["f32"]),
+              f"{net}: a grid is not finite, or the bf16 grid is the f32 "
+              f"one")
+        # recorded, not bounded: these random nets amplify a perturbation
+        # block by block, on the CPU as on the card (cpu_check's
+        # `bf16_grid_rel_diff`); the CPU tests bound the bf16 path against
+        # sat_tpu's on weights that do not (tests/test_torch_encoders.py)
+        rel = rel_diff(grids["bf16"], grids["f32"])
+        cache = GraphCache()
+        decode = {m: (lambda m=m: beam_search_batched(
+            dec, grids[m], BEAM, bf16=m == "bf16", graphs=cache))
+            for m in grids}
+        for m in decode:
+            decode[m]()
+        dec_ms = {m: [] for m in decode}
+        for m in order:
+            dec_ms[m].append(host_ms(decode[m]))
+
+        # 2 images, seeded weights: the card against the CPU
+        n = 2
+        dec_gpu = decoder_from_jax(dec_flat, dcfg, "cuda")
+        enc_cpu = encoder_from_jax(enc_flat, net, "cpu")
+        dec_cpu = decoder_from_jax(dec_flat, dcfg, "cpu")
+        card = build_caption_step(net, dcfg, BEAM, device="cuda",
+                                  graphs=False)(enc, dec_gpu, images[:n])
+        cpu = build_caption_step(net, dcfg, BEAM, device="cpu")(
+            enc_cpu, dec_cpu, images[:n])
+        card16 = beam_search_batched(dec_gpu, grids["bf16"][:n].contiguous(),
+                                     BEAM, bf16=True)
+        cpu16 = beam_search_batched(dec_cpu, grids["bf16"][:n].cpu(), BEAM,
+                                    bf16=True)
+        cpu_check = {"bf16_grid_rel_diff": {
+            "card": rel_diff(grids["bf16"][:n], grids["f32"][:n]),
+            "cpu": rel_diff(encoder_forward(enc_cpu, net, images[:n], bf16),
+                            encoder_forward(enc_cpu, net, images[:n]))}}
+        for label, g, c in (("f32", card, cpu),
+                            ("bf16_grid", card16._asdict(),
+                             cpu16._asdict())):
+            g = {k: v.cpu() for k, v in g.items()}
+            same = all(torch.equal(g[k], c[k])
+                       for k in ("tokens", "length", "found"))
+            found = g["found"] & c["found"]    # others score -inf
+            err = ((g["score"][found] - c["score"][found]).abs()
+                   / c["score"][found].abs().clamp(min=1.0)).max().item() \
+                if found.any() else 0.0
+            cpu_check[label] = {"tokens_equal": same, "score_rel_err": err,
+                                "found": int(g["found"].sum())}
+            check(same and err <= SCORE_RTOL,
+                  f"{net} {label}: card and CPU differ on {n} images "
+                  f"{cpu_check[label]}")
+        res.update({
+            "wall_ms": wall,
+            "captions_per_s": {m: B * 1e3 / statistics.median(v)
+                               for m, v in wall.items()},
+            "encoder_ms": enc_ms, "decode_ms": dec_ms,
+            "grid_mean_rel_diff_bf16": rel,
+            "grid_mean_abs": grids["f32"].abs().mean().item(),
+            "cpu_check": cpu_check})
+        out[net] = res
+        del enc, dec, steps, cache
+        torch.cuda.empty_cache()
+    emit({"phase": "encoders",
+          **{net: {k: v for k, v in r.items() if k != "profile"}
+             | {"device_busy_ms": {k: p.get("device_busy_ms")
+                                   for k, p in r["profile"].items()}}
+             for net, r in out.items()}})
+    out["weights"] = weights
+    return out
+
+
+def phase_sample(dcfg, dec_flat, enc_flat, images, wide) -> dict:
+    """Sample decode at B = 128 through its graph, on VGG19 (the main
+    path's weights) and ResNet152 (the encoders phase's), at T = 0.8,
+    p = 0.9, k = 10 and 50: one generator seed gives the same tokens on
+    two replays and on the eager step, the next seed other captions;
+    k = 1 gives greedy's tokens bit for bit; a replayed batch launches 51
+    top-k (at k) and 51 attention_fwd on the device and nothing from the
+    host; decode ms beside greedy's."""
+    import torch
+    from sat_tpu_torch.compat.jax_params import (decoder_from_jax,
+                                                 encoder_from_jax)
+    from sat_tpu_torch.engine.serving import build_caption_step
+    from sat_tpu_torch.models.beam import (batch_generator, greedy_caption,
+                                           sample_caption)
+    from sat_tpu_torch.models.encoder import encoder_forward
+    from sat_tpu_torch.utils.graphs import GraphCache
+
+    models = {"vgg19": (dcfg, dec_flat, enc_flat),
+              "resnet152": wide["resnet152"]}
+    out = {"device_launches": {}}
+    for net, (cfg, dflat, eflat) in models.items():
+        enc = encoder_from_jax(eflat, net, "cuda")
+        dec = decoder_from_jax(dflat, cfg, "cuda")
+        res = {}
+        for k in SAMPLE_KS:
+            knobs = dict(temperature=0.8, top_k=k, top_p=0.9)
+            step = build_caption_step(net, cfg, BEAM, decode="sample",
+                                      device="cuda", **knobs)
+            eager = build_caption_step(net, cfg, BEAM, decode="sample",
+                                       device="cuda", graphs=False, **knobs)
+
+            def gen(i):
+                return batch_generator(3, i, "cuda")
+
+            runs = [step(enc, dec, images, gen(0)) for _ in range(2)]
+            reset_launches()
+            replayed = {}
+            prof = profile_run(lambda: replayed.update(
+                step(enc, dec, images, gen(0))))
+            calls = prof.get("kernel_calls")
+            check(read_launches() == counts()
+                  and calls == counts(topk=STEPS, attention_fwd=STEPS),
+                  f"sample {net} k={k}: replayed batch's device launches "
+                  f"{calls}, expected {STEPS} of top-k and attention_fwd")
+            out["device_launches"][f"{net}_k{k}"] = calls
+            want = eager(enc, dec, images, gen(0))
+            for got in runs + [replayed]:
+                check(not [f for f in want if not same_bits(want[f], got[f])],
+                      f"sample {net} k={k}: a replay differs from the eager "
+                      f"step for one seed")
+            other = step(enc, dec, images, gen(1))
+            differ = int((other["tokens"] != want["tokens"]).any(1).sum())
+            check(differ > 0, f"sample {net} k={k}: batch seeds (3, 0) and "
+                              f"(3, 1) gave the same captions")
+            ms = [host_ms(lambda: step(enc, dec, images, gen(0)))
+                  for _ in range(3)]
+            res[f"k{k}"] = {"decode_wall_ms": ms,
+                            "images_differing_by_seed": differ,
+                            "device_busy_ms": prof.get("device_busy_ms"),
+                            "tokens_mean_length": float(
+                                want["length"].float().mean())}
+        feats = encoder_forward(enc, net, images)
+        cache = GraphCache()
+        one = sample_caption(dec, feats, batch_generator(5, 0, "cuda"), 0.8,
+                             1, with_alphas=True, graphs=cache)
+        greedy = greedy_caption(dec, feats, with_alphas=True, graphs=cache)
+        check(all(map(same_bits, one, greedy)),
+              f"sample {net}: top_k = 1 differs from greedy")
+        sample_ms, greedy_ms = [], []
+        for _ in range(3):
+            sample_ms.append(host_ms(lambda: sample_caption(
+                dec, feats, batch_generator(5, 0, "cuda"), 0.8, 10, 0.9,
+                graphs=cache)))
+            greedy_ms.append(host_ms(lambda: greedy_caption(
+                dec, feats, graphs=cache)))
+        res["decode_only_ms"] = {"sample_k10": sample_ms,
+                                 "greedy": greedy_ms}
+        out[net] = res
+    emit({"phase": "sample", **out})
+    return out
+
+
 def profile_run(fn, top: int = 10) -> dict:
     """One run of `fn` under torch.profiler: device time by kernel (and
     copy) name, the device's busy share of the wall time, the run's
@@ -1267,6 +1680,10 @@ def phase_serve(dcfg, dec_flat, enc_flat) -> dict:
         cli = cli_f32_check(model, enc_path, img_dir, server, word_dict)
         cli_bf16 = cli_bf16_check(model, enc_path, img_dir, server,
                                   word_dict)
+        cli_sample = [cli_reply(model, enc_path, img_dir, "--decode",
+                                "sample", "--seed", "3", "--temperature",
+                                "0.8", "--top-k", "10", "--top-p", "0.9")
+                      for _ in range(2)]
     captions = [r.get("caption") for r in replies]
     check(all(c is not None for c in captions),
           f"errors in replies: {[r for r in replies if 'caption' not in r]}")
@@ -1293,13 +1710,20 @@ def phase_serve(dcfg, dec_flat, enc_flat) -> dict:
               and reply.get("score") == float(padded["score"][i]),
               f"padded batch, request {i}: {reply} is not row {i} of the "
               f"batch padded to 8")
+    check(cli_sample[0][0] == cli_sample[1][0]
+          and cli_sample[0][0].get("caption") is not None
+          and cli_sample[0][2] == cli_sample[1][2] == 0,
+          f"serve --decode sample --seed 3: two processes answered "
+          f"{cli_sample[0]} and {cli_sample[1]}")
     res = {"phase": "serve", "requests": n, "stats": stats,
            "launches": launches,
            "latency_p50_ms": stats.get("latency_p50_ms"),
            "latency_p99_ms": stats.get("latency_p99_ms"),
            "nonempty_captions": sum(bool(c) for c in captions),
            "padded_batch_found": int(padded["found"][:7].sum()),
-           "cli_f32": cli, "cli_bf16": cli_bf16}
+           "cli_f32": cli, "cli_bf16": cli_bf16,
+           "cli_sample_seed3": [{"reply": r, "seconds": t}
+                                for r, t, _ in cli_sample]}
     emit(res)
     return res
 
@@ -1916,7 +2340,7 @@ def run_diff(dir_a: str, dir_b: str, step: int) -> dict:
     return diffs
 
 
-def phase_entry(enc_flat) -> dict:
+def phase_entry(enc_flat, wide) -> dict:
     """`python -m sat_tpu_torch.train` for one epoch and its test pass on
     a dataset on disk; the same run preempted by SIGUSR1 after its first
     step and finished by `--resume`, which must end with the same decoder
@@ -1979,11 +2403,11 @@ def phase_entry(enc_flat) -> dict:
         enc_path = os.path.join(root, "vgg19.npz")
         np.savez(enc_path, **enc_flat)
 
-        def argv(ckpt_dir, *extra):
+        def argv(ckpt_dir, *extra, encoder=enc_path):
             return ["--data", root, "--tf", "--ado", "--attention",
                     "--cache-features", "--epochs", "1", "--batch-size",
                     str(TRAIN_B), "--log-interval", "1", "--checkpoint-dir",
-                    ckpt_dir, "--encoder-weights", enc_path, *extra]
+                    ckpt_dir, "--encoder-weights", encoder, *extra]
 
         def preempted_run(ckpt_dir, attr, *extra):
             """The run through the Trainer as the CLI configures it; the
@@ -2149,6 +2573,24 @@ def phase_entry(enc_flat) -> dict:
               f"entry: the bf16 run {bf_last}")
         bf_bleu = _bleu_of(bf_log, "EvalMode.TEST")
 
+        # (h) DenseNet161, blocked: the precompute's (rows, 49, 2208) grids
+        # and attention_bwd at D = 2208 on the CLI's path
+        dn_enc = os.path.join(root, "densenet161.npz")
+        np.savez(dn_enc, **wide["densenet161"][2])
+        dn_dir = os.path.join(root, "densenet161")
+        dn_last, dn_seconds, dn_launches, dn_log = timed(train_main, argv(
+            dn_dir, "--network", "densenet161", *k_flag, encoder=dn_enc))
+        check(dn_launches == launches(2 * 2 + 2 + 1, 2),
+              f"entry: densenet161 run's host launches {dn_launches}")
+        check("EvalMode.TEST Epoch: 1\tBLEU-1 (" in dn_log
+              and math.isfinite(dn_last["loss"])
+              and os.path.exists(os.path.join(dn_dir,
+                                              "model_densenet161_1.npz")),
+              f"entry: the densenet161 run {dn_last}")
+        with np.load(os.path.join(dn_dir, "model_densenet161_1.npz")) as arc:
+            check(arc["f_beta/w"].shape == (E, WIDE["densenet161"]),
+                  f"entry: densenet161 decoder f_beta {arc['f_beta/w'].shape}")
+
         model = os.path.join(ckpt_dir, "model_vgg19_1.npz")
         cfg, dcfg, enc, dec, word_dict = load_model(
             model, encoder_weights=enc_path, device="cuda")
@@ -2163,6 +2605,7 @@ def phase_entry(enc_flat) -> dict:
         row = (tokens[:int(cap["length"][0]) + 1].tolist()
                if bool(cap["found"][0]) else [0])
         caption = " ".join(decode_caption(row, word_dict))
+        cli = phase_cli(root, ckpt_dir, enc_path, wide["resnet152"])
     res = {"phase": "entry", "images": ENTRY_IMAGES, "seconds": seconds,
            "launches": run_launches, "test": last, "bleu": bleu,
            "test_seconds": test_seconds[0], "plots": len(plots),
@@ -2181,8 +2624,119 @@ def phase_entry(enc_flat) -> dict:
            "blocked_resume_max_abs_diff": blocked_resume_max_abs_diff,
            "bf16_seconds": bf_seconds, "bf16_launches": bf_launches,
            "bf16_test": bf_last, "bf16_test_bleu": bf_bleu,
+           "densenet161_seconds": dn_seconds,
+           "densenet161_launches": dn_launches, "densenet161_test": dn_last,
            "caption": caption, "log_tail": log.splitlines()[-6:]}
     emit(res)
+    res["cli"] = cli
+    return res
+
+
+def run_cli(module: str, *args, timeout: int = 300):
+    """(stdout, seconds) of a fresh `python -m sat_tpu_torch.<module>`
+    process, which must exit 0."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"sat_tpu_torch.{module}", *args],
+        capture_output=True, text=True, timeout=timeout,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, PYTHONUNBUFFERED="1"))
+    check(proc.returncode == 0,
+          f"cli {module} {' '.join(args)}: exit {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    return proc.stdout, time.perf_counter() - t0
+
+
+def caption_of(stdout: str) -> str:
+    return next(ln for ln in stdout.splitlines()
+                if ln.startswith("Caption: "))
+
+
+def phase_cli(root: str, ckpt_dir: str, enc_path: str, resnet) -> dict:
+    """The CLIs as fresh processes, on the entry phase's dataset and
+    model: generate_caption on a ResNet152 model (beam, its PNG; sample
+    with --sample-seed 3 twice, one caption; the same model as a `.pth`
+    of `torch.save(decoder.state_dict())`, the `.npz`'s caption);
+    evaluate --split val, whose meter rows and BLEU line must be an
+    in-process Trainer.validate's; caption_split at --pipeline-depth 1
+    and 2, equal JSONL files."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from sat_tpu_torch.config import Config
+    from sat_tpu_torch.engine.loop import Trainer
+    from sat_tpu_torch.serve import load_model
+
+    dcfg, dec_flat, enc_flat = resnet
+    model_dir = os.path.join(root, "resnet")
+    os.makedirs(model_dir)
+    with open(os.path.join(model_dir, "model_config.json"), "w") as f:
+        json.dump({"data": root, "network": "resnet152", "ado": True,
+                   "attention": True, "bert": False, "tf": False}, f)
+    npz = os.path.join(model_dir, "model_resnet152_1.npz")
+    np.savez(npz, **dec_flat)
+    enc_npz = os.path.join(model_dir, "resnet152.npz")
+    np.savez(enc_npz, **enc_flat)
+    img = os.path.join(root, "imgs", "val_000.png")
+    res = {"seconds": {}}
+
+    def gen_caption(tag, model, *flags):
+        png = os.path.join(model_dir, f"{tag}.png")
+        out, res["seconds"][f"generate_caption_{tag}"] = run_cli(
+            "generate_caption", "--img-path", img, "--model", model,
+            "--encoder-weights", enc_npz, "--beam-size", str(BEAM), "--out",
+            png, *flags)
+        check(os.path.getsize(png) > 0, f"cli generate_caption {tag}: no PNG")
+        return caption_of(out), out
+
+    beam, _ = gen_caption("beam", npz)
+    knobs = ("--decode", "sample", "--sample-seed", "3", "--temperature",
+             "0.8", "--top-k", "10")
+    samples = [gen_caption(f"sample{i}", npz, *knobs)[0] for i in range(2)]
+    check(samples[0] == samples[1],
+          f"cli generate_caption --decode sample --sample-seed 3: {samples}")
+    _, _, _, dec, _ = load_model(npz, encoder_weights=enc_npz, device="cuda")
+    pth = os.path.join(model_dir, "model_resnet152_1.pth")
+    torch.save(dec.state_dict(), pth)
+    from_pth, pth_out = gen_caption("pth", pth)
+    check(from_pth == beam and "Strict loading failed" not in pth_out,
+          f"cli generate_caption: the .pth model's {from_pth!r}, the .npz "
+          f"model's {beam!r}")
+    res.update(beam_caption=beam, sample_caption=samples[0])
+
+    model = os.path.join(ckpt_dir, "model_vgg19_1.npz")
+    out, res["seconds"]["evaluate"] = run_cli(
+        "evaluate", "--model", model, "--split", "val", "--encoder-weights",
+        enc_path)
+    cfg = Config.from_model_config(
+        os.path.join(ckpt_dir, "model_config.json"), model=model,
+        encoder_weights=enc_path, perform_test=False, resume=False)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        want = Trainer(cfg).validate(0)
+    rows = meter_rows(out)
+    check(rows == meter_rows(log.getvalue()) and any(
+        ln.startswith("EvalMode.VALIDATION Epoch: 0\tBLEU-1 (") for ln in rows),
+          "cli evaluate: its rows differ from the in-process validate's")
+    res["evaluate"] = {k: float(v) for k, v in want.items()}
+
+    files = []
+    for depth in (1, 2):
+        jsonl = os.path.join(root, f"caps{depth}.jsonl")
+        out, res["seconds"][f"caption_split_depth{depth}"] = run_cli(
+            "caption_split", "--model", model, "--encoder-weights", enc_path,
+            "--split", "val", "--batch-size", str(TRAIN_B),
+            "--pipeline-depth", str(depth), "--out", jsonl)
+        res[f"caption_split_depth{depth}"] = json.loads(
+            out.strip().splitlines()[-1])
+        with open(jsonl) as f:
+            files.append(f.read())
+    check(files[0] == files[1] and files[0].count("\n")
+          == 2 * ENTRY_IMAGES["val"],
+          "cli caption_split: the JSONL at depths 1 and 2 differ")
+    emit({"phase": "cli", **res})
     return res
 
 
@@ -2200,8 +2754,11 @@ def main():
     dcfg, dec_flat, worst_flat, enc_flat, images = make_weights(args.seed)
     main_res = phase_main(dcfg, dec_flat, worst_flat, enc_flat, images)
     serve = phase_serve(dcfg, dec_flat, enc_flat)
+    encoders = phase_encoders(args.seed, images)
+    wide = encoders.pop("weights")
+    sample = phase_sample(dcfg, dec_flat, enc_flat, images, wide)
     train = phase_train(args.seed, enc_flat)
-    entry = phase_entry(enc_flat)
+    entry = phase_entry(enc_flat, wide)
 
     # each kernel's launches on its path: for top-k and the forward, the
     # main path's replayed batch, counted on the device by the profiler
@@ -2211,9 +2768,28 @@ def main():
     # phase)
     # (the bf16 variants: the bf16 main path's replayed batch and one bf16
     # train step)
+    # (the rows at this slice's shapes: the encoders phase's replayed
+    # batches, f32 and bf16; the sample phase's replayed ResNet152 batch at
+    # each k; the DenseNet161 CLI epoch's host count of the backward, its
+    # blocks' warm-up and capture)
+    wide_paths = {f"attention_fwd{v}_d{Dx}": (encoders[net], m,
+                                              f"attention_fwd{v}")
+                  for net, Dx in WIDE.items()
+                  for v, m in (("", "f32"), ("_bf16", "bf16"))}
     for row in kernels:
         name = row["name"]
-        if name == "attention_bwd":
+        if name in wide_paths:
+            res, mode, kname = wide_paths[name]
+            row["launches"] = res["device_launches"][mode][kname]
+            row["host_launches"] = res["host_launches"][mode][kname]
+        elif name.startswith("topk_k"):
+            row["launches"] = sample["device_launches"][
+                f"resnet152_{name[5:]}"]["topk"]
+            row["host_launches"] = 0
+        elif name == "attention_bwd_d2208":
+            row["launches"] = row["host_launches"] = entry[
+                "densenet161_launches"]["attention_bwd"]
+        elif name == "attention_bwd":
             row["launches"] = train["profile"]["kernel_calls"][name]
             row["host_launches"] = train["launches"]["remat"][name]
         elif name == "attention_bwd_bf16":
@@ -2228,14 +2804,15 @@ def main():
     summary = {"kernels": [{k: row.get(k) for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-        "bound_share", "cold_ms", "host_launches")}
+        "bound_share", "cold_ms", "host_launches", "shape")}
         for row in kernels]}
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"device": dev, "build_seconds": build["seconds"],
                    "build_log": build["log"], "kernels": kernels,
-                   "main": main_res, "serve": serve, "train": train,
-                   "entry": entry}, f, indent=1)
+                   "main": main_res, "serve": serve, "encoders": encoders,
+                   "sample": sample, "train": train, "entry": entry}, f,
+                  indent=1)
     emit(summary)
     print(dev["card"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

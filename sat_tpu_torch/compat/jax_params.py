@@ -8,14 +8,17 @@ back), e.g. `attention/U/w`, `lstm/w_ih`, `ado/f_out/b`, `conv0/w`:
     so they transpose; biases carry over;
   - the LSTM's (i, f, g, o) gate blocks are in the same order in both, so
     its (in, 4H) weights only transpose;
-  - conv kernels go from HWIO to OIHW.
+  - conv kernels go from HWIO to OIHW;
+  - a batch norm's `scale`, `bias`, `mean` and `var` are torch's
+    `weight`, `bias`, `running_mean` and `running_var`, and its
+    `num_batches_tracked` (which sat_tpu has not) is made as 0.
 
 The result is the reference's state_dict schema (decoder) and
-torchvision's (VGG19), loaded strictly into the port's modules. The modules
-come back in eval mode on the requested device, frozen unless a trainer
-asks for a trainable decoder. `decoder_to_jax` is the inverse for the
-decoder: the flat archive names and layout that sat_tpu's checkpoint
-loader reads.
+torchvision's (the three encoders, by `models.encoder.encoder_layout`),
+loaded strictly into the port's modules. The modules come back in eval
+mode on the requested device, frozen unless a trainer asks for a trainable
+decoder. `decoder_to_jax` and `encoder_to_jax` are the inverses: the flat
+archive names and layout that sat_tpu's loaders read.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import torch
 
 from sat_tpu_torch.device import resolve_device
 from sat_tpu_torch.models.decoder import Decoder, DecoderConfig
-from sat_tpu_torch.models.encoder import build_encoder, vgg19_layer_plan
+from sat_tpu_torch.models.encoder import build_encoder, encoder_layout
 
 # torch state_dict prefix -> sat_tpu tree prefix, for (w, b) linears
 _DECODER_LINEARS = {
@@ -56,17 +59,49 @@ def decoder_state_dict(flat: dict, cfg: DecoderConfig) -> dict:
     return sd
 
 
+_BN_PARTS = (("weight", "scale"), ("bias", "bias"),
+             ("running_mean", "mean"), ("running_var", "var"))
+
+
 def encoder_state_dict(flat: dict, network: str) -> dict:
-    """sat_tpu VGG19 names and HWIO kernels -> torchvision state_dict."""
-    build_encoder(network)   # raises for the encoders not ported yet
+    """sat_tpu encoder names and HWIO kernels -> torchvision state_dict."""
     sd = {}
-    for op in vgg19_layer_plan():
-        if op[0] == "conv":
-            idx = op[1]
-            sd[f"features.{idx}.weight"] = _t(
-                np.asarray(flat[f"conv{idx}/w"]).transpose(3, 2, 0, 1))
-            sd[f"features.{idx}.bias"] = _t(flat[f"conv{idx}/b"])
+    for layer in encoder_layout(network):
+        t, j = layer.torch_name, layer.flat_name
+        if layer.kind == "bn":
+            for tpart, jpart in _BN_PARTS:
+                sd[f"{t}.{tpart}"] = _t(flat[f"{j}/{jpart}"])
+            sd[f"{t}.num_batches_tracked"] = torch.tensor(0)
+            continue
+        sd[f"{t}.weight"] = _t(np.asarray(flat[f"{j}/w"]).transpose(3, 2, 0, 1))
+        if layer.kind == "conv+b":
+            sd[f"{t}.bias"] = _t(flat[f"{j}/b"])
     return sd
+
+
+def encoder_to_jax(sd: dict, network: str) -> dict[str, np.ndarray]:
+    """A torchvision-named encoder state_dict (tensors or arrays) -> sat_tpu's
+    flat archive: `/`-joined names, HWIO kernels, float32 numpy arrays.
+    Names the layout does not list (a classifier, `norm5`,
+    `num_batches_tracked`) are left out, as sat_tpu's importer leaves
+    them."""
+    def arr(name):
+        v = sd[name]
+        v = v.detach().cpu().numpy() if hasattr(v, "detach") else v
+        return np.asarray(v, dtype=np.float32)
+
+    flat = {}
+    for layer in encoder_layout(network):
+        t, j = layer.torch_name, layer.flat_name
+        if layer.kind == "bn":
+            for tpart, jpart in _BN_PARTS:
+                flat[f"{j}/{jpart}"] = arr(f"{t}.{tpart}")
+            continue
+        flat[f"{j}/w"] = np.ascontiguousarray(
+            arr(f"{t}.weight").transpose(2, 3, 1, 0))
+        if layer.kind == "conv+b":
+            flat[f"{j}/b"] = arr(f"{t}.bias")
+    return flat
 
 
 def _load(module: torch.nn.Module, sd: dict, device,
@@ -100,7 +135,20 @@ def decoder_to_jax(dec: Decoder) -> dict[str, np.ndarray]:
     return flat
 
 
+def encoder_from_state_dict(sd: dict, network: str,
+                            device="cuda") -> torch.nn.Module:
+    """The encoder module of a torchvision-named state_dict, loaded
+    strictly; built without initialising its weights, which the load
+    replaces."""
+    dev = resolve_device(device)
+    with torch.device("meta"):
+        module = build_encoder(network)
+    module.to_empty(device=dev)
+    module.load_state_dict(sd, strict=True)
+    return module.requires_grad_(False).eval()
+
+
 def encoder_from_jax(flat: dict, network: str,
                      device="cuda") -> torch.nn.Module:
-    return _load(build_encoder(network), encoder_state_dict(flat, network),
-                 device)
+    return encoder_from_state_dict(encoder_state_dict(flat, network),
+                                   network, device)

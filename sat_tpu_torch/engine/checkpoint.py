@@ -1,6 +1,8 @@
 """sat_tpu's `.npz` parameter archives: reading and writing.
 
-Port of the `.npz` tier of sat_tpu/engine/checkpoint.py. An archive is a
+Port of the `.npz` tier of sat_tpu/engine/checkpoint.py, and of its
+reading of the reference's `.pth` decoder state_dicts
+(`load_decoder_checkpoint`). An archive is a
 flat `.npz` of `/`-joined parameter names in (in, out) layout, as
 `tree_save_npz` writes it. The rules are sat_tpu's `tree_load_npz`:
 
@@ -39,6 +41,7 @@ import numpy as np
 import torch
 
 from sat_tpu_torch.compat.jax_params import decoder_to_jax
+from sat_tpu_torch.compat.torch_decoder import decoder_params_from_state_dict
 
 
 def tree_load_npz(path: str, template: dict, strict: bool = True) -> dict:
@@ -66,12 +69,19 @@ def tree_load_npz(path: str, template: dict, strict: bool = True) -> dict:
 
 def load_decoder_checkpoint(path: str, template: dict,
                             strict: bool = True) -> dict:
-    """Decoder params from a sat_tpu `.npz`. Reference `.pth` files are not
-    read yet."""
+    """Decoder params from a sat_tpu `.npz` or a reference `.pth`/`.pt`
+    state_dict, as a flat dict shaped like `template`. A `.pth` is read
+    strictly first; if that fails and `strict` is off, it is read again
+    non-strictly (the reference's fallback), as sat_tpu does."""
     if path.endswith((".pth", ".pt")):
-        raise NotImplementedError(
-            "reference .pth checkpoints are not ported yet; convert with "
-            "sat_tpu or pass the .npz")
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        try:
+            return decoder_params_from_state_dict(sd, template, strict=True)
+        except KeyError:
+            if strict:
+                raise
+            print("Strict loading failed, loading with strict=False")
+            return decoder_params_from_state_dict(sd, template, strict=False)
     return tree_load_npz(path, template, strict=strict)
 
 

@@ -1,4 +1,5 @@
-"""The caption step: images -> encoder -> batched beam (or greedy) decode.
+"""The caption step: images -> encoder -> batched beam, greedy or sampled
+decode.
 
 Port of sat_tpu/engine/serving.py::build_caption_step. The step takes the
 encoder and decoder modules as arguments, as sat_tpu's takes params: a
@@ -8,8 +9,12 @@ in a GraphCache of its own, captured per batch shape and decoder: a
 server's step lives as long as the server. `bf16=True` is sat_tpu's bf16
 decode: the encoder runs in bf16 (its grid comes back f32) for beam and
 greedy alike, and the beam stores its grid and keys in bf16, while greedy
-decodes in f32, as sat_tpu's does. AOT export, `decode="sample"` and
-`fast_topk` are not ported yet and raise.
+decodes in f32, as sat_tpu's does. `decode="sample"` is sat_tpu's
+sample decode (temperature, top-k, top-p, checked when the step is
+built); its step takes a `torch.Generator` on the device, from which the
+batch's Gumbel noise is drawn (models/beam.py::sample_caption), and, like
+greedy, it decodes from the f32 grid. AOT export and `fast_topk` are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -17,7 +22,9 @@ from __future__ import annotations
 import torch
 
 from sat_tpu_torch.device import resolve_device, use_f32_math
-from sat_tpu_torch.models.beam import beam_search_batched, greedy_caption
+from sat_tpu_torch.models.beam import (beam_search_batched, greedy_caption,
+                                      sample_caption,
+                                      validate_sampling_params)
 from sat_tpu_torch.models.decoder import DecoderConfig
 from sat_tpu_torch.models.encoder import encoder_forward
 from sat_tpu_torch.utils.graphs import GraphCache
@@ -25,9 +32,9 @@ from sat_tpu_torch.utils.graphs import GraphCache
 
 def pack_scan(dcfg: DecoderConfig, tokens: torch.Tensor,
               lengths: torch.Tensor, alphas: torch.Tensor) -> dict:
-    """greedy output -> the beam result layout: the start token and its
-    all-ones alpha row are prepended, so alphas row t belongs to tokens
-    column t as in the beam layout; found is whether a stop id came
+    """greedy or sample output -> the beam result layout: the start token
+    and its all-ones alpha row are prepended, so alphas row t belongs to
+    tokens column t as in the beam layout; found is whether a stop id came
     within max_steps."""
     B, max_steps = tokens.shape
     start = torch.full((B, 1), dcfg.start_token, dtype=tokens.dtype,
@@ -45,19 +52,21 @@ def pack_scan(dcfg: DecoderConfig, tokens: torch.Tensor,
 def build_caption_step(network: str, dcfg: DecoderConfig, beam_size: int,
                        fast_topk: bool = False, bf16: bool = False,
                        decode: str = "beam", mesh_data: int = 1,
-                       device="cuda", graphs: bool = True):
+                       device="cuda", graphs: bool = True,
+                       temperature: float = 1.0, top_k: int = 0,
+                       top_p: float = 1.0):
     """step(encoder, decoder, images (B, S, S, 3)) -> result dict of
     tensors on `device`: tokens, length, score, found, alphas (the beam
-    layout; greedy is packed into it by `pack_scan`). The modules must
-    already be on `device`; images may be numpy or a tensor anywhere.
-    `graphs=False` decodes eagerly on the card too. `step.graphs` is the
-    step's GraphCache (None when eager)."""
-    if decode == "sample":
-        raise NotImplementedError(
-            "decode='sample' is not ported yet (ROADMAP.md, Queue 1: "
-            "sample decode)")
-    if decode not in ("beam", "greedy"):
+    layout; greedy and sample are packed into it by `pack_scan`); for
+    `decode="sample"`, step(encoder, decoder, images, generator). The
+    modules must already be on `device`; images may be numpy or a tensor
+    anywhere. `graphs=False` decodes eagerly on the card too. `step.graphs`
+    is the step's GraphCache (None when eager)."""
+    if decode not in ("beam", "greedy", "sample"):
         raise ValueError(f"unknown decode mode {decode!r}")
+    if decode == "sample":
+        # fail when the step is built (a CLI's start), not at a request
+        validate_sampling_params(temperature, top_k, top_p)
     if fast_topk or mesh_data > 1:
         raise NotImplementedError(
             "fast_topk and mesh serving are not ported yet (ROADMAP.md, "
@@ -67,10 +76,14 @@ def build_caption_step(network: str, dcfg: DecoderConfig, beam_size: int,
 
     cache = GraphCache() if graphs and dev.type == "cuda" else None
 
-    def caption(encoder, decoder, images) -> dict:
+    def caption(encoder, decoder, images, generator=None) -> dict:
         images = torch.as_tensor(images, dtype=torch.float32, device=dev)
         feats = encoder_forward(encoder, network, images,
                                 torch.bfloat16 if bf16 else None)
+        if decode == "sample":
+            return pack_scan(dcfg, *sample_caption(
+                decoder, feats, generator, temperature, top_k, top_p,
+                with_alphas=True, graphs=cache))
         if decode == "greedy":
             return pack_scan(dcfg, *greedy_caption(decoder, feats,
                                                    with_alphas=True,

@@ -1,7 +1,8 @@
-"""Batched beam-search and greedy captioning.
+"""Batched beam-search, greedy and sampled captioning.
 
 Port of sat_tpu/models/beam.py (`beam_search_batched`, `greedy_caption`,
-`BeamResult`, `extract_caption`). The semantics are the reference's flat
+`sample_caption`, `validate_sampling_params`, `BeamResult`,
+`extract_caption`). The semantics are the reference's flat
 beam (reference decoder.py:160-269), kept exactly:
 
   - scores are **raw accumulated logits** (the reference never
@@ -34,8 +35,9 @@ decode (keys, initial state) and the rebuild of the winning paths each
 replay as a CUDA graph (utils/graphs.py), captured once per (B, K, L, D,
 max_steps, dedup, backtrack, bf16) shape and block length, in the `graphs`
 GraphCache that the caller passes (the caption step keeps one per server);
-greedy decode is one graph of all its steps. Without a cache (`graphs=None`,
-the default) the same code runs eagerly, as the CPU always does. The exact
+greedy and sample decode are each one graph of all their steps. Without
+a cache (`graphs=None`, the default) the same code runs eagerly, as the
+CPU always does. The exact
 top-k is the CUDA kernel of ops/topk.py and the
 attention middle the one of ops/fused_attention.py on the card, their
 plain forms on the CPU. `fast_topk` (an approximate TPU top-k) and
@@ -389,19 +391,85 @@ def beam_search_batched(dec: Decoder, features: torch.Tensor, beam_size: int,
                       fallback_alpha=buf["last_alpha0"].clone())
 
 
-def _greedy_buffers(B: int, L: int, D: int, max_steps: int, device,
-                    features=None) -> dict:
+def validate_sampling_params(temperature: float, top_k: int,
+                             top_p: float) -> None:
+    """Reject degenerate sampling knobs with sat_tpu's messages: top_p <= 0
+    empties the nucleus (every logit -inf), a negative top_k or
+    temperature has no meaning."""
+    if not 0.0 < top_p <= 1.0:
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+    if top_k < 0:
+        raise ValueError(f"top_k must be >= 0 (0 disables it), got {top_k}")
+    if temperature < 0.0:
+        raise ValueError(f"temperature must be >= 0, got {temperature}")
+
+
+class Sampling(NamedTuple):
+    """Sample decode's knobs (sat_tpu's `sample_caption` arguments)."""
+    temperature: float = 1.0
+    top_k: int = 0
+    top_p: float = 1.0
+
+
+def filter_logits(logits: torch.Tensor, knobs: Sampling) -> torch.Tensor:
+    """sat_tpu's filter, step for step: divide by max(temperature, 1e-6);
+    if 0 < top_k < V, mask entries below the k-th largest to -inf, the
+    k-th taken from the exact top-k (ops/topk.py: the kernel on the card);
+    if top_p < 1, keep the entries of the sorted row whose exclusive
+    prefix mass is below top_p and mask below the smallest kept logit."""
+    V = logits.shape[-1]
+    logits = logits / max(knobs.temperature, 1e-6)
+    if knobs.top_k and knobs.top_k < V:
+        kth = topk(logits, knobs.top_k)[0][:, -1:]
+        logits = logits.masked_fill(logits < kth, float("-inf"))
+    if knobs.top_p < 1.0:
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(sorted_logits, dim=-1)
+        keep = (torch.cumsum(probs, dim=-1) - probs) < knobs.top_p
+        threshold = torch.where(keep, sorted_logits, float("inf")).amin(
+            dim=-1, keepdim=True)
+        logits = logits.masked_fill(logits < threshold, float("-inf"))
+    return logits
+
+
+def gumbel_noise_(out: torch.Tensor, generator: torch.Generator | None):
+    """Fill `out` in place with Gumbel noise -log(-log(u)), u uniform in
+    [tiny, 1) from one draw of `generator` (on `out`'s device; None: the
+    device's default generator). argmax(logits + noise) is a draw from
+    softmax(logits): jax.random.categorical's algorithm."""
+    out.uniform_(generator=generator)
+    tiny = torch.finfo(out.dtype).tiny
+    return out.clamp_(min=tiny).log_().neg_().log_().neg_()
+
+
+def batch_generator(seed: int, index: int, device) -> torch.Generator:
+    """The generator of batch `index` of a run seeded with `seed`: seeded
+    from the pair, so a run replays its batches' draws in order, whatever
+    it did before. A CPU generator and the card's (philox) give different
+    streams from one seed."""
+    pair = np.random.SeedSequence([seed % 2 ** 64, index])
+    return torch.Generator(device=device).manual_seed(
+        int(pair.generate_state(1, np.uint64)[0]))
+
+
+def _scan_buffers(B: int, L: int, D: int, V: int, max_steps: int, device,
+                  features=None, sample: bool = False) -> dict:
     def new(*shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device=device)
-    return {"features": new(B, L, D) if features is None else features,
-            "tokens": new(B, max_steps, dtype=torch.int64),
-            "lengths": new(B, dtype=torch.int64),
-            "alphas": new(B, max_steps, L)}
+    buf = {"features": new(B, L, D) if features is None else features,
+           "tokens": new(B, max_steps, dtype=torch.int64),
+           "lengths": new(B, dtype=torch.int64),
+           "alphas": new(B, max_steps, L)}
+    if sample:
+        buf["noise"] = new(max_steps, B, V)
+    return buf
 
 
-def _greedy_decode(dec: Decoder, max_steps: int, buf: dict) -> None:
-    """All max_steps greedy steps of buf["features"], into buf["tokens"],
-    buf["lengths"] and buf["alphas"]."""
+def _scan_decode(dec: Decoder, max_steps: int, buf: dict,
+                 knobs: Sampling | None = None) -> None:
+    """All max_steps greedy steps of buf["features"] (or, given `knobs`,
+    sampled steps: argmax(filter_logits(logits) + buf["noise"][t])), into
+    buf["tokens"], buf["lengths"] and buf["alphas"]."""
     features = buf["features"]
     B = features.shape[0]
     stop_a, stop_b = constants.BEAM_STOP_VANILLA
@@ -414,6 +482,8 @@ def _greedy_decode(dec: Decoder, max_steps: int, buf: dict) -> None:
     for t in range(max_steps):
         emb = embed_tokens(dec, prev)
         h, c, logits, alpha, _ = decode_step(dec, features, keys, h, c, emb)
+        if knobs is not None:
+            logits = filter_logits(logits, knobs) + buf["noise"][t]
         nxt = torch.where(done, prev, logits.argmax(dim=1))
         done = done | (nxt == stop_a) | (nxt == stop_b)
         prev = nxt
@@ -422,6 +492,41 @@ def _greedy_decode(dec: Decoder, max_steps: int, buf: dict) -> None:
     is_stop = (toks == stop_a) | (toks == stop_b)
     buf["lengths"].copy_(torch.where(is_stop.any(dim=1),
                                      is_stop.int().argmax(dim=1), max_steps))
+
+
+def _scan_caption(dec: Decoder, features: torch.Tensor, max_steps: int,
+                  with_alphas: bool, graphs: GraphCache | None,
+                  knobs: Sampling | None = None, noise=None,
+                  generator=None):
+    B, L, D = features.shape
+    V = dec.cfg.effective_vocab_size
+    sample = knobs is not None
+    cache = _graph_cache(graphs, features.device)
+    if cache is None:
+        buf = _scan_buffers(B, L, D, V, max_steps, features.device, features,
+                            sample)
+    else:
+        slot = cache.slot(("sample" if sample else "greedy", B, L, D,
+                           max_steps, knobs), (dec,),
+                          lambda: _scan_buffers(B, L, D, V, max_steps,
+                                                features.device,
+                                                sample=sample))
+        buf = slot.buffers
+        buf["features"].copy_(features)
+    if sample:
+        if noise is not None:
+            if tuple(noise.shape) != (max_steps, B, V):
+                raise ValueError(f"noise must be {(max_steps, B, V)}, got "
+                                 f"{tuple(noise.shape)}")
+            buf["noise"].copy_(noise)
+        else:
+            gumbel_noise_(buf["noise"], generator)
+    if cache is None:
+        _scan_decode(dec, max_steps, buf, knobs)
+    else:
+        slot.run("decode", lambda b: _scan_decode(dec, max_steps, b, knobs))
+    out = (buf["tokens"].clone(), buf["lengths"].clone())
+    return out + (buf["alphas"].clone(),) if with_alphas else out
 
 
 @torch.inference_mode()
@@ -436,20 +541,31 @@ def greedy_caption(dec: Decoder, features: torch.Tensor,
     (B, max_steps, L). Like sat_tpu's scan, it runs all max_steps: on the
     card, given a GraphCache (`graphs` as in beam_search_batched), as one
     CUDA graph."""
-    B, L, D = features.shape
-    cache = _graph_cache(graphs, features.device)
-    if cache is None:
-        buf = _greedy_buffers(B, L, D, max_steps, features.device, features)
-        _greedy_decode(dec, max_steps, buf)
-    else:
-        slot = cache.slot(("greedy", B, L, D, max_steps), (dec,),
-                          lambda: _greedy_buffers(B, L, D, max_steps,
-                                                  features.device))
-        buf = slot.buffers
-        buf["features"].copy_(features)
-        slot.run("decode", lambda b: _greedy_decode(dec, max_steps, b))
-    out = (buf["tokens"].clone(), buf["lengths"].clone())
-    return out + (buf["alphas"].clone(),) if with_alphas else out
+    return _scan_caption(dec, features, max_steps, with_alphas, graphs)
+
+
+@torch.inference_mode()
+def sample_caption(dec: Decoder, features: torch.Tensor,
+                   generator: torch.Generator | None = None,
+                   temperature: float = 1.0, top_k: int = 0,
+                   top_p: float = 1.0,
+                   max_steps: int = constants.BEAM_MAX_STEPS,
+                   with_alphas: bool = False,
+                   graphs: GraphCache | None = None,
+                   noise: torch.Tensor | None = None):
+    """Stochastic decode of a batch of images: as `greedy_caption`, but
+    step t takes argmax(filter_logits(logits) + g[t]), which samples the
+    filtered softmax. The Gumbel noise g (max_steps, B, V) of every step
+    is drawn up front, by one `torch.Tensor.uniform_` from `generator`
+    (on the features' device; None: the device's default), or given as
+    `noise` (the tests pass sat_tpu's: `jax.random.gumbel(step_rngs[t],
+    (B, V))`). On the card, given a GraphCache, the steps replay as one
+    CUDA graph, keyed by the knobs too, that reads the noise buffer and
+    draws nothing itself: a replay is as deterministic as its noise."""
+    validate_sampling_params(temperature, top_k, top_p)
+    return _scan_caption(dec, features, max_steps, with_alphas, graphs,
+                         Sampling(temperature, top_k, top_p), noise,
+                         generator)
 
 
 def extract_caption(result: BeamResult):

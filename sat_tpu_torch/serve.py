@@ -19,13 +19,18 @@ log2(--max-batch) + 1; the padded rows' results are dropped.
     python -m sat_tpu_torch.serve --model model/model_vgg19_8.npz \\
         --encoder-weights vgg19.npz --port 8765 --max-batch 32
 
-The flags are serve.py's for beam and greedy decode; --device (default
-cuda) is added. Sampling's flags (--temperature, --top-k, --top-p, --seed)
-and --bert-vocab come with sample decode and BERT, and are rejected until
-then. --bf16-decode runs the encoder in bf16 and the beam on a bf16 grid
-(engine/serving.py). Flags for what the port does not have yet (--decode
-sample, --fast-topk, --mesh-data > 1, --no-pallas-topk, BERT checkpoints)
-raise at startup.
+The flags are serve.py's; --device (default cuda) is added, and
+--bert-vocab comes with BERT and is rejected until then. The model's
+`model_config.json` names its encoder (vgg19, resnet152, densenet161); the
+decoder may be a sat_tpu `.npz` or a reference `.pth`. --decode sample
+samples at --temperature, --top-k and --top-p: batch i draws its noise
+from a generator seeded from (--seed, i), so a restarted server replays
+the same captions for the same request order; without --seed a
+process-unique value takes its place. The card's and the CPU's generators
+give different draws from one seed. --bf16-decode runs the encoder in
+bf16 and the beam on a bf16 grid (engine/serving.py). Flags for what the
+port does not have yet (--fast-topk, --mesh-data other than 1,
+--no-pallas-topk, BERT checkpoints) raise at startup.
 
 Shutdown: SIGTERM/SIGINT, or a client line {"cmd": "shutdown"}.
 """
@@ -34,6 +39,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import itertools
 import json
 import os
 import queue
@@ -388,7 +394,8 @@ def load_model(model_path: str, model_config_path: str | None = None,
     """Config, decoder config, encoder and decoder modules on `device`, and
     the word dict, from a sat_tpu checkpoint directory (port of
     generate_caption.py::load_model for vanilla vocabularies): the decoder
-    `.npz`, `model_config.json` beside it (or at `model_config_path`) and
+    `.npz` (or a reference `.pth`, read strictly, then non-strictly),
+    `model_config.json` beside it (or at `model_config_path`) and
     `<cfg.data>/word_dict.json`. Without `encoder_weights` the encoder is
     randomly initialized from a fixed seed, which is not sat_tpu's random
     init: captions then mean nothing."""
@@ -457,6 +464,7 @@ def load_image_pool(preload: str, image_size: int, count: int) -> np.ndarray:
 def build_server(args) -> CaptionServer:
     from sat_tpu_torch.engine.evaluate import build_token_dict, decode_caption
     from sat_tpu_torch.engine.serving import build_caption_step
+    from sat_tpu_torch.models.beam import batch_generator
 
     if getattr(args, "pallas_topk", None) is False:
         raise NotImplementedError(
@@ -474,11 +482,26 @@ def build_server(args) -> CaptionServer:
     decode_mode = args.decode
     step = build_caption_step(cfg.network, dcfg, args.beam_size,
                               fast_topk=args.fast_topk, bf16=args.bf16_decode,
-                              decode=decode_mode, device=args.device)
+                              decode=decode_mode, device=args.device,
+                              temperature=args.temperature, top_k=args.top_k,
+                              top_p=args.top_p)
     token_dict = build_token_dict(word_dict)
 
-    def caption_fn(arr):
-        return step(encoder, decoder, arr)
+    if decode_mode == "sample":
+        seed = args.seed
+        if seed is None:
+            seed = (os.getpid() ^ time.time_ns()) & 0x7FFFFFFF
+        batches = itertools.count()
+        batches_lock = threading.Lock()
+
+        def caption_fn(arr):
+            with batches_lock:
+                i = next(batches)
+            return step(encoder, decoder, arr,
+                        batch_generator(seed, i, args.device))
+    else:
+        def caption_fn(arr):
+            return step(encoder, decoder, arr)
 
     def decode_tokens(tokens, length, found):
         # Beam keeps the reference fallback: no completed sentence -> [0].
@@ -513,8 +536,17 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--beam-size", type=int, default=5)
     parser.add_argument("--decode", choices=["beam", "greedy", "sample"],
                         default="beam",
-                        help="decoding strategy (greedy = argmax; sample is "
-                             "not ported yet)")
+                        help="decoding strategy (greedy = argmax; sample = "
+                             "temperature/top-k/top-p, fresh draws per "
+                             "batch)")
+    parser.add_argument("--temperature", type=float, default=1.0)
+    parser.add_argument("--top-k", type=int, default=0)
+    parser.add_argument("--top-p", type=float, default=1.0)
+    parser.add_argument("--seed", type=int, default=None,
+                        help="base seed of --decode sample: batch i draws "
+                             "from (seed, i), so a restarted server replays "
+                             "the same captions for the same request order; "
+                             "default: a process-unique value")
     parser.add_argument("--fast-topk", action="store_true", default=False)
     parser.add_argument("--pallas-topk", action=argparse.BooleanOptionalAction,
                         default=None,

@@ -1,9 +1,13 @@
 """Attention plots, host-side, in PIL and numpy.
 
-Port of sat_tpu/utils/viz.py's `expand_alpha` and `save_attention_plot`
-without matplotlib. The layout is sat_tpu's: a "Ref: ..." header over one
-row of tiles, one per word, each the image under its word's attention map
-with the word in the top-left corner on white. A tile is what
+Port of sat_tpu/utils/viz.py's `expand_alpha`, `save_attention_plot` and
+`save_caption_grid` without matplotlib. `save_attention_plot`'s layout is
+sat_tpu's: a "Ref: ..." header over one row of tiles, one per word, each
+the image under its word's attention map with the word in the top-left
+corner on white. `save_caption_grid` (generate_caption's figure) lays the
+source image and then one such tile a word on sat_tpu's grid of
+ceil((words + 3) / 4) columns, row by row, at the image's own size. A tile
+is what
 matplotlib's `imshow(amap, cmap="gray", alpha=0.8)` over the image gives:
 0.2 · image + 0.8 · gray, gray being the expanded map scaled to [0, 1]
 by its minimum and maximum. The row is at most 2000 px wide, the width of
@@ -33,10 +37,17 @@ def expand_alpha(alpha: np.ndarray, grid_side: int, upscale: int = 16,
 
 
 def attention_tile(image01: np.ndarray, alpha: np.ndarray,
-                   grid_side: int) -> np.ndarray:
-    """(H, W, 3) uint8: the image in [0, 1] under one word's attention."""
+                   grid_side: int, smooth: bool = True) -> np.ndarray:
+    """(H, W, 3) uint8: the image in [0, 1] under one word's attention,
+    `expand_alpha`'s smoothed map, or with `smooth=False` a bilinear zoom
+    of the grid to the image's height (sat_tpu's unsmoothed figure)."""
     h, w = image01.shape[:2]
-    amap = expand_alpha(alpha, grid_side)
+    if smooth:
+        amap = expand_alpha(alpha, grid_side)
+    else:
+        from scipy.ndimage import zoom
+        grid = np.asarray(alpha, np.float64).reshape(grid_side, grid_side)
+        amap = zoom(grid, h / grid_side, order=1)
     if amap.shape != (h, w):      # stretched over the image, as `extent`
         amap = np.asarray(Image.fromarray(amap.astype(np.float32), "F")
                           .resize((w, h), Image.BILINEAR), np.float64)
@@ -85,6 +96,39 @@ def save_attention_plot(path: str, image01: np.ndarray, words,
         if (tw, th) != (w, h):
             tile = tile.resize((tw, th), Image.BILINEAR)
         canvas.paste(tile, (x, y))
+        draw.rectangle(label_box(x, y, word), fill="white")
+        draw.text((x + LABEL_PAD, y + LABEL_PAD), word, fill="black",
+                  font=_font())
+    canvas.save(path)
+
+
+def caption_grid_layout(n_words: int, height: int, width: int):
+    """[(x, y) of each tile's top-left pixel]: the source image's, then
+    each word's, on sat_tpu's grid of ceil((n_words + 3) / 4) columns."""
+    cols = -(-(n_words + 3) // 4)
+    return [(GAP + (i % cols) * (width + GAP), GAP + (i // cols)
+             * (height + GAP)) for i in range(n_words + 1)]
+
+
+def save_caption_grid(path: str, image01: np.ndarray, words,
+                      alphas: np.ndarray, grid_side: int,
+                      smooth: bool = True) -> None:
+    """generate_caption's figure as a PNG at `path`: the source image,
+    then one tile a word (`attention_tile`, the word on white in its
+    corner). image01: (H, W, 3) in [0, 1]; alphas: (T, L), row t for
+    words[t]."""
+    h, w = image01.shape[:2]
+    origins = caption_grid_layout(len(words), h, w)
+    right = max(x for x, _ in origins) + w + GAP
+    bottom = max(y for _, y in origins) + h + GAP
+    canvas = Image.new("RGB", (right, bottom), "white")
+    canvas.paste(Image.fromarray(np.clip(np.round(
+        np.asarray(image01, np.float64) * 255.0), 0, 255).astype(np.uint8)),
+        origins[0])
+    draw = ImageDraw.Draw(canvas)
+    for (x, y), word, alpha in zip(origins[1:], words, alphas):
+        canvas.paste(Image.fromarray(
+            attention_tile(image01, alpha, grid_side, smooth)), (x, y))
         draw.rectangle(label_box(x, y, word), fill="white")
         draw.text((x + LABEL_PAD, y + LABEL_PAD), word, fill="black",
                   font=_font())

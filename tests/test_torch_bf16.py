@@ -449,19 +449,20 @@ def test_bf16_weights_are_cast_once_per_encoder(vgg_pair):
     _, enc = vgg_pair
     images = np.zeros((1, 16, 16, 3), np.float32)
     port_encoder(enc, "vgg19", images, torch.bfloat16)
-    first = enc._cast_convs
+    first = enc._cast_weights
     port_encoder(enc, "vgg19", images, torch.bfloat16)
-    assert enc._cast_convs is first
+    assert enc._cast_weights is first
     w = enc.features["0"].weight
-    assert first[1]["0"][0].dtype == BF16
-    assert torch.equal(first[1]["0"][0], w.detach().to(BF16))
+    assert first[1]["features.0.weight"].dtype == BF16
+    assert torch.equal(first[1]["features.0.weight"], w.detach().to(BF16))
     with torch.no_grad():
         saved = w.clone()
         w.add_(1.0)
         try:
             port_encoder(enc, "vgg19", images, torch.bfloat16)
-            assert enc._cast_convs is not first
-            assert torch.equal(enc._cast_convs[1]["0"][0], w.to(BF16))
+            assert enc._cast_weights is not first
+            assert torch.equal(enc._cast_weights[1]["features.0.weight"],
+                               w.to(BF16))
         finally:
             w.copy_(saved)
 

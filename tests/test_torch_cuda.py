@@ -54,7 +54,8 @@ def _assert_topk_exact(x, values, indices, k):
                                    (128, TOPK_N, 5), (4, 70000, 8),
                                    (1, TOPK_N, 5), (32, TOPK_N, 5),
                                    (128, TOPK_N, 1), (128, TOPK_N, 16),
-                                   (128, TOPK_N, 20), (3, 40, 17)])
+                                   (128, TOPK_N, 20), (3, 40, 17),
+                                   (128, 2633, 10), (128, 2633, 50)])
 def test_topk_kernel_is_bit_exact(cuda, B, N, k):
     x = _rows(N, B, N).to(cuda)
     before = topk.launches
@@ -147,7 +148,10 @@ def _fwd_inputs(seed, B, R, L, E, D, device):
                                        (4, 1, 49, 512, 2048),
                                        (4, 5, 49, 512, 2208),
                                        (1, 1, 196, 512, 512),
-                                       (640, 1, 196, 512, 512)])
+                                       (640, 1, 196, 512, 512),
+                                       (128, 5, 49, 512, 2048),
+                                       (128, 5, 49, 512, 2208),
+                                       (128, 1, 49, 512, 2208)])
 def test_attention_kernel_matches_plain(cuda, B, R, L, E, D):
     args = _fwd_inputs(B * R, B, R, L, E, D, cuda)
     before = attention_fwd.launches
@@ -569,7 +573,9 @@ def _assert_bf16_close(got, want, name):
                                        (64, 1, 196, 512, 512),
                                        (2, 1, 3, 64, 48), (3, 5, 3, 64, 32),
                                        (4, 5, 49, 512, 2208),
-                                       (640, 1, 196, 512, 512)])
+                                       (640, 1, 196, 512, 512),
+                                       (128, 5, 49, 512, 2048),
+                                       (128, 5, 49, 512, 2208)])
 def test_attention_bf16_kernel_matches_plain(cuda, B, R, L, E, D):
     keys, feats, u_h, v, b_v = _fwd_inputs(B * R + 1, B, R, L, E, D, cuda)
     keys, feats = keys.to(BF16), feats.to(BF16)
@@ -590,7 +596,7 @@ def test_attention_bf16_kernel_matches_plain(cuda, B, R, L, E, D):
                          ids=["dfeats", "no-dfeats"])
 @pytest.mark.parametrize("B,L,E,D", [(1, 5, 16, 8), (3, 9, 64, 48),
                                      (64, 196, 512, 512), (2, 3, 64, 48),
-                                     (4, 49, 512, 2208)])
+                                     (4, 49, 512, 2208), (64, 49, 512, 2208)])
 def test_attention_bwd_bf16_kernel_matches_plain(cuda, B, L, E, D,
                                                  want_dfeats):
     keys, feats, u_h, v, _, alpha, dctx, dalpha = _bwd_inputs(
@@ -787,3 +793,73 @@ def test_bf16_encoder_on_the_card(cuda):
 
     assert rel(grids["cuda", BF16], grids["cuda", None]) < 0.1
     assert rel(grids["cuda", BF16], grids["cpu", BF16]) < 1e-2
+
+
+@pytest.mark.parametrize("knobs", [(0.8, 10, 0.9), (0.8, 50, 1.0),
+                                   (1.0, 0, 0.9)], ids=str)
+def test_graph_sample_equals_eager(cuda, knobs):
+    """Sample decode through its graph gives the eager path's bits for the
+    same noise (top-k on the kernel at k = 10 and the k-round kernel at 50),
+    on the capture and on a replay; one generator seed, one draw."""
+    from sat_tpu_torch.models.beam import batch_generator, sample_caption
+    from sat_tpu_torch.utils.graphs import GraphCache
+
+    dec = _small_decoder(cuda)
+    feats = torch.rand((16, 49, 64),
+                       generator=torch.Generator().manual_seed(3)).to(cuda)
+    noise = -torch.log(-torch.log(torch.rand(
+        (51, 16, 300), generator=torch.Generator().manual_seed(4)).clamp_min(
+        torch.finfo(torch.float32).tiny))).to(cuda)
+    eager = sample_caption(dec, feats, None, *knobs, with_alphas=True,
+                           noise=noise)
+    cache = GraphCache()
+    for _ in range(2):
+        graph = sample_caption(dec, feats, None, *knobs, with_alphas=True,
+                               graphs=cache, noise=noise)
+        assert all(map(_same_bits, eager, graph))
+    assert cache.captures == 1
+    draws = [sample_caption(dec, feats, batch_generator(7, 0, cuda), *knobs,
+                            graphs=cache)[0] for _ in range(2)]
+    assert torch.equal(*draws)
+
+
+def test_sample_top_k_one_is_greedy_on_the_card(cuda):
+    from sat_tpu_torch.models.beam import (batch_generator, greedy_caption,
+                                           sample_caption)
+
+    dec = _small_decoder(cuda)
+    feats = torch.rand((32, 49, 64),
+                       generator=torch.Generator().manual_seed(5)).to(cuda)
+    got = sample_caption(dec, feats, batch_generator(0, 0, cuda), 0.8, 1,
+                         with_alphas=True)
+    want = greedy_caption(dec, feats, with_alphas=True)
+    assert all(map(_same_bits, got, want))
+
+
+@pytest.mark.parametrize("network", ["resnet152", "densenet161"])
+def test_wide_encoders_on_the_card(cuda, network):
+    """ResNet152 and DenseNet161 on the card: the f32 grid within f32
+    rounding of the CPU's (atol 5e-3, rtol 1e-3, the bound the CPU tests
+    hold sat_tpu to), the bf16 grid within bf16 rounding of it."""
+    from sat_tpu_torch.compat.jax_params import (encoder_from_jax,
+                                                 encoder_to_jax)
+    from sat_tpu_torch.models.encoder import build_encoder, encoder_forward
+
+    torch.manual_seed(0)    # PyTorch's default conv init: bounded grids
+    flat = encoder_to_jax(build_encoder(network).state_dict(), network)
+    images = 0.2 * torch.randn((2, 64, 64, 3),
+                               generator=torch.Generator().manual_seed(1))
+    grids = {}
+    for dev in ("cpu", "cuda"):
+        enc = encoder_from_jax(flat, network, dev)
+        for dt in (None, BF16):
+            grids[dev, dt] = encoder_forward(enc, network, images, dt).cpu()
+    np.testing.assert_allclose(grids["cuda", None].numpy(),
+                               grids["cpu", None].numpy(), atol=5e-3,
+                               rtol=1e-3)
+
+    def rel(a, b):
+        return float((a - b).abs().mean() / b.abs().mean())
+
+    assert rel(grids["cuda", BF16], grids["cuda", None]) < 0.1
+    assert rel(grids["cuda", BF16], grids["cpu", BF16]) < 2e-2

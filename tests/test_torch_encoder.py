@@ -82,5 +82,17 @@ def test_init_params_have_sat_tpu_names_and_shapes(vgg_pair):
 
 @pytest.mark.parametrize("network", ["resnet152", "densenet161"])
 def test_other_encoders_are_not_ported(network):
-    with pytest.raises(NotImplementedError):
-        port_init(network, torch.Generator())
+    """Once refused, these encoders are ported now
+    (tests/test_torch_encoders.py): the port's init gives sat_tpu's names,
+    shapes and dtypes, and an unknown network still raises."""
+    shapes = jax.eval_shape(
+        lambda: init_encoder_params(jax.random.PRNGKey(0), network))
+    ref = {"/".join(str(getattr(p, "key", getattr(p, "idx", p)))
+                    for p in path): leaf
+           for path, leaf in jax.tree_util.tree_flatten_with_path(shapes)[0]}
+    mine = port_init(network, torch.Generator().manual_seed(0))
+    assert sorted(mine) == sorted(ref)
+    for k, v in ref.items():
+        assert mine[k].shape == v.shape and mine[k].dtype == v.dtype, k
+    with pytest.raises(ValueError):
+        port_init("alexnet", torch.Generator())

@@ -24,6 +24,11 @@ _SLICE = r"""
 import sys
 import numpy as np
 import torch
+import sat_tpu_torch.caption_split  # noqa: F401
+import sat_tpu_torch.compat.torch_decoder  # noqa: F401
+import sat_tpu_torch.compat.torch_encoder  # noqa: F401
+import sat_tpu_torch.evaluate  # noqa: F401
+import sat_tpu_torch.generate_caption  # noqa: F401
 import sat_tpu_torch.serve  # noqa: F401
 from sat_tpu_torch.compat.jax_params import decoder_from_jax, encoder_from_jax
 from sat_tpu_torch.engine.serving import build_caption_step
@@ -41,6 +46,18 @@ images = np.random.default_rng(0).normal(size=(2, 32, 32, 3)).astype(
     np.float32)
 out = build_caption_step("vgg19", dcfg, 3, device="cpu")(enc, dec, images)
 assert out["tokens"].shape == (2, 52), out["tokens"].shape
+out = build_caption_step("vgg19", dcfg, 3, decode="sample", top_k=5,
+                         device="cpu")(enc, dec, images,
+                                       torch.Generator().manual_seed(0))
+assert out["tokens"].shape == (2, 52), out["tokens"].shape
+dcfg = DecoderConfig(vocab_size=30, encoder_dim=2208, use_ado=True,
+                     use_attention=True)
+dec = decoder_from_jax(init_decoder_params(dcfg, gen), dcfg, device="cpu")
+enc = encoder_from_jax(init_encoder_params("densenet161", gen), "densenet161",
+                       device="cpu")
+out = build_caption_step("densenet161", dcfg, 3, device="cpu")(
+    enc, dec, np.zeros((1, 64, 64, 3), np.float32))
+assert out["alphas"].shape == (1, 52, 4), out["alphas"].shape
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "sat_tpu"))
 assert not bad, bad

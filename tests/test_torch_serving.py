@@ -169,20 +169,67 @@ def test_bad_cached_request_is_answered_alone(pool, cached):
     assert server.stats["errors"] == 1 and server._requests.empty()
 
 
-@pytest.mark.parametrize("flag", [["--decode", "sample"], ["--fast-topk"],
+@pytest.mark.parametrize("flag", [["--mesh-data", "0"], ["--fast-topk"],
                                   ["--mesh-data", "2"], ["--no-pallas-topk"]])
 def test_unported_server_flags_raise(ckpt, flag):
+    """--decode sample is ported now (test_sampling_flags_are_accepted);
+    its case here became sat_tpu's --mesh-data 0 (every device), which the
+    port does not have either."""
     args = build_parser().parse_args(
         ["--model", ckpt["model"], "--device", "cpu"] + flag)
     with pytest.raises(NotImplementedError):
         build_server(args)
 
 
-@pytest.mark.parametrize("flag", [["--temperature", "0.7"], ["--top-k", "5"],
-                                  ["--top-p", "0.9"], ["--seed", "1"],
-                                  ["--bert-vocab", "vocab.txt"]])
+@pytest.mark.parametrize("flag", [["--bert-vocab", "vocab.txt"]])
 def test_sampling_and_bert_flags_are_rejected(flag):
-    """Nothing in the port reads sampling's or BERT's flags yet, so the
-    parser refuses them rather than ignoring them."""
+    """Nothing in the port reads BERT's flags yet, so the parser refuses
+    them rather than ignoring them (sampling's now parse:
+    test_sampling_flags_are_accepted)."""
     with pytest.raises(SystemExit):
         build_parser().parse_args(["--model", "m.npz"] + flag)
+
+
+@pytest.mark.parametrize("flag", [["--temperature", "0.7"], ["--top-k", "5"],
+                                  ["--top-p", "0.9"], ["--seed", "1"]])
+def test_sampling_flags_are_accepted(ckpt, monkeypatch, flag):
+    """Each sampling flag parses and reaches the sampler of a
+    `--decode sample` server, the others at their defaults."""
+    import sat_tpu_torch.engine.serving as serving
+    seen = []
+    plain = serving.sample_caption
+
+    def spy(dec, feats, generator, temperature, top_k, top_p, **kw):
+        seen.append((temperature, top_k, top_p, generator))
+        return plain(dec, feats, generator, temperature, top_k, top_p, **kw)
+
+    monkeypatch.setattr(serving, "sample_caption", spy)
+    args = build_parser().parse_args(
+        ["--model", ckpt["model"], "--encoder-weights", ckpt["encoder"],
+         "--device", "cpu", "--decode", "sample"] + flag)
+    server = build_server(args)
+    out = server._caption_fn(_images(2))
+    assert out["tokens"].shape == (2, 52)
+    want = {"--temperature": (0.7, 0, 1.0), "--top-k": (1.0, 5, 1.0),
+            "--top-p": (1.0, 0, 0.9), "--seed": (1.0, 0, 1.0)}[flag[0]]
+    assert seen[0][:3] == want
+    assert isinstance(seen[0][3], torch.Generator)
+
+
+def test_seeded_sample_server_replays_its_batches(ckpt):
+    """Batch i of a server started with --seed s draws from (s, i): two
+    servers answer the same batches alike, and a server's second batch
+    draws anew."""
+    def caption_fn():
+        args = build_parser().parse_args(
+            ["--model", ckpt["model"], "--encoder-weights", ckpt["encoder"],
+             "--device", "cpu", "--decode", "sample", "--temperature",
+             "3.0", "--seed", "3"])
+        return build_server(args)._caption_fn
+
+    images = _images(4)
+    runs = [[fn(images)["tokens"] for _ in range(2)]
+            for fn in (caption_fn(), caption_fn())]
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert not torch.equal(runs[0][0], runs[0][1])
