@@ -8,8 +8,9 @@ sources in the checkout and drives the port's serving path at the flagship
 width: VGG19 on 128 images of 224 px, then the beam at width 5 with the
 soft-attention + ado decoder (vocab 2633, E = D = 512), weights random from
 --seed, then the same at the width of the ResNet152 and DenseNet161
-encoders, sample decode, and the CLIs. Each phase prints one JSON line; a
-failed check exits non-zero and no result line is printed:
+encoders, sample decode, BERT captioning (E = 768, V = 30,522) and the
+CLIs. Each phase prints one JSON line; a failed check exits non-zero and
+no result line is printed:
 
   1. device  — needs CUDA; the card's name and power limit; TF32 off (the
                main path is exact f32)
@@ -31,7 +32,12 @@ failed check exits non-zero and no result line is printed:
                attention kernels (keys and features bf16) the same way,
                the forward at R = 5, B = 128 and R = 1, B = 64, the
                backward's bf16 dkeys within one bf16 unit in the last
-               place of the plain form's
+               place of the plain form's; the same kernels at the widths
+               of the encoders, the sampler and BERT (top-k over
+               (128, 152,610) rows at each cluster size, with ties on both
+               sides of every split; the sampler's (128, 30,522) at k = 10
+               and 50; the forward at E = 768, f32 and bf16, also on a
+               ragged last tile; the backward at E = 768)
   4. main    — the worst case (stop-token logits pinned to -1e9, so every
                beam runs all 51 steps) through a new build_caption_step,
                whose first batch captures the beam's CUDA graphs (the
@@ -63,6 +69,21 @@ failed check exits non-zero and no result line is printed:
                for bit (the CLI turns TF32 off itself); a fresh
                `serve --bf16-decode` process against this process's bf16
                step, bit for bit
+  5c. bert   — sat_tpu's default BERT run (VGG19, tf + ado + attention,
+               E = 768, V = 30,522, a random (30522, 768) table) at
+               B = 128, beam 5, worst case (the stop set {1, 0} pinned):
+               a new caption step's capture (host launches exactly), two
+               replays bit for bit, a profiled replay (51 top-k and
+               attention_fwd on the device, none from the host); the
+               decode through its graphs and eagerly, in turns; with
+               [PAD]'s bias raised, graph against eager and 8 images
+               against the CPU's plain forms (beam and greedy); greedy
+               and sample (k = 10 and 50) through their graphs against
+               eager, their profiles and peak memory; the bf16 decode;
+               then BERT bank training at B = 64 (one step against the
+               CPU, the table unchanged and outside Adam, launches and
+               profiles, K = 8 blocks against per-batch steps in turns,
+               one --bf16-attention step)
   6. train   — the flagship decoder (tf + ado + attention) in bank
                training at B = 64, captions (64, 27), a device bank of 512
                random feature grids: one step on the card against the same
@@ -105,6 +126,12 @@ failed check exits non-zero and no result line is printed:
                evaluate --split val (an in-process Trainer.validate's
                rows and BLEU), caption_split at --pipeline-depth 1 and 2
                (equal JSONL)
+  7c. bert_cli — the same dataset with BERT captions and a 30,522-line
+               vocab.txt written by the script: one blocked epoch of
+               `train --bert --bert-embeddings --bert-vocab` (BLEU, the
+               table in the `.npz` bit for bit the `.npy`), a fresh
+               `serve --bert-vocab` process against this process's words,
+               `generate_caption --bert-vocab`
 
 Then come the `{"kernels": [...]}` line, the card's name and power limit as
 nvidia-smi gives them, and last `{"ok": true, "device": {...}}`. Details go
@@ -414,6 +441,7 @@ def phase_kernels(dev, gen) -> list[dict]:
     rows.append(attention_bwd_row(peaks, sfu_s, issue_s, tanh_instr, hz, gen,
                                   bf16=True))
     wide = wide_rows(peaks, sfu_s, issue_s, tanh_instr, hz, gen)
+    bert = bert_kernel_rows(peaks, sfu_s, issue_s, tanh_instr, hz, gen)
     _SCRATCH.clear()          # the later phases' peak memory excludes it
     emit({"phase": "kernels", "peaks": peaks,
           "checks": {"topk": rows[0]["checks"],
@@ -446,8 +474,17 @@ def phase_kernels(dev, gen) -> list[dict]:
                                "bound_ms": r["bound_ms"],
                                "plain_ms": r["plain_ms"],
                                "library_ms": r["library_ms"]}
-                   for r in wide}})
-    return rows + wide
+                   for r in wide},
+          "bert": {r["name"]: {"shape": r["shape"],
+                               "max_abs_err": r["max_abs_err"],
+                               "ms": r["ms"], "cold_ms": r["cold_ms"],
+                               "bound_ms": r["bound_ms"],
+                               "plain_ms": r["plain_ms"],
+                               "library_ms": r["library_ms"],
+                               **({"variants": r["variants"]}
+                                  if "variants" in r else {})}
+                   for r in bert}})
+    return rows + wide + bert
 
 
 def same_bits(a, b) -> bool:
@@ -538,20 +575,21 @@ def stream_ms(fn, hz) -> dict:
             "stream_cold_ms": time_ms(fn, hz, cold=True)}
 
 
-def fwd_inputs(gen, Bx: int, R: int, Lx: int = L, Dx: int = D):
+def fwd_inputs(gen, Bx: int, R: int, Lx: int = L, Dx: int = D,
+               Ex: int = E):
     """attention_fwd's arguments at the main path's widths (or a grid of
-    Lx rows of Dx), on the card."""
+    Lx rows of Dx, keys of Ex), on the card."""
     import torch
-    keys = torch.randn((Bx, Lx, E), generator=gen).cuda()
+    keys = torch.randn((Bx, Lx, Ex), generator=gen).cuda()
     feats = torch.rand((Bx, Lx, Dx), generator=gen).cuda()
-    u_h = torch.randn((Bx * R, E), generator=gen).cuda()
-    v = (torch.randn((E,), generator=gen) / E ** 0.5).cuda()
+    u_h = torch.randn((Bx * R, Ex), generator=gen).cuda()
+    v = (torch.randn((Ex,), generator=gen) / Ex ** 0.5).cuda()
     b_v = torch.randn((1,), generator=gen).cuda()
     return keys, feats, u_h, v, b_v, R
 
 
 def fwd_bound_parts(Bx: int, R: int, peaks, sfu_s, grid_bytes: int = 4,
-                    L: int = L, D: int = D) -> dict:
+                    L: int = L, D: int = D, E: int = E) -> dict:
     """The forward's least times in ms: its bytes (inputs read once,
     outputs written once; keys and features `grid_bytes` an element, 2 in
     bf16) over the memory rate, its f32 operations (score add and
@@ -630,7 +668,7 @@ def attention_fwd_bf16_row(peaks, sfu_s, hz, gen) -> dict:
 
 def attention_bwd_row(peaks, sfu_s, issue_s, tanh_instr, hz, gen,
                       bf16: bool = False, L: int = L, D: int = D,
-                      row_name: str | None = None) -> dict:
+                      row_name: str | None = None, E: int = E) -> dict:
     """The backward kernel at the training shape (B = 64, R = 1) against
     its plain form, with dfeats asked and not, and two launches against
     each other; its times, warm and cold (the main path does not ask for
@@ -644,7 +682,7 @@ def attention_bwd_row(peaks, sfu_s, issue_s, tanh_instr, hz, gen,
                                                    attention_plain)
     Bt = TRAIN_B
     grid_bytes = 2 if bf16 else 4
-    keys, feats, u_h, v, b_v, _ = fwd_inputs(gen, Bt, 1, L, D)
+    keys, feats, u_h, v, b_v, _ = fwd_inputs(gen, Bt, 1, L, D, E)
     if bf16:
         keys, feats = keys.to(torch.bfloat16), feats.to(torch.bfloat16)
     dctx = torch.randn((Bt, D), generator=gen).cuda()
@@ -747,16 +785,16 @@ L_WIDE = 49
 SAMPLE_KS = (10, 50)        # the sample phase's top-k
 
 
-def fwd_row(name: str, peaks, sfu_s, hz, gen, Lx: int, Dx: int,
-            bf16: bool = False, R: int = BEAM, Bx: int = B) -> dict:
-    """attention_fwd (or its bf16 variant) at (Bx, Lx, E, Dx), R rows an
+def fwd_check(name: str, gen, Bx: int, R: int, Lx: int, Dx: int, Ex: int,
+              bf16: bool):
+    """attention_fwd (or its bf16 variant) at (Bx, Lx, Ex, Dx), R rows an
     image, against its plain form (ctx atol 1e-5, alpha atol 1e-6, as at
-    the main path's shape), two launches bit for bit, times warm and cold
-    beside the bound."""
+    the main path's shape) and two launches bit for bit: (its arguments,
+    its errors)."""
     import torch
     from sat_tpu_torch.ops.fused_attention import (attention_fwd,
                                                    attention_plain)
-    keys, feats, u_h, v, b_v, _ = fwd_inputs(gen, Bx, R, Lx, Dx)
+    keys, feats, u_h, v, b_v, _ = fwd_inputs(gen, Bx, R, Lx, Dx, Ex)
     if bf16:
         keys, feats = keys.to(torch.bfloat16), feats.to(torch.bfloat16)
     args = (keys, feats, u_h, v, b_v, R)
@@ -770,12 +808,25 @@ def fwd_row(name: str, peaks, sfu_s, hz, gen, Lx: int, Dx: int,
           f"{name}: errors {errs} above ctx 1e-5, alpha 1e-6")
     check(all(map(same_bits, (ctx, alpha), again)),
           f"{name}: two launches differ")
-    parts = fwd_bound_parts(Bx, R, peaks, sfu_s, 2 if bf16 else 4, Lx, Dx)
+    return args, errs
+
+
+def fwd_row(name: str, peaks, sfu_s, hz, gen, Lx: int, Dx: int,
+            bf16: bool = False, R: int = BEAM, Bx: int = B,
+            Ex: int = E) -> dict:
+    """`fwd_check` at (Bx, Lx, Ex, Dx), then times warm and cold beside
+    the bound."""
+    from sat_tpu_torch.ops.fused_attention import (attention_fwd,
+                                                   attention_plain)
+    args, errs = fwd_check(name, gen, Bx, R, Lx, Dx, Ex, bf16)
+    parts = fwd_bound_parts(Bx, R, peaks, sfu_s, 2 if bf16 else 4, Lx, Dx,
+                            Ex)
     row = {"name": name, "route": "cuda",
            "source": "sat_tpu_torch/ops/csrc/attention_fwd.cu",
            "replaces": "sat_tpu/ops/fused_attention.py:42",
-           "shape": f"keys ({Bx}, {Lx}, {E}), feats ({Bx}, {Lx}, {Dx})"
-                    f"{' bf16' if bf16 else ''}, u_h ({Bx * R}, {E}), R={R}",
+           "shape": f"keys ({Bx}, {Lx}, {Ex}), feats ({Bx}, {Lx}, {Dx})"
+                    f"{' bf16' if bf16 else ''}, u_h ({Bx * R}, {Ex}), "
+                    f"R={R}",
            "max_abs_err": max(errs.values()), "errors": errs,
            "ms": time_ms(lambda: attention_fwd(*args), hz),
            "cold_ms": time_ms(lambda: attention_fwd(*args), hz, cold=True),
@@ -790,16 +841,17 @@ def fwd_row(name: str, peaks, sfu_s, hz, gen, Lx: int, Dx: int,
     return row
 
 
-def sample_topk_row(k: int, peaks, hz, gen) -> dict:
-    """Top-k at the sampler's rows, (B, VOCAB) f32, at k: the cluster
+def sample_topk_row(k: int, peaks, hz, gen, vocab: int = VOCAB,
+                    name: str | None = None) -> dict:
+    """Top-k at the sampler's rows, (B, vocab) f32, at k: the cluster
     kernel for k <= 16, the k-round kernel above; bit for bit against its
     plain form on random and adversarial rows, two launches alike, times
     warm and cold beside the bound and torch.topk's."""
     import torch
     from sat_tpu_torch.ops.topk import topk, topk_plain
-    x = torch.randn((B, VOCAB), generator=gen).cuda()
-    adv = torch.randn((B, VOCAB), generator=gen)
-    adv[0] = torch.randint(0, 3, (VOCAB,), generator=gen).float()
+    x = torch.randn((B, vocab), generator=gen).cuda()
+    adv = torch.randn((B, vocab), generator=gen)
+    adv[0] = torch.randint(0, 3, (vocab,), generator=gen).float()
     adv[1] = float("-inf")
     adv[2, ::5] = float("nan")
     adv[3, 7:] = float("-inf")
@@ -815,10 +867,10 @@ def sample_topk_row(k: int, peaks, hz, gen) -> dict:
     n = x.numel()
     t_bytes = (4 * n + B * k * (4 + 8)) / peaks["bytes_s"]
     t_ops = n / peaks["f32_s"]
-    row = {"name": f"topk_k{k}", "route": "cuda",
+    row = {"name": name or f"topk_k{k}", "route": "cuda",
            "source": "sat_tpu_torch/ops/csrc/topk.cu",
            "replaces": "sat_tpu/ops/topk.py:41",
-           "shape": f"x ({B}, {VOCAB}) f32, k={k}", "max_abs_err": 0.0,
+           "shape": f"x ({B}, {vocab}) f32, k={k}", "max_abs_err": 0.0,
            "ms": time_ms(lambda: topk(x, k), hz),
            "cold_ms": time_ms(lambda: topk(x, k), hz, cold=True),
            "plain_ms": time_ms(lambda: topk_plain(x, k), hz),
@@ -907,7 +959,6 @@ def beam_blocks(steps: int, sync_every: int) -> set:
 
 
 def phase_main(dcfg, dec_flat, worst_flat, enc_flat, images) -> dict:
-    import numpy as np
     import torch
     from sat_tpu_torch.compat.jax_params import (decoder_from_jax,
                                                  encoder_from_jax)
@@ -1055,51 +1106,10 @@ def phase_main(dcfg, dec_flat, worst_flat, enc_flat, images) -> dict:
     # ids not pinned, so some beams complete), beam and greedy; the card
     # side eager, whose launches the wrappers count (the graph paths equal
     # it, above)
-    n = 8
     enc_cpu = encoder_from_jax(enc_flat, "vgg19", "cpu")
     dec_cpu = decoder_from_jax(dec_flat, dcfg, "cpu")
-    ref = {}
-    for decode in ("beam", "greedy"):
-        reset_launches()
-        g = build_caption_step("vgg19", dcfg, BEAM, decode=decode,
-                               device="cuda", graphs=False)(
-            enc, dec_gpu, images[:n])
-        torch.cuda.synchronize()
-        got = read_launches()
-        if decode == "greedy":       # all 51 steps, argmax and no top-k
-            check(got == counts(attention_fwd=STEPS),
-                  f"greedy: launches {got}, expected attention_fwd "
-                  f"{STEPS} and no other")
-        else:                        # one of each a step, until all complete
-            check(got["topk"] == got["attention_fwd"]
-                  and 1 <= got["topk"] <= STEPS
-                  and got == counts(topk=got["topk"],
-                                    attention_fwd=got["topk"]),
-                  f"beam: launches {got}, expected equal counts of top-k "
-                  f"and attention_fwd in 1..{STEPS} and no other")
-        c = build_caption_step("vgg19", dcfg, BEAM, decode=decode,
-                               device="cpu")(enc_cpu, dec_cpu, images[:n])
-        g = {k: v.cpu().numpy() for k, v in g.items()}
-        c = {k: v.cpu().numpy() for k, v in c.items()}
-        agree, diverged = 0, []
-        for i in range(n):
-            same = bool(np.array_equal(g["tokens"][i], c["tokens"][i])
-                        and g["length"][i] == c["length"][i]
-                        and g["found"][i] == c["found"][i])
-            agree += same
-            if not same:
-                diverged.append({
-                    "image": i,
-                    "first_step": first_diff(g["tokens"][i], c["tokens"][i]),
-                    "score_gap": float(abs(g["score"][i] - c["score"][i]))})
-        ref[decode] = {"agree": agree, "of": n, "launches": got,
-                       "found": int(g["found"].sum()),
-                       "max_score_err": float(np.max(np.abs(
-                           np.where(g["found"], g["score"], 0)
-                           - np.where(c["found"], c["score"], 0)))),
-                       "diverged": diverged}
-        check(agree >= n - 1, f"{decode}: GPU and CPU agree on {agree} of "
-                              f"{n} images")
+    ref = cpu_agreement("vgg19", dcfg, enc, dec_gpu, enc_cpu, dec_cpu,
+                        images, "main")
     check(ref["beam"]["found"] > 0, "no beam completed in the CPU check")
 
     def busy(p):
@@ -2340,7 +2350,7 @@ def run_diff(dir_a: str, dir_b: str, step: int) -> dict:
     return diffs
 
 
-def phase_entry(enc_flat, wide) -> dict:
+def phase_entry(enc_flat, wide, seed: int) -> dict:
     """`python -m sat_tpu_torch.train` for one epoch and its test pass on
     a dataset on disk; the same run preempted by SIGUSR1 after its first
     step and finished by `--resume`, which must end with the same decoder
@@ -2606,6 +2616,7 @@ def phase_entry(enc_flat, wide) -> dict:
                if bool(cap["found"][0]) else [0])
         caption = " ".join(decode_caption(row, word_dict))
         cli = phase_cli(root, ckpt_dir, enc_path, wide["resnet152"])
+        bert_cli = phase_bert_cli(root, enc_path, seed)
     res = {"phase": "entry", "images": ENTRY_IMAGES, "seconds": seconds,
            "launches": run_launches, "test": last, "bleu": bleu,
            "test_seconds": test_seconds[0], "plots": len(plots),
@@ -2628,7 +2639,7 @@ def phase_entry(enc_flat, wide) -> dict:
            "densenet161_launches": dn_launches, "densenet161_test": dn_last,
            "caption": caption, "log_tail": log.splitlines()[-6:]}
     emit(res)
-    res["cli"] = cli
+    res.update(cli=cli, bert_cli=bert_cli)
     return res
 
 
@@ -2740,25 +2751,745 @@ def phase_cli(root: str, ckpt_dir: str, enc_path: str, resnet) -> dict:
     return res
 
 
+# ------------------------------------------------------------------ BERT
+
+# sat_tpu_torch.constants: BERT_VOCAB_SIZE, BERT_HIDDEN_SIZE, the special
+# ids, and the BERT beam's completion ids ([unused0] and [PAD])
+BERT_V, BERT_E = 30522, 768
+BERT_PAD, BERT_CLS, BERT_SEP = 0, 101, 102
+BERT_STOP_IDS = (1, 0)
+
+
+def bert_topk_inputs(gen):
+    """The BERT beam's candidate block, (B, 5 x 30,522): random rows with
+    step 1's layout in 8 of them (row 0 live only), and adversarial rows:
+    equal maxima on both sides of each split point of the rows between the
+    blocks of a cluster of 2 (rows 8-23) and of 4 (rows 24-39), and at the
+    head/float4 and float4/tail cuts; ties, -inf, NaN and signed zeros.
+    A row is 610,440 bytes, 8 mod 16, so its start alternates between 0
+    and 8 mod 16 and its head between 0 and 2 scalars."""
+    import torch
+    n = BEAM * BERT_V
+    x = torch.randn((B, n), generator=gen)
+    x[:8, BERT_V:] = float("-inf")
+    adv = torch.randn((B, n), generator=gen)
+    adv[0] = torch.randint(0, 3, (n,), generator=gen).float()
+    adv[1] = float("-inf")
+    adv[2, ::3] = float("nan")
+    adv[3] = 0.0
+    adv[3, ::2] = -0.0
+    adv[4, :n - 3] = float("-inf")             # the tail only
+    for row in range(8, 40):
+        cluster = 2 if row < 24 else 4
+        head = (16 - (4 * n * row) % 16) % 16 // 4   # allocations: 16 B
+        nvec = (n - head) // 4
+        per = -(-nvec // cluster)
+        cuts = [head + 4 * per * r for r in range(1, cluster)]
+        cuts += [max(head, 1), head + 4 * nvec]
+        for cut in cuts:
+            adv[row, cut - 1:cut + 1] = 9.0 + row % 3
+    return x.cuda(), adv.cuda()
+
+
+def bert_topk_row(peaks, hz, gen) -> dict:
+    """Top-k at the BERT beam's rows, (128, 152,610), k = 5, bit for bit
+    against its plain form on random and adversarial rows at the wrapper's
+    cluster size and at each of 1, 2 and 4; two launches alike; times warm
+    and cold beside the bound, the plain form's and torch.topk's."""
+    import torch
+    from sat_tpu_torch.ops.topk import cluster_size, launch, topk, topk_plain
+    x, adv = bert_topk_inputs(gen)
+    checks = []
+    for label, inp in (("random", x), ("adversarial", adv)):
+        pv, pi = topk_plain(inp, BEAM)
+        for c in ("wrapper", 1, 2, 4):
+            kv, ki = (topk(inp, BEAM) if c == "wrapper"
+                      else launch(inp, BEAM, c))
+            torch.cuda.synchronize()
+            check(torch.equal(ki, pi) and same_bits(kv, pv),
+                  f"topk_bert: differs from its plain form on {label} rows "
+                  f"at cluster {c}")
+            checks.append(f"{label}, cluster {c}")
+    check(all(map(same_bits, topk(x, BEAM), topk(x, BEAM))),
+          "topk_bert: two launches differ")
+    n = x.numel()
+    t_bytes = (4 * n + B * BEAM * (4 + 8)) / peaks["bytes_s"]
+    t_ops = n / peaks["f32_s"]
+    row = {"name": "topk_bert", "route": "cuda",
+           "source": "sat_tpu_torch/ops/csrc/topk.cu",
+           "replaces": "sat_tpu/ops/topk.py:41",
+           "shape": f"x ({B}, {BEAM * BERT_V}) f32, k={BEAM}",
+           "max_abs_err": 0.0, "checks": checks + ["two launches"],
+           "cluster": cluster_size(B),
+           "ms": time_ms(lambda: topk(x, BEAM), hz),
+           "cold_ms": time_ms(lambda: topk(x, BEAM), hz, cold=True),
+           "plain_ms": time_ms(lambda: topk_plain(x, BEAM), hz),
+           "library_ms": time_ms(lambda: torch.topk(x, BEAM, dim=1), hz),
+           **stream_ms(lambda: torch.amax(x, dim=1), hz),
+           "ms_by_cluster": {c: time_ms(lambda: launch(x, BEAM, c), hz)
+                             for c in (1, 2, 4)},
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    row.update(shares(row))
+    return row
+
+
+def bert_kernel_rows(peaks, sfu_s, issue_s, tanh_instr, hz, gen) -> list:
+    """The kernels at BERT's shapes (E = 768, V = 30,522): top-k on the
+    beam's rows and on the sampler's at k = 10 and 50; the forward at the
+    beam's R = 5, B = 128 and training's R = 1, B = 64, f32 and bf16, and
+    on a grid of L = 199 whose last block ends in a ragged tile in both
+    types (f32 tiles of 2 key rows, bf16 of 5); the backward at (64, 196,
+    768, 512), f32 and bf16."""
+    rows = [bert_topk_row(peaks, hz, gen)]
+    rows += [sample_topk_row(k, peaks, hz, gen, vocab=BERT_V,
+                             name=f"topk_bert_k{k}") for k in SAMPLE_KS]
+    for bf16 in (False, True):
+        name = f"attention_fwd{'_bf16' if bf16 else ''}_e768"
+        row = fwd_row(name, peaks, sfu_s, hz, gen, L, D, bf16, Ex=BERT_E)
+        r1 = fwd_row(name, peaks, sfu_s, hz, gen, L, D, bf16, R=1,
+                     Bx=TRAIN_B, Ex=BERT_E)
+        _, ragged = fwd_check(name, gen, 4, BEAM, 199, D, BERT_E, bf16)
+        row["variants"] = {"r1_b64": {k: r1[k] for k in (
+            "shape", "ms", "cold_ms", "plain_ms", "bound_ms", "bound_share",
+            "errors")}}
+        row["errors_ragged_l199"] = ragged
+        row["max_abs_err"] = max(row["max_abs_err"], r1["max_abs_err"],
+                                 *ragged.values())
+        rows.append(row)
+    for bf16 in (False, True):
+        rows.append(attention_bwd_row(
+            peaks, sfu_s, issue_s, tanh_instr, hz, gen, bf16=bf16,
+            E=BERT_E, row_name=f"attention_bwd{'_bf16' if bf16 else ''}"
+                               f"_e768"))
+    return rows
+
+
+def write_bert_vocab(path: str) -> str:
+    """A 30,522-line vocab.txt with bert-base-uncased's special-token
+    layout ([PAD] 0, [unused0-98] 1-99, [UNK] 100, [CLS] 101, [SEP] 102,
+    [MASK] 103), then words, every fourth a word piece."""
+    lines = ["[PAD]"] + [f"[unused{i}]" for i in range(99)]
+    lines += ["[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    lines += [f"##p{i}" if i % 4 == 0 else f"w{i}"
+              for i in range(BERT_V - len(lines))]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def make_bert_captions(gen, rows: int):
+    """(rows, CAP_LEN) int32 captions in sat_tpu's BERT layout: [CLS], 8 to
+    25 word ids, [PAD] up to the last column, then [SEP]."""
+    import torch
+    caps = torch.full((rows, CAP_LEN), BERT_PAD, dtype=torch.int32)
+    caps[:, 0] = BERT_CLS
+    caps[:, -1] = BERT_SEP
+    for i, n in enumerate(torch.randint(8, CAP_LEN - 1, (rows,),
+                                        generator=gen).tolist()):
+        caps[i, 1:n + 1] = torch.randint(104, BERT_V, (n,), generator=gen,
+                                         dtype=torch.int32)
+    return caps
+
+
+def bert_weights(seed: int):
+    """sat_tpu's default BERT run's decoder (tf + ado + attention, VGG19's
+    D = 512, E = 768, V = 30,522): random weights from the seed with a
+    random table (N(0, 0.02)), and the worst case: the stop set's logits
+    pinned to -1e9."""
+    import torch
+    from sat_tpu_torch.models.decoder import DecoderConfig, init_decoder_params
+    gen = torch.Generator().manual_seed(seed + 9)
+    dcfg = DecoderConfig(vocab_size=BERT_V, encoder_dim=D, use_tf=True,
+                         use_ado=True, use_bert=True, use_attention=True)
+    table = (torch.randn((BERT_V, BERT_E), generator=gen) * 0.02).numpy()
+    flat = init_decoder_params(dcfg, gen, bert_embeddings=table)
+    worst = dict(flat)
+    bias = worst["ado/f_out/b"].copy()
+    bias[list(BERT_STOP_IDS)] = -1e9
+    worst["ado/f_out/b"] = bias
+    return dcfg, table, flat, worst
+
+
+def pad_boost(dec, feats) -> float:
+    """A rise of [PAD]'s output bias with which some beams complete: the
+    median, over the images, of the gap between the largest logit of the
+    first step and [PAD]'s."""
+    import torch
+    from sat_tpu_torch.models.decoder import (decode_step, embed_tokens,
+                                              init_lstm_state)
+    with torch.inference_mode():
+        h, c = init_lstm_state(dec, feats)
+        emb = embed_tokens(dec, torch.full((feats.shape[0],), BERT_CLS,
+                                           device=feats.device))
+        logits = decode_step(dec, feats, dec.attention.W(feats), h, c,
+                             emb)[2]
+        gap = logits.max(dim=1).values - logits[:, BERT_PAD]
+    return float(gap.median())
+
+
+def cpu_agreement(network, dcfg, enc, dec_gpu, enc_cpu, dec_cpu, images,
+                  tag: str, n: int = 8) -> dict:
+    """n images captioned on the card (eager, its launches counted) and on
+    the CPU with the plain forms, beam and greedy: tokens, length and
+    completion equal on all but at most one image."""
+    import numpy as np
+    import torch
+    from sat_tpu_torch.engine.serving import build_caption_step
+    ref = {}
+    for decode in ("beam", "greedy"):
+        reset_launches()
+        g = build_caption_step(network, dcfg, BEAM, decode=decode,
+                               device="cuda", graphs=False)(
+            enc, dec_gpu, images[:n])
+        torch.cuda.synchronize()
+        got = read_launches()
+        if decode == "greedy":       # all 51 steps, argmax and no top-k
+            check(got == counts(attention_fwd=STEPS),
+                  f"{tag} greedy: launches {got}, expected attention_fwd "
+                  f"{STEPS} and no other")
+        else:                        # one of each a step, until all complete
+            check(1 <= got["topk"] <= STEPS
+                  and got == counts(topk=got["topk"],
+                                    attention_fwd=got["topk"]),
+                  f"{tag} beam: launches {got}, expected equal counts of "
+                  f"top-k and attention_fwd in 1..{STEPS} and no other")
+        c = build_caption_step(network, dcfg, BEAM, decode=decode,
+                               device="cpu")(enc_cpu, dec_cpu, images[:n])
+        g = {k: v.cpu().numpy() for k, v in g.items()}
+        c = {k: v.cpu().numpy() for k, v in c.items()}
+        agree, diverged = 0, []
+        for i in range(n):
+            same = bool(np.array_equal(g["tokens"][i], c["tokens"][i])
+                        and g["length"][i] == c["length"][i]
+                        and g["found"][i] == c["found"][i])
+            agree += same
+            if not same:
+                diverged.append({
+                    "image": i,
+                    "first_step": first_diff(g["tokens"][i], c["tokens"][i]),
+                    "score_gap": float(abs(g["score"][i] - c["score"][i]))})
+        ref[decode] = {"agree": agree, "of": n, "launches": got,
+                       "found": int(g["found"].sum()),
+                       "max_score_err": float(np.max(np.abs(
+                           np.where(g["found"], g["score"], 0)
+                           - np.where(c["found"], c["score"], 0)))),
+                       "diverged": diverged}
+        check(agree >= n - 1, f"{tag} {decode}: GPU and CPU agree on "
+                              f"{agree} of {n} images")
+    return ref
+
+
+def phase_bert(seed: int, enc_flat, images) -> dict:
+    """BERT serving on the card (sat_tpu's default BERT run: VGG19, tf +
+    ado + attention, E = 768, V = 30,522, random weights and table from
+    the seed), then BERT training (`bert_train`)."""
+    import torch
+    from sat_tpu_torch.compat.jax_params import (decoder_from_jax,
+                                                 encoder_from_jax)
+    from sat_tpu_torch.engine.serving import build_caption_step
+    from sat_tpu_torch.models.beam import (SYNC_EVERY, batch_generator,
+                                           beam_search_batched,
+                                           greedy_caption, sample_caption)
+    from sat_tpu_torch.models.encoder import encoder_forward
+    from sat_tpu_torch.utils.graphs import GraphCache
+
+    dcfg, table, flat, worst = bert_weights(seed)
+    enc = encoder_from_jax(enc_flat, "vgg19", "cuda")
+    dec = decoder_from_jax(worst, dcfg, "cuda")
+    want = 2 * sum(beam_blocks(STEPS, SYNC_EVERY))
+
+    # (a) the worst case through a new caption step: the capturing batch's
+    # host launches exactly, two replays bit for bit, a profiled replay
+    # (no host launch, STEPS of top-k and attention_fwd on the device)
+    step = build_caption_step("vgg19", dcfg, BEAM, device="cuda")
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = step(enc, dec, images)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    host_launches = read_launches()
+    check(host_launches == counts(topk=want, attention_fwd=want),
+          f"bert: the capturing batch's host launches {host_launches}, "
+          f"expected {want} of top-k and attention_fwd")
+    t0 = time.perf_counter()
+    second = step(enc, dec, images)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    replayed = {}
+    reset_launches()
+    main_profile = profile_run(lambda: replayed.update(step(enc, dec,
+                                                            images)))
+    device_launches = main_profile.get("kernel_calls")
+    check(read_launches() == counts() and device_launches
+          == counts(topk=STEPS, attention_fwd=STEPS),
+          f"bert: the replayed batch's device launches {device_launches}, "
+          f"expected {STEPS} of top-k and attention_fwd and none from the "
+          f"host")
+    for again in (second, replayed):
+        check(not [k for k in again if not same_bits(again[k], first[k])],
+              "bert: a replayed batch differs from the captured one")
+    check(tuple(first["tokens"].shape) == (B, 1 + STEPS)
+          and not first["found"].any().item()
+          and bool(torch.isfinite(first["alphas"]).all()),
+          "bert: tokens, found or alphas of the worst case wrong")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    wall_ms = [wall_s * 1e3] + [host_ms(lambda: step(enc, dec, images))
+                                for _ in range(2)]
+    enc_ms = host_ms(lambda: encoder_forward(enc, "vgg19", images))
+    feats = encoder_forward(enc, "vgg19", images)
+
+    # the decode through its graphs and eagerly, in turns
+    graphs = {"graph": GraphCache(), "eager": None}
+    decodes = {m: (lambda m=m: beam_search_batched(dec, feats, BEAM,
+                                                   graphs=graphs[m]))
+               for m in graphs}
+    decoded = {m: decodes[m]() for m in graphs}
+    diff = results_equal(decoded["eager"], decoded["graph"])
+    check(not diff, f"bert beam: graph and eager differ in {diff}")
+    decode_ms = {m: [] for m in graphs}
+    for m in ("graph", "eager", "eager", "graph", "graph", "eager"):
+        decode_ms[m].append(host_ms(decodes[m]))
+    profile = {"main": main_profile,
+               "decode_graph": profile_run(decodes["graph"])}
+
+    # (b) [PAD]'s bias raised so that beams complete: graph against eager
+    # at B = 128, and 8 images on the card against the CPU's plain forms
+    seeded = dict(flat)
+    boost = pad_boost(decoder_from_jax(flat, dcfg, "cuda"), feats[:32])
+    bias = seeded["ado/f_out/b"].copy()
+    bias[BERT_PAD] += boost
+    seeded["ado/f_out/b"] = bias
+    dec_s = decoder_from_jax(seeded, dcfg, "cuda")
+    eager = beam_search_batched(dec_s, feats, BEAM)
+    graph = beam_search_batched(dec_s, feats, BEAM, graphs=GraphCache())
+    diff = results_equal(eager, graph)
+    check(not diff, f"bert beam, seeded: graph and eager differ in {diff}")
+    check(bool(eager.found.any()), "bert beam, seeded: no beam completed")
+    stops = eager.tokens[torch.arange(B, device="cuda"), eager.length]
+    check(bool(torch.isin(stops[eager.found],
+                          torch.tensor(BERT_STOP_IDS, device="cuda")).all())
+          and bool((eager.tokens[eager.found, 0] == BERT_CLS).all()),
+          "bert beam, seeded: a sentence does not run from [CLS] to 1 or 0")
+    lengths = eager.length[eager.found]
+    cpu = cpu_agreement("vgg19", dcfg, enc, dec_s,
+                        encoder_from_jax(enc_flat, "vgg19", "cpu"),
+                        decoder_from_jax(seeded, dcfg, "cpu"), images,
+                        "bert")
+    check(cpu["beam"]["found"] > 0, "bert: no beam completed on 8 images")
+
+    # (c) greedy and sample through their graphs, against eager
+    cache = GraphCache()
+    g_graph = greedy_caption(dec, feats, with_alphas=True, graphs=cache)
+    g_eager = greedy_caption(dec, feats, with_alphas=True)
+    diff = results_equal(g_eager, g_graph)
+    check(not diff, f"bert greedy: graph and eager differ in {diff}")
+    profile["greedy"] = prof = profile_run(
+        lambda: greedy_caption(dec, feats, graphs=cache))
+    check(prof.get("kernel_calls") == counts(attention_fwd=STEPS),
+          f"bert greedy: the profile shows kernels "
+          f"{prof.get('kernel_calls')}, expected {STEPS} of attention_fwd")
+    greedy_ms = [host_ms(lambda: greedy_caption(dec, feats, graphs=cache))
+                 for _ in range(3)]
+    sample = {}
+    for k in SAMPLE_KS:
+        knobs = dict(temperature=0.8, top_k=k, top_p=0.9)
+        sstep = build_caption_step("vgg19", dcfg, BEAM, decode="sample",
+                                   device="cuda", **knobs)
+        seager = build_caption_step("vgg19", dcfg, BEAM, decode="sample",
+                                    device="cuda", graphs=False, **knobs)
+        torch.cuda.reset_peak_memory_stats()
+        runs = [sstep(enc, dec, images, batch_generator(3, 0, "cuda"))
+                for _ in range(2)]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        reset_launches()
+        replay = {}
+        prof = profile_run(lambda: replay.update(sstep(
+            enc, dec, images, batch_generator(3, 0, "cuda"))))
+        calls = prof.get("kernel_calls")
+        check(read_launches() == counts()
+              and calls == counts(topk=STEPS, attention_fwd=STEPS),
+              f"bert sample k={k}: the replayed batch's device launches "
+              f"{calls}, expected {STEPS} of top-k and attention_fwd")
+        ref = seager(enc, dec, images, batch_generator(3, 0, "cuda"))
+        for got in runs + [replay]:
+            check(not [f for f in ref if not same_bits(ref[f], got[f])],
+                  f"bert sample k={k}: a replay differs from the eager "
+                  f"step for one seed")
+
+        def decode_only(k=k):
+            return sample_caption(dec, feats, batch_generator(3, 0, "cuda"),
+                                  0.8, k, 0.9, graphs=cache)
+
+        decode_only()                                   # its capture
+        sample[f"k{k}"] = {
+            "decode_ms": [host_ms(decode_only) for _ in range(3)],
+            "device_launches": calls, "peak_mem_gb": peak,
+            "noise_gb": STEPS * B * BERT_V * 4 / 1e9,
+            "wall_ms": [host_ms(lambda: sstep(enc, dec, images,
+                                              batch_generator(3, 0, "cuda")))
+                        for _ in range(3)],
+            "device_busy_ms": prof.get("device_busy_ms"),
+            "mean_length": float(ref["length"].float().mean())}
+
+    # (d) the bf16 decode: the forward's bf16 variant at E = 768
+    step16 = build_caption_step("vgg19", dcfg, BEAM, bf16=True,
+                                device="cuda")
+    reset_launches()
+    first16 = step16(enc, dec, images)
+    torch.cuda.synchronize()
+    host16 = read_launches()
+    check(host16 == counts(topk=want, attention_fwd_bf16=want),
+          f"bert bf16: the capturing batch's host launches {host16}")
+    replay16 = {}
+    reset_launches()
+    profile["bf16"] = profile_run(lambda: replay16.update(
+        step16(enc, dec, images)))
+    device16 = profile["bf16"].get("kernel_calls")
+    check(read_launches() == counts() and device16
+          == counts(topk=STEPS, attention_fwd_bf16=STEPS),
+          f"bert bf16: the replayed batch's device launches {device16}")
+    check(not [k for k in first16 if not same_bits(first16[k],
+                                                   replay16[k])]
+          and not first16["found"].any().item(),
+          "bert bf16: a replay differs from the captured batch")
+    steps = {"f32": step, "bf16": step16}
+    turns = {m: [] for m in steps}
+    for m in ("f32", "bf16", "bf16", "f32", "f32", "bf16"):
+        turns[m].append(host_ms(lambda m=m: steps[m](enc, dec, images)))
+
+    train = bert_train(seed, table)
+    res = {"phase": "bert", "images": B, "beam": BEAM, "steps": STEPS,
+           "vocab": BERT_V, "embedding": BERT_E,
+           "first_call_s": first_s, "capture_s": step.graphs.capture_seconds,
+           "wall_ms": wall_ms,
+           "captions_per_s": B * 1e3 / statistics.median(wall_ms),
+           "encoder_ms": enc_ms, "decode_ms": decode_ms,
+           "peak_mem_gb": peak_gb, "host_launches": host_launches,
+           "device_launches": device_launches,
+           "device_busy_share": {k: v.get("device_busy_share")
+                                 for k, v in profile.items()},
+           "device_busy_ms": {k: v.get("device_busy_ms")
+                              for k, v in profile.items()},
+           "pad_boost": boost, "seeded_found": int(eager.found.sum()),
+           "seeded_lengths": sorted(set(lengths.tolist())),
+           "cpu_check": cpu, "greedy_ms": greedy_ms, "sample": sample,
+           "bf16": {"host_launches": host16, "device_launches": device16,
+                    "wall_ms": turns,
+                    "captions_per_s": {m: B * 1e3 / statistics.median(v)
+                                       for m, v in turns.items()}},
+           "train": train, "profile": profile}
+    emit({k: v for k, v in res.items() if k not in ("profile", "train")}
+         | {"train": {k: v for k, v in train.items()
+                      if k not in ("profile", "block_profile",
+                                   "bf16_profile")}})
+    return res
+
+
+def bert_train(seed: int, table) -> dict:
+    """BERT bank training at B = 64 on BERT-layout captions of 27 tokens
+    (26 steps), remat on, dropout 0.5: one step on the card against the
+    CPU (dropout 0), both leaving the table as it was; a step's launches
+    and profile; K = 8 blocks against per-batch steps in turns (ms a step,
+    rows/s, peak memory), the block's host and device launches; the table
+    bit for bit unchanged after a block, and not among Adam's parameters;
+    one --bf16-attention step's launches and profile."""
+    import dataclasses
+
+    import torch
+    from sat_tpu_torch.compat.jax_params import (decoder_from_jax,
+                                                 decoder_to_jax)
+    from sat_tpu_torch.models.decoder import DecoderConfig, init_decoder_params
+    from sat_tpu_torch.parallel.train_step import (init_train_state,
+                                                   make_bank_train_block,
+                                                   make_bank_train_step)
+
+    gen = torch.Generator().manual_seed(seed + 11)
+    dcfg = DecoderConfig(vocab_size=BERT_V, encoder_dim=D, use_tf=True,
+                         use_ado=True, use_bert=True, use_attention=True)
+    flat = init_decoder_params(dcfg, gen, bert_embeddings=table)
+    bank = torch.rand((BANK_U, L, D), generator=gen)
+    caps = make_bert_captions(gen, BANK_N)
+    batches = [(torch.randint(0, BANK_U, (TRAIN_B,), generator=gen),
+                torch.randint(0, BANK_N, (TRAIN_B,), generator=gen))
+               for _ in range(K_BLOCK)]
+    bank_gpu, caps_gpu = bank.cuda(), caps.cuda()
+    batches_gpu = [(i.cuda(), r.cuda()) for i, r in batches]
+    table_t = torch.from_numpy(table)
+
+    # (a) one step, card against CPU, dropout 0
+    exact = dataclasses.replace(dcfg, dropout_rate=0.0)
+    after = {}
+    for device, fb, cb, (ii, ri) in (("cpu", bank, caps, batches[0]),
+                                     ("cuda", bank_gpu, caps_gpu,
+                                      batches_gpu[0])):
+        state = init_train_state(decoder_from_jax(flat, exact, device,
+                                                  trainable=True))
+        state, m = make_bank_train_step(exact, 1.0)(state, fb, cb, ii, ri,
+                                                    PARITY_LR, None)
+        check(torch.equal(state.decoder.embedding.weight.cpu(), table_t),
+              f"bert train ({device}): a step moved the table")
+        after[device] = (float(m["loss"]), decoder_to_jax(state.decoder))
+    (cpu_loss, cpu_p), (gpu_loss, gpu_p) = after["cpu"], after["cuda"]
+    loss_rel = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
+    check(loss_rel <= 1e-5, f"bert train: card loss {gpu_loss} vs CPU "
+                            f"{cpu_loss}")
+    param_err = {}
+    for name, ref in cpu_p.items():
+        param_err[name] = err = float(abs(gpu_p[name] - ref).max())
+        bound = 2.05 * PARITY_LR if name == "attention/v/b" else 3e-4
+        check(err <= bound, f"bert train: {name} differs by {err} > "
+                            f"{bound} after one step")
+
+    # (b) a step's launches and profile, then blocks against per-batch
+    # steps in turns
+    state = init_train_state(decoder_from_jax(flat, dcfg, "cuda",
+                                              trainable=True))
+    dgen = torch.Generator(device="cuda").manual_seed(seed)
+    one = make_bank_train_step(dcfg, 1.0)
+    block = make_bank_train_block(dcfg, 1.0)
+    blk_img = torch.stack([i for i, _ in batches_gpu])
+    blk_row = torch.stack([r for _, r in batches_gpu])
+    step_launches = counts(attention_fwd=2 * T, attention_bwd=T)
+
+    def run(n):
+        nonlocal state
+        for i in range(n):
+            ii, ri = batches_gpu[i % K_BLOCK]
+            state, _ = one(state, bank_gpu, caps_gpu, ii, ri, 1e-4, dgen)
+
+    def run_blocks(n):
+        nonlocal state
+        for _ in range(n):
+            state, _ = block(state, bank_gpu, caps_gpu, blk_img, blk_row,
+                             1e-4, dgen)
+
+    reset_launches()
+    run(1)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(launches == step_launches, f"bert train: a step's launches "
+                                     f"{launches}, expected {step_launches}")
+    run(2)                                            # warm-up
+    reset_launches()
+    profile = profile_run(lambda: run(1))
+    check(profile.get("kernel_calls") == read_launches() == step_launches,
+          f"bert train: the step's profile shows kernels "
+          f"{profile.get('kernel_calls')}")
+    reset_launches()
+    run_blocks(1)
+    torch.cuda.synchronize()
+    block_launches = read_launches()
+    check(block_launches == {k: 2 * v for k, v in step_launches.items()},
+          f"bert train block: host launches {block_launches}, expected "
+          f"twice a step's (warm-up and capture)")
+    check(torch.equal(state.decoder.embedding.weight.cpu(), table_t),
+          "bert train: a block moved the table")
+    tracked = {id(p) for g in state.optimizer.param_groups
+               for p in g["params"]}
+    check(id(state.decoder.embedding.weight) not in tracked
+          and state.decoder.embedding.weight not in state.optimizer.state,
+          "bert train: the table is among Adam's parameters")
+    block_profile = profile_run(lambda: run_blocks(1))
+    calls = block_profile.get("kernel_calls")
+    check(calls == {k: K_BLOCK * v for k, v in step_launches.items()},
+          f"bert train block: the profile shows kernels {calls}")
+    n_timed = 2 * K_BLOCK
+    timing = {m: {"ms_per_step": [], "peak_mem_gb": []}
+              for m in ("per_batch", "blocked")}
+    for m in ("per_batch", "blocked", "blocked", "per_batch"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run_blocks(n_timed // K_BLOCK) if m == "blocked" else run(n_timed)
+        torch.cuda.synchronize()
+        timing[m]["ms_per_step"].append(
+            (time.perf_counter() - t0) * 1e3 / n_timed)
+        timing[m]["peak_mem_gb"].append(
+            torch.cuda.max_memory_allocated() / 1e9)
+    for t in timing.values():
+        t["rows_per_s"] = TRAIN_B * 1e3 / statistics.mean(t["ms_per_step"])
+    check(torch.equal(state.decoder.embedding.weight.cpu(), table_t),
+          "bert train: the timed steps moved the table")
+
+    # (c) --bf16-attention: the kernels' bf16 variants only
+    cfg16 = dataclasses.replace(dcfg, bf16_attention=True)
+    st16 = init_train_state(decoder_from_jax(flat, cfg16, "cuda",
+                                             trainable=True))
+    step16 = make_bank_train_step(cfg16, 1.0)
+
+    def run16():
+        nonlocal st16
+        st16, _ = step16(st16, bank_gpu, caps_gpu, *batches_gpu[0], 1e-4,
+                         dgen)
+
+    reset_launches()
+    run16()
+    torch.cuda.synchronize()
+    launches16 = read_launches()
+    want16 = counts(attention_fwd_bf16=2 * T, attention_bwd_bf16=T)
+    check(launches16 == want16, f"bert bf16 train: launches {launches16}")
+    reset_launches()
+    bf16_profile = profile_run(run16)
+    check(bf16_profile.get("kernel_calls") == want16,
+          f"bert bf16 train: the profile shows kernels "
+          f"{bf16_profile.get('kernel_calls')}")
+    return {"batch": TRAIN_B, "caption_len": CAP_LEN,
+            "parity": {"loss_cpu": cpu_loss, "loss_gpu": gpu_loss,
+                       "loss_rel_err": loss_rel,
+                       "max_param_err": max(v for k, v in param_err.items()
+                                            if k != "attention/v/b")},
+            "launches": launches, "block_launches": block_launches,
+            "block_device_launches": calls, "timing": timing,
+            "bf16_launches": launches16,
+            "step_device_busy_share": profile.get("device_busy_share"),
+            "block_device_busy_share": block_profile.get(
+                "device_busy_share"),
+            "profile": profile, "block_profile": block_profile,
+            "bf16_profile": bf16_profile}
+
+
+def phase_bert_cli(root: str, enc_path: str, seed: int) -> dict:
+    """BERT through the CLIs on the entry phase's dataset, its captions
+    written straight as ids in sat_tpu's BERT layout: one blocked epoch of
+    `python -m sat_tpu_torch.train --bert --bert-embeddings --bert-vocab`
+    (BLEU, and the table in the `.npz` bit for bit the `.npy` given); a
+    fresh `serve --bert-vocab --decode greedy` process, whose words for a
+    cached request must be this process's, and `generate_caption
+    --bert-vocab --decode greedy`, one caption from [CLS], both on a
+    checkpoint of the bert phase's worst-case decoder, which never emits
+    the stop set. (The epoch's model stops at once: its captions are
+    mostly [PAD]; and a random beam completes no sentence in 51 steps,
+    which leaves its caption empty.)"""
+    import numpy as np
+    import torch
+    from sat_tpu_torch.data.transforms import load_and_preprocess_image
+    from sat_tpu_torch.engine.evaluate import decode_caption_bert
+    from sat_tpu_torch.engine.serving import build_caption_step
+    from sat_tpu_torch.generate_caption import (caption_words,
+                                                decode_single_image)
+    from sat_tpu_torch.models.encoder import encoder_forward
+    from sat_tpu_torch.serve import load_image_pool, load_model
+
+    gen = torch.Generator().manual_seed(seed + 13)
+    vocab = write_bert_vocab(os.path.join(root, "bert_vocab.txt"))
+    for split in ENTRY_IMAGES:
+        with open(os.path.join(root, f"{split}_img_paths.json")) as f:
+            rows = len(json.load(f))
+        with open(os.path.join(root, f"{split}_captions_bert.json"),
+                  "w") as f:
+            json.dump(make_bert_captions(gen, rows).tolist(), f)
+    table = (torch.randn((BERT_V, BERT_E), generator=gen) * 0.02).numpy()
+    table_path = os.path.join(root, "bert_table.npy")
+    np.save(table_path, table)
+    ckpt_dir = os.path.join(root, "bert")
+    res = {"seconds": {}}
+    log, res["seconds"]["train"] = run_cli(
+        "train", "--data", root, "--bert", "--bert-embeddings", table_path,
+        "--bert-vocab", vocab, "--tf", "--ado", "--attention",
+        "--cache-features", "--epochs", "1", "--batch-size", str(TRAIN_B),
+        "--log-interval", "1", "--checkpoint-dir", ckpt_dir,
+        "--encoder-weights", enc_path, "--steps-per-dispatch", str(ENTRY_K))
+    bleu = {"val": _bleu_of(log, "EvalMode.VALIDATION"),
+            "test": _bleu_of(log, "EvalMode.TEST")}
+    check(all(len(b) == 4 and all(math.isfinite(v) and 0 <= v <= 1
+                                  for v in b.values())
+              for b in bleu.values()), f"bert cli: BLEU {bleu}")
+    check(f"Frozen BERT embedding table: {BERT_V * BERT_E}" in log,
+          "bert cli: the table is not printed apart")
+    model = os.path.join(ckpt_dir, "model_vgg19_1.npz")
+    with np.load(model) as arc:
+        check(np.array_equal(arc["embedding"], table),
+              "bert cli: the table in the .npz differs from the .npy")
+
+    # a fresh serve process against this process, one cached image, B = 1,
+    # on the worst-case decoder
+    model_dir = os.path.join(root, "bert_worst")
+    os.makedirs(model_dir)
+    with open(os.path.join(model_dir, "model_config.json"), "w") as f:
+        json.dump({"data": root, "network": "vgg19", "ado": True,
+                   "attention": True, "bert": True, "tf": False}, f)
+    model = os.path.join(model_dir, "model_vgg19_0.npz")
+    np.savez(model, **bert_weights(seed)[3])
+    img_dir = os.path.join(root, "imgs")
+    cfg, dcfg, enc, dec, words = load_model(model, encoder_weights=enc_path,
+                                            device="cuda", bert_vocab=vocab)
+    out = build_caption_step("vgg19", dcfg, BEAM, decode="greedy",
+                             device="cuda")(
+        enc, dec, load_image_pool(img_dir, cfg.image_size, 1))
+    row = out["tokens"][0, :int(out["length"][0]) + 1].tolist()
+    want = {"caption": " ".join(decode_caption_bert(row, words)),
+            "score": float(out["score"][0].cpu()),
+            "completed": bool(out["found"][0])}
+    check(row[0] == BERT_CLS and len(row) == 1 + STEPS,
+          f"bert cli: the in-process greedy caption {row[:4]}... stopped")
+    got, res["seconds"]["serve"], code = cli_reply(
+        model, enc_path, img_dir, "--bert-vocab", vocab, "--decode",
+        "greedy")
+    check(got == want, f"bert cli: the fresh serve process answered {got}, "
+                       f"this process {want}")
+    # generate_caption's words: sat_tpu's tokenizer.decode of [CLS] and
+    # the greedy tokens, as this process renders them
+    img = os.path.join(img_dir, "val_000.png")
+    png = os.path.join(model_dir, "caption.png")
+    out, res["seconds"]["generate_caption"] = run_cli(
+        "generate_caption", "--img-path", img, "--model", model,
+        "--encoder-weights", enc_path, "--bert-vocab", vocab, "--decode",
+        "greedy", "--out", png)
+    caption = caption_of(out)
+    feats = encoder_forward(enc, "vgg19",
+                            load_and_preprocess_image(img, cfg.image_size)
+                            [None])[0]
+    sentence, _ = decode_single_image(dcfg, dec, feats, decode="greedy")
+    want_caption = "Caption: " + " ".join(caption_words(sentence, words))
+    check(os.path.getsize(png) > 0 and caption == want_caption
+          and caption.startswith("Caption: [CLS]"),
+          f"bert cli generate_caption: {caption!r}, this process "
+          f"{want_caption!r}")
+    res.update(bleu=bleu, serve_reply=got, serve_exit_code=code,
+               generate_caption=caption[:200])
+    emit({"phase": "bert_cli", **res})
+    return res
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--out", type=str, default="chiprun_out")
     args = parser.parse_args()
 
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
     dev = phase_device()
     import torch
     build = phase_build()
+    lap("device_build")
     gen = torch.Generator().manual_seed(args.seed + 1)
     kernels = phase_kernels(dev, gen)
+    lap("kernels")
     dcfg, dec_flat, worst_flat, enc_flat, images = make_weights(args.seed)
     main_res = phase_main(dcfg, dec_flat, worst_flat, enc_flat, images)
+    lap("main")
     serve = phase_serve(dcfg, dec_flat, enc_flat)
+    lap("serve")
     encoders = phase_encoders(args.seed, images)
     wide = encoders.pop("weights")
+    lap("encoders")
     sample = phase_sample(dcfg, dec_flat, enc_flat, images, wide)
+    lap("sample")
+    bert = phase_bert(args.seed, enc_flat, images)
+    lap("bert")
     train = phase_train(args.seed, enc_flat)
-    entry = phase_entry(enc_flat, wide)
+    lap("train")
+    entry = phase_entry(enc_flat, wide, args.seed)
+    lap("entry_cli_bert_cli")
+    emit({"phase_seconds": seconds})
 
     # each kernel's launches on its path: for top-k and the forward, the
     # main path's replayed batch, counted on the device by the profiler
@@ -2776,9 +3507,29 @@ def main():
                                               f"attention_fwd{v}")
                   for net, Dx in WIDE.items()
                   for v, m in (("", "f32"), ("_bf16", "bf16"))}
+    # (the BERT rows: the bert phase's replayed batches, f32, bf16 and
+    # sampled at each k, and its f32 and bf16 train steps)
+    bert_paths = {
+        "topk_bert": (bert["device_launches"], bert["host_launches"],
+                      "topk"),
+        "attention_fwd_e768": (bert["device_launches"],
+                               bert["host_launches"], "attention_fwd"),
+        "attention_fwd_bf16_e768": (bert["bf16"]["device_launches"],
+                                    bert["bf16"]["host_launches"],
+                                    "attention_fwd_bf16"),
+        "attention_bwd_e768": (bert["train"]["profile"]["kernel_calls"],
+                               bert["train"]["launches"], "attention_bwd"),
+        "attention_bwd_bf16_e768": (
+            bert["train"]["bf16_profile"]["kernel_calls"],
+            bert["train"]["bf16_launches"], "attention_bwd_bf16"),
+        **{f"topk_bert_k{k}": (bert["sample"][f"k{k}"]["device_launches"],
+                               counts(), "topk") for k in SAMPLE_KS}}
     for row in kernels:
         name = row["name"]
-        if name in wide_paths:
+        if name in bert_paths:
+            device, host, kname = bert_paths[name]
+            row["launches"], row["host_launches"] = device[kname], host[kname]
+        elif name in wide_paths:
             res, mode, kname = wide_paths[name]
             row["launches"] = res["device_launches"][mode][kname]
             row["host_launches"] = res["host_launches"][mode][kname]
@@ -2809,9 +3560,11 @@ def main():
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"device": dev, "build_seconds": build["seconds"],
+                   "phase_seconds": seconds,
                    "build_log": build["log"], "kernels": kernels,
                    "main": main_res, "serve": serve, "encoders": encoders,
-                   "sample": sample, "train": train, "entry": entry}, f,
+                   "sample": sample, "bert": bert, "train": train,
+                   "entry": entry}, f,
                   indent=1)
     emit(summary)
     print(dev["card"], flush=True)

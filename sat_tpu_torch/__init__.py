@@ -5,7 +5,8 @@ hand-written CUDA kernels for sm_90a: a frozen VGG19, ResNet152 or
 DenseNet161 encoder emits the annotation grid ((B, 196, 512), (B, 49,
 2048) or (B, 49, 2208) at 224 px), which the batched beam search, greedy
 or sampled decode captions, or on which the soft-attention LSTM decoder
-trains. The package mirrors
+trains, with its own word embeddings or BERT's frozen ones. The package
+mirrors
 sat_tpu's layout, so each module's counterpart sits under the same path:
 
   sat_tpu_torch.models   — encoder / attention / decoder / beam search
@@ -20,7 +21,8 @@ sat_tpu's layout, so each module's counterpart sits under the same path:
   sat_tpu_torch.compat   — sat_tpu parameter archives, torchvision encoder
                            and reference decoder state_dicts <-> the
                            port's modules
-  sat_tpu_torch.data     — image preprocessing, caption dataset and loader
+  sat_tpu_torch.data     — image preprocessing, caption dataset and loader,
+                           the BERT WordPiece vocabulary (decode only)
   sat_tpu_torch.serve    — the captioning server (python -m sat_tpu_torch.serve)
   sat_tpu_torch.train    — the training CLI (python -m sat_tpu_torch.train)
   sat_tpu_torch.generate_caption, .evaluate, .caption_split — the CLIs of

@@ -24,9 +24,11 @@ so what overlaps here is: at depth >= 2, batch N's encoder, queued without
 waiting, runs while the host decodes and writes batch N - 1, whose copy to
 the host was queued before it; the loader prepares the next images in its
 own thread at any depth. At
-depth 1 each batch is written before the next is queued. --fast-topk,
---no-pallas-topk, --mesh-data other than 1 and --bert-vocab have no
-counterpart yet and raise.
+depth 1 each batch is written before the next is queued. A BERT model
+reads the split's BERT captions and decodes with the WordPiece
+vocabulary of --bert-vocab, which it needs. --fast-topk,
+--no-pallas-topk and --mesh-data other than 1 have no counterpart yet and
+raise.
 """
 
 from __future__ import annotations
@@ -88,8 +90,7 @@ def _check_ported(args) -> None:
              "still to port"),
             (args.pallas_topk is False, "--no-pallas-topk (sat_tpu's "
              "lax.top_k A/B arm)", "still to port"),
-            (args.mesh_data != 1, "--mesh-data", "mesh serving"),
-            (args.bert_vocab, "--bert-vocab", "BERT")):
+            (args.mesh_data != 1, "--mesh-data", "mesh serving")):
         if on:
             raise NotImplementedError(f"{what} is not ported yet "
                                       f"(ROADMAP.md, Queue 1: {item})")
@@ -101,8 +102,7 @@ def _check_ported(args) -> None:
 def main(argv=None) -> dict:
     from sat_tpu_torch.data.dataset import BatchLoader, CaptionDataset
     from sat_tpu_torch.device import use_f32_math
-    from sat_tpu_torch.engine.evaluate import (build_token_dict,
-                                               compute_bleu, decode_caption)
+    from sat_tpu_torch.engine.evaluate import caption_decoder, compute_bleu
     from sat_tpu_torch.models.beam import (BeamResult, batch_generator,
                                            beam_search_batched,
                                            extract_caption, greedy_caption,
@@ -114,13 +114,13 @@ def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     _check_ported(args)
     use_f32_math()
-    cfg, dcfg, encoder, decoder, word_dict = load_model(
+    cfg, dcfg, encoder, decoder, vocab = load_model(
         args.model, args.model_config, encoder_weights=args.encoder_weights,
-        device=args.device)
+        device=args.device, bert_vocab=args.bert_vocab)
     ds = CaptionDataset(cfg.data, args.split, fraction=args.fraction,
-                        image_size=cfg.image_size)
+                        bert=cfg.bert, image_size=cfg.image_size)
     loader = BatchLoader(ds, args.batch_size, shuffle=False)
-    token_dict = build_token_dict(word_dict)
+    words_of = caption_decoder(vocab)
     graphs = GraphCache()
 
     def decode(feats, batch_idx):
@@ -165,10 +165,9 @@ def main(argv=None) -> dict:
                 n_incl = min(length + 1, toks.shape[0])
                 tokens = [dcfg.start_token] + toks[:n_incl].tolist()
                 extra = {"completed": length < toks.shape[0]}
-            words = decode_caption(tokens, word_dict, token_dict)
+            words = words_of(tokens)
             hypotheses.append(words)
-            all_refs.append([decode_caption(c, word_dict, token_dict)
-                             for c in all_captions[i].tolist()])
+            all_refs.append([words_of(c) for c in all_captions[i].tolist()])
             if out_f:
                 out_f.write(json.dumps({"img_path": ds.img_paths[row],
                                         "caption": " ".join(words),

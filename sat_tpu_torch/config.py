@@ -151,9 +151,6 @@ def unported_options(cfg: Config):
     """[(option, ROADMAP.md Queue 1 item)] for each set option whose path
     the port does not have yet."""
     checks = [
-        ("--bert", cfg.bert, "BERT"),
-        ("--bert-embeddings", cfg.bert_embeddings, "BERT"),
-        ("--bert-vocab", cfg.bert_vocab, "BERT"),
         ("--mesh-data > 1", cfg.mesh_data > 1,
          "parallel and multi-process"),
         ("--mesh-model > 1", cfg.mesh_model > 1,
@@ -220,9 +217,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         help="resume from the latest train state in "
                              "checkpoint-dir")
     parser.add_argument("--bert-embeddings", type=str, default=None,
-                        help=".npy BERT embedding table (not ported)")
+                        help=".npy file with the frozen BERT embedding "
+                             "table")
     parser.add_argument("--bert-vocab", type=str, default=None,
-                        help="bert vocab.txt (not ported)")
+                        help="local bert-base-uncased vocab.txt (needed "
+                             "with --bert: the port downloads nothing)")
     parser.add_argument("--cache-features", action="store_true",
                         default=False,
                         help="precompute frozen-encoder features once per "

@@ -12,8 +12,10 @@ As in sat_tpu: items are caption rows, so an image with 5 captions comes 5
 times an epoch; `fraction` truncates the front of the split; the groups of
 all captions are padded to one width with each group's first caption. An
 epoch's order is a permutation seeded by (seed, epoch) with numpy, the
-same as sat_tpu's, and a producer thread prefetches batches. The native
-C++ decode tier is not ported.
+same as sat_tpu's, and a producer thread prefetches batches. With
+`bert` the captions are the BERT ids of `{split}_captions_bert.json`
+(sat_tpu/data/bert_prep.py's layout). The native C++ decode tier is not
+ported.
 """
 
 from __future__ import annotations
@@ -49,17 +51,14 @@ class CaptionDataset:
                  fraction: float = 1.0, bert: bool = False,
                  cache_images: bool = True, image_size: int = 224,
                  cache_budget: Optional[CacheBudget] = None):
-        if bert:
-            raise NotImplementedError(
-                "BERT captions are not ported yet (ROADMAP.md, Queue 1: "
-                "BERT)")
         self.data_path = data_path
         self.split_type = split_type
         self.image_size = image_size
 
         with open(f"{data_path}/{split_type}_img_paths.json") as f:
             img_paths = json.load(f)
-        with open(f"{data_path}/{split_type}_captions.json") as f:
+        suffix = "_captions_bert.json" if bert else "_captions.json"
+        with open(f"{data_path}/{split_type}{suffix}") as f:
             captions = json.load(f)
         if fraction != 1.0:
             img_paths = img_paths[:int(len(img_paths) * fraction)]

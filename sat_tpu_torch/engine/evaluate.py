@@ -1,6 +1,7 @@
 """Token-to-word decoding and corpus BLEU (port of
-sat_tpu/engine/evaluate.py's vanilla decode and `compute_bleu`; the BERT
-decode is not ported yet).
+sat_tpu/engine/evaluate.py: the vanilla and the BERT decode, and
+`compute_bleu`). The BERT decode reads the port's own vocabulary
+(data/bert_vocab.py) where sat_tpu reads a `transformers` tokenizer.
 
 BLEU comes from `sat_tpu_torch.utils.bleu`, the port's own copy of the
 nltk `corpus_bleu` that sat_tpu calls, with sat_tpu's four weight sets:
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Sequence
 
+from sat_tpu_torch.data.bert_vocab import BertVocab
 from sat_tpu_torch.utils.bleu import corpus_bleu
 
 # sat_tpu's weights, BLEU-3's 0.33s included
@@ -40,6 +42,28 @@ def decode_caption(caption: Sequence[int], word_dict: Dict[str, int],
         if word_idx not in (start, pad):
             sentence.append(token_dict[word_idx])
     return sentence
+
+
+def decode_caption_bert(caption: Sequence[int], vocab) -> List[str]:
+    """Stop at [SEP]; skip [CLS] and [PAD]; join the word pieces
+    (`convert_tokens_to_string`) and split into words. `vocab` is a
+    data.bert_vocab.BertVocab."""
+    sentence = []
+    for token in vocab.convert_ids_to_tokens(caption):
+        if token == "[SEP]":
+            break
+        if token not in ("[CLS]", "[PAD]"):
+            sentence.append(token)
+    return vocab.convert_tokens_to_string(sentence).split()
+
+
+def caption_decoder(vocab):
+    """row of token ids -> its words, for a model's vocabulary: a word
+    dict (vanilla) or a data.bert_vocab.BertVocab (BERT)."""
+    if isinstance(vocab, BertVocab):
+        return lambda row: decode_caption_bert(row, vocab)
+    token_dict = build_token_dict(vocab)
+    return lambda row: decode_caption(row, vocab, token_dict)
 
 
 def compute_bleu(decoded_all_captions, decoded_hypotheses) -> dict:

@@ -41,8 +41,16 @@ from the newest state, per-batch or blocked whichever path saved it; the
 dropout generator's state is part of it, so a resumed run takes the same
 steps as one that was never stopped.
 
+With `--bert` the decoder takes BERT's frozen (30522, 768) input table
+(`--bert-embeddings`, an `.npy`, else random from the seed) and the
+captions of `{split}_captions_bert.json`, and the captions decode through
+the WordPiece vocabulary of `--bert-vocab` (data/bert_vocab.py), which
+BERT mode requires: sat_tpu's fallback, a download of bert-base-uncased's
+tokenizer, has no counterpart. The table is in every `.npz` and not in the
+optimizer.
+
 Not ported yet, each named in ROADMAP.md Queue 1: W&B, the profiler, NaN
-debugging, BERT and the device mesh.
+debugging and the device mesh.
 """
 
 from __future__ import annotations
@@ -59,14 +67,15 @@ from enum import Enum
 import numpy as np
 import torch
 
+from sat_tpu_torch import constants
 from sat_tpu_torch.compat.jax_params import decoder_from_jax, encoder_from_jax
 from sat_tpu_torch.config import Config, unported_options
+from sat_tpu_torch.data.bert_vocab import load_bert_vocab
 from sat_tpu_torch.data.dataset import BatchLoader, CacheBudget, CaptionDataset
 from sat_tpu_torch.data.transforms import denormalize
 from sat_tpu_torch.device import resolve_device, use_f32_math
 from sat_tpu_torch.engine import checkpoint as ckpt
-from sat_tpu_torch.engine.evaluate import (build_token_dict, compute_bleu,
-                                           decode_caption)
+from sat_tpu_torch.engine.evaluate import caption_decoder, compute_bleu
 from sat_tpu_torch.models.decoder import DecoderConfig, init_decoder_params
 from sat_tpu_torch.models.encoder import encoder_forward, init_encoder_params
 from sat_tpu_torch.parallel.train_step import (init_train_state,
@@ -114,11 +123,17 @@ class Trainer:
         use_f32_math()
         self.logger = logger or MetricLogger(cfg.log_jsonl)
 
-        with open(os.path.join(cfg.data, "word_dict.json")) as f:
-            self.word_dict = json.load(f)
-        self.token_dict = build_token_dict(self.word_dict)
+        # the word dict, or BERT's WordPiece vocabulary
+        if cfg.bert:
+            self.vocab = load_bert_vocab(cfg.bert_vocab)
+            vocabulary_size = constants.BERT_VOCAB_SIZE
+        else:
+            with open(os.path.join(cfg.data, "word_dict.json")) as f:
+                self.vocab = json.load(f)
+            vocabulary_size = len(self.vocab)
+        self._decode_row = caption_decoder(self.vocab)
         self.dcfg = DecoderConfig(
-            vocab_size=len(self.word_dict), encoder_dim=cfg.encoder_dim,
+            vocab_size=vocabulary_size, encoder_dim=cfg.encoder_dim,
             use_tf=cfg.tf, use_ado=cfg.ado, use_bert=cfg.bert,
             use_attention=cfg.attention, dropout_rate=cfg.dropout_rate,
             fused_attention=cfg.fused_attention,
@@ -135,7 +150,10 @@ class Trainer:
                   "init (pretrained weights cannot be downloaded here — port "
                   "them offline with tools/port_torchvision.py)")
             enc_flat = init_encoder_params(cfg.network, gen)
-        dec_flat = init_decoder_params(self.dcfg, gen)
+        bert_table = (np.load(cfg.bert_embeddings)
+                      if cfg.bert and cfg.bert_embeddings else None)
+        dec_flat = init_decoder_params(self.dcfg, gen,
+                                       bert_embeddings=bert_table)
         if cfg.model:
             print(f"Fine-tuning from base model {cfg.model}")
             dec_flat = ckpt.load_decoder_checkpoint(cfg.model, dec_flat,
@@ -157,7 +175,7 @@ class Trainer:
         budget = CacheBudget(int(cfg.image_cache_gb * (1 << 30)))
 
         def make_loader(split, load_images):
-            ds = CaptionDataset(cfg.data, split, cfg.fraction,
+            ds = CaptionDataset(cfg.data, split, cfg.fraction, cfg.bert,
                                 cache_images=cache_imgs
                                 and cfg.image_cache_gb > 0,
                                 image_size=cfg.image_size,
@@ -239,8 +257,12 @@ class Trainer:
         print(f"Starting training with {cfg}")
         print(f"Encoder parameters (frozen): "
               f"{sum(p.numel() for p in self.encoder.parameters())}")
+        params = list(self.state.decoder.parameters())
         print(f"Total Trainable Params: "
-              f"{sum(p.numel() for p in self.state.decoder.parameters())}")
+              f"{sum(p.numel() for p in params if p.requires_grad)}")
+        if cfg.bert:
+            print(f"Frozen BERT embedding table: "
+                  f"{sum(p.numel() for p in params if not p.requires_grad)}")
 
     def _resume(self) -> None:
         """Load the newest train state in --checkpoint-dir, if there is one:
@@ -369,6 +391,10 @@ class Trainer:
                               self._step_inputs(split, imgs, idxs), captions)
 
     # --------------------------------------------------------------- epochs
+
+    def decode(self, token_rows) -> list:
+        """Each row of token ids as its list of words."""
+        return [self._decode_row(r) for r in token_rows]
 
     def request_preempt(self) -> None:
         """Ask the epoch loop to save the train state and stop at the next
@@ -511,10 +537,6 @@ class Trainer:
         viz_dir = os.path.join(cfg.checkpoint_dir,
                                f"attention_viz_epoch{epoch}")
 
-        def decode(rows):
-            return [decode_caption(r, self.word_dict, self.token_dict)
-                    for r in rows]
-
         def finish(batch_idx, imgs, captions, all_captions, metrics,
                    pred_tokens, alphas):
             nonlocal viz_count
@@ -523,11 +545,11 @@ class Trainer:
             top1.update(float(metrics["acc1"]), n)
             top5.update(float(metrics["acc5"]), n)
 
-            batch_captions = decode(captions.tolist())
-            batch_hypotheses = decode(pred_tokens.cpu().tolist())
+            batch_captions = self.decode(captions.tolist())
+            batch_hypotheses = self.decode(pred_tokens.cpu().tolist())
             decoded_hypotheses.extend(batch_hypotheses)
             for cap_set in all_captions.tolist():
-                decoded_all_captions.append(decode(cap_set))
+                decoded_all_captions.append(self.decode(cap_set))
 
             if batch_idx % cfg.log_interval == 0:
                 print(f"{mode} Batch: [{batch_idx}/{n_batches}]\t"

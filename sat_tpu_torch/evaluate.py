@@ -11,8 +11,8 @@ attention plots) on the model's config with sat_tpu's overrides:
 
 The flags are evaluate.py's; --device (default cuda) is added. The model
 is a sat_tpu `.npz` or a reference `.pth` decoder with `model_config.json`
-beside it (or --model-config). `main` returns the pass's metrics. A
---bert-vocab run (BERT) is not ported and raises.
+beside it (or --model-config); a BERT model needs --bert-vocab.
+`main` returns the pass's metrics.
 """
 
 from __future__ import annotations

@@ -15,9 +15,11 @@ encoders. For beam, sat_tpu decodes the one image with its unbatched
 `beam_search`; the port runs its batched beam at B = 1, which gives the
 same result. --decode sample draws from a generator seeded with
 --sample-seed on the device: one seed gives one caption on one device,
-and the card's and the CPU's generators differ. --wandb-run and
---wandb-model (Queue 1 item 9) and --bert-vocab (BERT) are not ported and
-raise.
+and the card's and the CPU's generators differ. A BERT model's caption is
+sat_tpu's rendering, `tokenizer.decode(ids).split()` over the start
+token, the caption and its stop token, with the WordPiece vocabulary of
+--bert-vocab (data/bert_vocab.py). --wandb-run and --wandb-model (Queue 1
+item 9) are not ported and raise.
 """
 
 from __future__ import annotations
@@ -80,8 +82,24 @@ def display_image(img_path: str) -> np.ndarray:
     return np.asarray(img.convert("RGB"), dtype=np.float32) / 255.0
 
 
+def caption_words(sentence, vocab) -> list:
+    """The words generate_caption.py prints for a token list: for a word
+    dict each token's word up to the first <eos>; for a BERT vocabulary
+    its `decode(sentence).split()`, sat_tpu's
+    `tokenizer.decode(sentence, skip_special_tokens=False).split()`."""
+    if not isinstance(vocab, dict):
+        return vocab.decode(sentence).split()
+    token_dict = {idx: word for word, idx in vocab.items()}
+    words = []
+    for word_idx in sentence:
+        words.append(token_dict[word_idx])
+        if word_idx == vocab["<eos>"]:
+            break
+    return words
+
+
 def generate_caption_visualization(img_path, cfg, dcfg, encoder, decoder,
-                                   word_dict, beam_size=3, smooth=True,
+                                   vocab, beam_size=3, smooth=True,
                                    out_path=None, decode="beam",
                                    temperature=1.0, top_k=0, top_p=1.0,
                                    seed=0):
@@ -96,12 +114,7 @@ def generate_caption_visualization(img_path, cfg, dcfg, encoder, decoder,
     sentence, alpha = decode_single_image(
         dcfg, decoder, features, decode=decode, beam_size=beam_size,
         temperature=temperature, top_k=top_k, top_p=top_p, seed=seed)
-    token_dict = {idx: word for word, idx in word_dict.items()}
-    words = []
-    for word_idx in sentence:
-        words.append(token_dict[word_idx])
-        if word_idx == word_dict["<eos>"]:
-            break
+    words = caption_words(sentence, vocab)
     print("Caption:", " ".join(words))
     out_path = out_path or "caption_visualization.png"
     save_caption_grid(out_path, display_image(img_path), words, alpha,
@@ -138,7 +151,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="output path for the attention figure")
     parser.add_argument("--encoder-weights", type=str, default=None,
                         help="encoder .npz in sat_tpu's layout")
-    parser.add_argument("--bert-vocab", type=str, default=None)
+    parser.add_argument("--bert-vocab", type=str, default=None,
+                        help="local bert-base-uncased vocab.txt (a BERT "
+                             "model needs it)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
     return parser
@@ -153,15 +168,12 @@ def main(argv=None):
         raise NotImplementedError(
             "--wandb-run/--wandb-model are not ported yet (ROADMAP.md, "
             "Queue 1: tooling)")
-    if args.bert_vocab:
-        raise NotImplementedError(
-            "--bert-vocab is not ported yet (ROADMAP.md, Queue 1: BERT)")
     use_f32_math()
-    cfg, dcfg, encoder, decoder, word_dict = load_model(
+    cfg, dcfg, encoder, decoder, vocab = load_model(
         args.model, args.model_config, encoder_weights=args.encoder_weights,
-        device=args.device)
+        device=args.device, bert_vocab=args.bert_vocab)
     return generate_caption_visualization(
-        args.img_path, cfg, dcfg, encoder, decoder, word_dict,
+        args.img_path, cfg, dcfg, encoder, decoder, vocab,
         beam_size=args.beam_size, out_path=args.out, decode=args.decode,
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
         seed=args.sample_seed)

@@ -11,7 +11,7 @@ beam (reference decoder.py:160-269), kept exactly:
   - shapes stay fixed: each step's top-k over the (B, K*V) candidates picks
     K entries, of which only the top `live_count` ranks are admitted;
     completed and dead rows carry -inf scores;
-  - completion ids: vanilla {1, 102};
+  - completion ids: vanilla {1, 102}, BERT {1, 0} (`stop_ids`);
   - the best completed sentence is the first-encountered maximum of raw
     summed scores: a running best with strict `>`, and within a step
     `argmax` picks the lowest rank among ties;
@@ -104,6 +104,14 @@ class _Spec(NamedTuple):
     @property
     def T(self) -> int:      # token columns: the start token, then a step
         return 1 + self.max_steps
+
+
+def stop_ids(cfg) -> tuple[int, int]:
+    """The ids that complete a sentence: <eos> and 102 in vanilla mode;
+    in BERT mode 1 and 0 ([unused0] and [PAD]), sat_tpu's "quickfix" for
+    BERT captions, whose [SEP] follows the padding (data/bert_vocab.py)."""
+    return (constants.BEAM_STOP_BERT if cfg.use_bert
+            else constants.BEAM_STOP_VANILLA)
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -205,7 +213,7 @@ def _beam_start(dec: Decoder, spec: _Spec, buf: dict) -> None:
 def _beam_step(dec: Decoder, spec: _Spec, buf: dict) -> None:
     """One expansion step of every image, in place."""
     B, K, V, L = spec.B, spec.K, spec.V, spec.L
-    stop_a, stop_b = constants.BEAM_STOP_VANILLA
+    stop_a, stop_b = stop_ids(dec.cfg)
     neg_inf = float("-inf")
     rows, ranks, step = buf["rows"], buf["ranks"], buf["step"]
     live_count = buf["live_count"]
@@ -472,7 +480,7 @@ def _scan_decode(dec: Decoder, max_steps: int, buf: dict,
     buf["tokens"], buf["lengths"] and buf["alphas"]."""
     features = buf["features"]
     B = features.shape[0]
-    stop_a, stop_b = constants.BEAM_STOP_VANILLA
+    stop_a, stop_b = stop_ids(dec.cfg)
     keys = precompute_attention_keys(dec.attention, features)
     h, c = init_lstm_state(dec, features)
     prev = torch.full((B,), dec.cfg.start_token, dtype=torch.int64,

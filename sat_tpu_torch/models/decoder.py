@@ -16,7 +16,10 @@ reference Decoder's (reference decoder.py:40-66), so a reference
 and evaluation unroll over a caption, teacher-forced or autoregressive,
 with dropout on h before the output head when training. With
 `bf16_attention` the unroll stores the attention keys and features in
-bf16 (models/attention.py). BERT embeddings are not ported yet and raise.
+bf16 (models/attention.py). With `use_bert` the input table is BERT's
+(30522, 768) word embeddings, frozen: its weight never requires a
+gradient, so no optimizer sees it (sat_tpu stops its gradient), and
+E = 768 is the width of the attention, the LSTM and both heads.
 """
 
 from __future__ import annotations
@@ -67,16 +70,9 @@ class DecoderConfig:
         return constants.BERT_VOCAB_SIZE if self.use_bert else self.vocab_size
 
 
-def _check_ported(cfg: DecoderConfig) -> None:
-    if cfg.use_bert:
-        raise NotImplementedError(
-            "BERT embeddings are not ported yet (ROADMAP.md, Queue 1: BERT)")
-
-
 class Decoder(nn.Module):
     def __init__(self, cfg: DecoderConfig):
         super().__init__()
-        _check_ported(cfg)
         E, D, V = cfg.embedding_size, cfg.encoder_dim, cfg.effective_vocab_size
         self.cfg = cfg
         self.embedding = nn.Embedding(V, E)
@@ -90,16 +86,27 @@ class Decoder(nn.Module):
             self.f_h = nn.Linear(E, E)
             self.f_z = nn.Linear(D, E)
             self.f_out = nn.Linear(E, V)
+        self.requires_grad_(True)
+
+    def requires_grad_(self, requires_grad: bool = True) -> "Decoder":
+        """As nn.Module's, except that the BERT table stays frozen."""
+        super().requires_grad_(requires_grad)
+        if self.cfg.use_bert:
+            self.embedding.weight.requires_grad_(False)
+        return self
 
 
-def init_decoder_params(cfg: DecoderConfig,
-                        generator: torch.Generator) -> dict[str, np.ndarray]:
+def init_decoder_params(cfg: DecoderConfig, generator: torch.Generator,
+                        bert_embeddings: np.ndarray | None = None
+                        ) -> dict[str, np.ndarray]:
     """Random parameters in sat_tpu's layout: the flat `/`-joined names and
     (in, out) shapes of `sat_tpu.models.decoder.init_decoder_params` as
     `tree_save_npz` writes them, drawn by the same laws (N(0, 1) embedding,
     U(-1/sqrt(fan_in), 1/sqrt(fan_in)) linears, U(-1/sqrt(H), 1/sqrt(H))
     LSTM) from `generator`. The numbers differ from JAX's: feed both
-    packages one array set to compare them. Build the module with
+    packages one array set to compare them. `bert_embeddings` (V, E), when
+    given, is the embedding table (the random one is drawn all the same,
+    so the other weights do not depend on it). Build the module with
     sat_tpu_torch.compat.jax_params.decoder_from_jax."""
     E, D, V = cfg.embedding_size, cfg.encoder_dim, cfg.effective_vocab_size
     out: dict[str, np.ndarray] = {}
@@ -113,6 +120,12 @@ def init_decoder_params(cfg: DecoderConfig,
         out[f"{name}/b"] = uniform((fan_out,), k)
 
     out["embedding"] = torch.randn((V, E), generator=generator).numpy()
+    if bert_embeddings is not None:
+        table = np.asarray(bert_embeddings, dtype=np.float32)
+        if table.shape != (V, E):
+            raise ValueError(f"the BERT embedding table is {table.shape}, "
+                             f"expected {(V, E)}")
+        out["embedding"] = table
     linear("init_h", D, E)
     linear("init_c", D, E)
     linear("f_beta", E, D)
@@ -247,7 +260,6 @@ def decoder_forward(dec: Decoder, cfg: DecoderConfig, features: torch.Tensor,
 
     Returns (preds (B, T, V), alphas (B, T, L)).
     """
-    _check_ported(cfg)
     B = features.shape[0]
     T = captions.shape[1] - 1
     captions = captions.long()

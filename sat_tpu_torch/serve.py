@@ -19,18 +19,20 @@ log2(--max-batch) + 1; the padded rows' results are dropped.
     python -m sat_tpu_torch.serve --model model/model_vgg19_8.npz \\
         --encoder-weights vgg19.npz --port 8765 --max-batch 32
 
-The flags are serve.py's; --device (default cuda) is added, and
---bert-vocab comes with BERT and is rejected until then. The model's
-`model_config.json` names its encoder (vgg19, resnet152, densenet161); the
-decoder may be a sat_tpu `.npz` or a reference `.pth`. --decode sample
-samples at --temperature, --top-k and --top-p: batch i draws its noise
+The flags are serve.py's; --device (default cuda) is added. The model's
+`model_config.json` names its encoder (vgg19, resnet152, densenet161) and
+whether the decoder is BERT's; the decoder may be a sat_tpu `.npz` or a
+reference `.pth`. A BERT model decodes its captions with the WordPiece
+vocabulary of --bert-vocab, which it needs (the port downloads
+nothing). --decode sample samples at --temperature, --top-k and --top-p:
+batch i draws its noise
 from a generator seeded from (--seed, i), so a restarted server replays
 the same captions for the same request order; without --seed a
 process-unique value takes its place. The card's and the CPU's generators
 give different draws from one seed. --bf16-decode runs the encoder in
 bf16 and the beam on a bf16 grid (engine/serving.py). Flags for what the
 port does not have yet (--fast-topk, --mesh-data other than 1,
---no-pallas-topk, BERT checkpoints) raise at startup.
+--no-pallas-topk) raise at startup.
 
 Shutdown: SIGTERM/SIGINT, or a client line {"cmd": "shutdown"}.
 """
@@ -50,7 +52,9 @@ import time
 import numpy as np
 import torch
 
+from sat_tpu_torch import constants
 from sat_tpu_torch.config import Config
+from sat_tpu_torch.data.bert_vocab import load_bert_vocab
 from sat_tpu_torch.data.transforms import load_and_preprocess_image
 from sat_tpu_torch.device import resolve_device, use_f32_math
 
@@ -390,15 +394,18 @@ class CaptionServer:
 
 
 def load_model(model_path: str, model_config_path: str | None = None,
-               encoder_weights: str | None = None, device="cuda"):
+               encoder_weights: str | None = None, device="cuda",
+               bert_vocab: str | None = None):
     """Config, decoder config, encoder and decoder modules on `device`, and
-    the word dict, from a sat_tpu checkpoint directory (port of
-    generate_caption.py::load_model for vanilla vocabularies): the decoder
-    `.npz` (or a reference `.pth`, read strictly, then non-strictly),
-    `model_config.json` beside it (or at `model_config_path`) and
-    `<cfg.data>/word_dict.json`. Without `encoder_weights` the encoder is
-    randomly initialized from a fixed seed, which is not sat_tpu's random
-    init: captions then mean nothing."""
+    the vocabulary, from a sat_tpu checkpoint directory (port of
+    generate_caption.py::load_model): the decoder `.npz` (or a reference
+    `.pth`, read strictly, then non-strictly), `model_config.json` beside
+    it (or at `model_config_path`), and the vocabulary: the word dict of
+    `<cfg.data>/word_dict.json`, or for a BERT model (`"bert": true`) the
+    data.bert_vocab.BertVocab of `bert_vocab`, which it then needs.
+    Without `encoder_weights` the encoder is randomly initialized from a
+    fixed seed, which is not sat_tpu's random init: captions then mean
+    nothing."""
     from sat_tpu_torch.compat.jax_params import (decoder_from_jax,
                                                  encoder_from_jax)
     from sat_tpu_torch.engine.checkpoint import load_decoder_checkpoint
@@ -416,13 +423,15 @@ def load_model(model_path: str, model_config_path: str | None = None,
                          "--model-config")
     cfg = Config.from_model_config(model_config_path)
     if cfg.bert:
-        raise NotImplementedError(
-            "BERT checkpoints are not ported yet (ROADMAP.md, Queue 1)")
-    with open(os.path.join(cfg.data, "word_dict.json")) as f:
-        word_dict = json.load(f)
-    dcfg = DecoderConfig(vocab_size=len(word_dict),
+        vocab = load_bert_vocab(bert_vocab)
+        vocabulary_size = constants.BERT_VOCAB_SIZE
+    else:
+        with open(os.path.join(cfg.data, "word_dict.json")) as f:
+            vocab = json.load(f)
+        vocabulary_size = len(vocab)
+    dcfg = DecoderConfig(vocab_size=vocabulary_size,
                          encoder_dim=cfg.encoder_dim, use_ado=cfg.ado,
-                         use_attention=cfg.attention)
+                         use_bert=cfg.bert, use_attention=cfg.attention)
     gen = torch.Generator().manual_seed(0)
     if encoder_weights:
         with np.load(encoder_weights) as data:
@@ -436,7 +445,7 @@ def load_model(model_path: str, model_config_path: str | None = None,
                                        strict=False)
     encoder = encoder_from_jax(enc_flat, cfg.network, dev)
     decoder = decoder_from_jax(dec_flat, dcfg, dev)
-    return cfg, dcfg, encoder, decoder, word_dict
+    return cfg, dcfg, encoder, decoder, vocab
 
 
 def load_image_pool(preload: str, image_size: int, count: int) -> np.ndarray:
@@ -462,7 +471,7 @@ def load_image_pool(preload: str, image_size: int, count: int) -> np.ndarray:
 
 
 def build_server(args) -> CaptionServer:
-    from sat_tpu_torch.engine.evaluate import build_token_dict, decode_caption
+    from sat_tpu_torch.engine.evaluate import caption_decoder
     from sat_tpu_torch.engine.serving import build_caption_step
     from sat_tpu_torch.models.beam import batch_generator
 
@@ -476,16 +485,16 @@ def build_server(args) -> CaptionServer:
         raise NotImplementedError(
             "--mesh-data is not ported yet (ROADMAP.md, Queue 1: mesh "
             "serving)")
-    cfg, dcfg, encoder, decoder, word_dict = load_model(
+    cfg, dcfg, encoder, decoder, vocab = load_model(
         args.model, args.model_config, encoder_weights=args.encoder_weights,
-        device=args.device)
+        device=args.device, bert_vocab=args.bert_vocab)
     decode_mode = args.decode
     step = build_caption_step(cfg.network, dcfg, args.beam_size,
                               fast_topk=args.fast_topk, bf16=args.bf16_decode,
                               decode=decode_mode, device=args.device,
                               temperature=args.temperature, top_k=args.top_k,
                               top_p=args.top_p)
-    token_dict = build_token_dict(word_dict)
+    words = caption_decoder(vocab)
 
     if decode_mode == "sample":
         seed = args.seed
@@ -510,7 +519,7 @@ def build_server(args) -> CaptionServer:
             row = [0]
         else:
             row = tokens[:length + 1].tolist()
-        return decode_caption(row, word_dict, token_dict)
+        return words(row)
 
     image_pool = None
     if args.preload_images:
@@ -553,6 +562,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="accepted for serve.py's flag set: the beam "
                              "always runs the exact top-k kernel")
     parser.add_argument("--bf16-decode", action="store_true", default=False)
+    parser.add_argument("--bert-vocab", type=str, default=None,
+                        help="local bert-base-uncased vocab.txt (a BERT "
+                             "model needs it)")
     parser.add_argument("--host", type=str, default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8765)
     parser.add_argument("--max-batch", type=int, default=32)

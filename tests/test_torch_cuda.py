@@ -55,7 +55,9 @@ def _assert_topk_exact(x, values, indices, k):
                                    (1, TOPK_N, 5), (32, TOPK_N, 5),
                                    (128, TOPK_N, 1), (128, TOPK_N, 16),
                                    (128, TOPK_N, 20), (3, 40, 17),
-                                   (128, 2633, 10), (128, 2633, 50)])
+                                   (128, 2633, 10), (128, 2633, 50),
+                                   (128, 5 * 30522, 5), (128, 30522, 10),
+                                   (128, 30522, 50)])
 def test_topk_kernel_is_bit_exact(cuda, B, N, k):
     x = _rows(N, B, N).to(cuda)
     before = topk.launches
@@ -120,6 +122,26 @@ def test_topk_rows_past_a_16_byte_boundary(cuda, offset):
     _assert_topk_exact(x, values, indices, 5)
 
 
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+def test_topk_ties_across_the_splits_of_bert_rows(cuda, cluster):
+    """The BERT beam's rows (5 x 30,522 entries, 8 mod 16 bytes each, so
+    their heads alternate between 0 and 2 scalars): equal maxima on both
+    sides of every cut of each row (head, the blocks' float4 slices,
+    tail); the lower index wins every tie."""
+    n = 5 * 30522
+    x = torch.randn((16, n), generator=torch.Generator().manual_seed(n))
+    for row in range(16):
+        head = (16 - (4 * n * row) % 16) % 16 // 4
+        nvec = (n - head) // 4
+        per = -(-nvec // cluster)
+        for cut in ([head + 4 * per * r for r in range(1, cluster)]
+                    + [max(head, 1), head + 4 * nvec]):
+            x[row, cut - 1:cut + 1] = 9.0
+    x = x.to(cuda)
+    values, indices = launch(x, 5, cluster)
+    _assert_topk_exact(x, values, indices, 5)
+
+
 def test_topk_two_launches_give_the_same_bits(cuda):
     x = _rows(11, 128, TOPK_N).to(cuda)
     first, second = topk(x, 5), topk(x, 5)
@@ -151,7 +173,10 @@ def _fwd_inputs(seed, B, R, L, E, D, device):
                                        (640, 1, 196, 512, 512),
                                        (128, 5, 49, 512, 2048),
                                        (128, 5, 49, 512, 2208),
-                                       (128, 1, 49, 512, 2208)])
+                                       (128, 1, 49, 512, 2208),
+                                       (128, 5, 196, 768, 512),
+                                       (64, 1, 196, 768, 512),
+                                       (4, 5, 199, 768, 512)])
 def test_attention_kernel_matches_plain(cuda, B, R, L, E, D):
     args = _fwd_inputs(B * R, B, R, L, E, D, cuda)
     before = attention_fwd.launches
@@ -244,7 +269,8 @@ def _de_max(feats, alpha, dctx, dalpha) -> float:
                                      (5, 196, 768, 512), (7, 600, 40, 1100),
                                      (2, 3, 64, 48), (4, 49, 512, 2048),
                                      (4, 49, 512, 2208), (1, 196, 512, 512),
-                                     (640, 196, 512, 512)])
+                                     (640, 196, 512, 512),
+                                     (64, 196, 768, 512)])
 def test_attention_bwd_kernel_matches_plain(cuda, B, L, E, D, want_dfeats):
     keys, feats, u_h, v, _, alpha, dctx, dalpha = _bwd_inputs(
         B * L, B, L, E, D, cuda)
@@ -575,7 +601,10 @@ def _assert_bf16_close(got, want, name):
                                        (4, 5, 49, 512, 2208),
                                        (640, 1, 196, 512, 512),
                                        (128, 5, 49, 512, 2048),
-                                       (128, 5, 49, 512, 2208)])
+                                       (128, 5, 49, 512, 2208),
+                                       (128, 5, 196, 768, 512),
+                                       (64, 1, 196, 768, 512),
+                                       (4, 5, 199, 768, 512)])
 def test_attention_bf16_kernel_matches_plain(cuda, B, R, L, E, D):
     keys, feats, u_h, v, b_v = _fwd_inputs(B * R + 1, B, R, L, E, D, cuda)
     keys, feats = keys.to(BF16), feats.to(BF16)
@@ -596,7 +625,8 @@ def test_attention_bf16_kernel_matches_plain(cuda, B, R, L, E, D):
                          ids=["dfeats", "no-dfeats"])
 @pytest.mark.parametrize("B,L,E,D", [(1, 5, 16, 8), (3, 9, 64, 48),
                                      (64, 196, 512, 512), (2, 3, 64, 48),
-                                     (4, 49, 512, 2208), (64, 49, 512, 2208)])
+                                     (4, 49, 512, 2208), (64, 49, 512, 2208),
+                                     (64, 196, 768, 512)])
 def test_attention_bwd_bf16_kernel_matches_plain(cuda, B, L, E, D,
                                                  want_dfeats):
     keys, feats, u_h, v, _, alpha, dctx, dalpha = _bwd_inputs(
@@ -863,3 +893,71 @@ def test_wide_encoders_on_the_card(cuda, network):
 
     assert rel(grids["cuda", BF16], grids["cuda", None]) < 0.1
     assert rel(grids["cuda", BF16], grids["cpu", BF16]) < 2e-2
+
+
+def _bert_decoder(cuda, pad_boost=0.0, tf=False):
+    """A BERT decoder (E = 768, V = 30,522) at D = 64, random, with
+    [PAD]'s output bias raised by `pad_boost`, on the card and on the
+    CPU."""
+    from sat_tpu_torch.compat.jax_params import decoder_from_jax
+    from sat_tpu_torch.models.decoder import DecoderConfig, init_decoder_params
+
+    cfg = DecoderConfig(vocab_size=30522, encoder_dim=64, use_tf=tf,
+                        use_ado=True, use_bert=True, use_attention=True,
+                        dropout_rate=0.0)
+    flat = init_decoder_params(cfg, torch.Generator().manual_seed(3))
+    flat["ado/f_out/b"] = flat["ado/f_out/b"].copy()
+    flat["ado/f_out/b"][0] += pad_boost
+    return (cfg, flat, decoder_from_jax(flat, cfg, cuda),
+            decoder_from_jax(flat, cfg, "cpu"))
+
+
+@pytest.mark.parametrize("B", [1, 7])
+def test_bert_graph_beam_equals_eager_and_the_cpu(cuda, B):
+    """The BERT beam (stop set {1, 0}) through its graphs gives the eager
+    path's bits, and the CPU's tokens, lengths and completion."""
+    from sat_tpu_torch.models.beam import beam_search_batched
+    from sat_tpu_torch.utils.graphs import GraphCache
+
+    _, _, dec, dec_cpu = _bert_decoder(cuda, pad_boost=1.0)
+    feats = torch.rand((B, 49, 64), generator=torch.Generator().manual_seed(B))
+    eager = beam_search_batched(dec, feats.to(cuda), 5)
+    graph = beam_search_batched(dec, feats.to(cuda), 5, graphs=GraphCache())
+    for name, a, b in zip(eager._fields, eager, graph):
+        assert _same_bits(a, b), name
+    cpu = beam_search_batched(dec_cpu, feats, 5)
+    for name in ("tokens", "length", "found"):
+        assert torch.equal(getattr(eager, name).cpu(), getattr(cpu, name)), \
+            name
+    assert bool(cpu.found.any())
+
+
+def test_bert_bank_train_step_on_the_card_matches_the_cpu(cuda):
+    """One Adam step of a BERT decoder, card against CPU: the same loss,
+    the parameters within tests/test_train_parity.py's bound, the table
+    as it was on both."""
+    from sat_tpu_torch.compat.jax_params import decoder_to_jax
+    from sat_tpu_torch.parallel.train_step import (init_train_state,
+                                                   make_bank_train_step)
+
+    cfg, flat, dec, dec_cpu = _bert_decoder(cuda, tf=True)
+    g = torch.Generator().manual_seed(4)
+    bank = torch.rand((6, 49, 64), generator=g)
+    caps = torch.randint(104, 30522, (9, 12), generator=g)
+    caps[:, 0], caps[:, -1], caps[0, -4:-1] = 101, 102, 0
+    img, row = torch.tensor([0, 3, 5, 1]), torch.tensor([2, 0, 8, 4])
+    out = {}
+    for device, d in (("cpu", dec_cpu), ("cuda", dec)):
+        d.requires_grad_(True)
+        state, m = make_bank_train_step(cfg, 1.0)(
+            init_train_state(d), bank.to(device), caps.to(device),
+            img.to(device), row.to(device), 1e-3, None)
+        out[device] = (float(m["loss"]), decoder_to_jax(state.decoder))
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
+    np.testing.assert_array_equal(out["cuda"][1]["embedding"],
+                                  flat["embedding"])
+    np.testing.assert_array_equal(out["cpu"][1]["embedding"],
+                                  flat["embedding"])
+    for name, want in out["cpu"][1].items():
+        bound = 2.05e-3 if name == "attention/v/b" else 3e-4
+        assert np.abs(out["cuda"][1][name] - want).max() <= bound, name

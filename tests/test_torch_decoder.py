@@ -104,5 +104,29 @@ def test_init_params_have_sat_tpu_names_and_shapes(ado):
 
 
 def test_bert_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        Decoder(DecoderConfig(vocab_size=V, encoder_dim=D, use_bert=True))
+    """A BERT decoder builds: sat_tpu's names and shapes (V = 30522,
+    E = 768 whatever vocab_size says), the table frozen, and a given
+    table in place of the random one (tests/test_torch_bert.py holds it
+    against sat_tpu)."""
+    from sat_tpu.engine.checkpoint import _keypath_name
+    from sat_tpu.models.decoder import DecoderConfig as JaxDecoderConfig
+    from sat_tpu.models.decoder import init_decoder_params as jax_init
+
+    cfg = DecoderConfig(vocab_size=V, encoder_dim=D, use_ado=True,
+                        use_bert=True, use_attention=True)
+    dec = Decoder(cfg)
+    assert dec.embedding.weight.shape == (30522, 768)
+    assert not dec.embedding.weight.requires_grad
+    table = np.full((30522, 768), 0.5, np.float32)
+    mine = init_decoder_params(cfg, torch.Generator().manual_seed(0),
+                               bert_embeddings=table)
+    assert (mine["embedding"] == 0.5).all()
+    jcfg = JaxDecoderConfig(vocab_size=V, encoder_dim=D, use_ado=True,
+                            use_bert=True, use_attention=True)
+    shapes = jax.eval_shape(lambda k: jax_init(k, jcfg),
+                            jax.random.PRNGKey(0))
+    ref = {_keypath_name(path): leaf.shape for path, leaf
+           in jax.tree_util.tree_flatten_with_path(shapes)[0]}
+    assert {k: v.shape for k, v in mine.items()} == ref
+    with pytest.raises(ValueError, match="BERT embedding table"):
+        init_decoder_params(cfg, torch.Generator(), bert_embeddings=table[1:])

@@ -1,7 +1,7 @@
 """The port stands alone: it imports neither jax nor sat_tpu, nor the
 packages that only sat_tpu uses and the card's machine lacks (nltk,
-matplotlib, orbax, wandb, skimage), and its entry points refuse to run on
-the CPU unless asked to."""
+matplotlib, orbax, wandb, skimage, transformers), and its entry points
+refuse to run on the CPU unless asked to."""
 
 import ast
 import os
@@ -16,7 +16,7 @@ from tests.test_torch_common import to_np  # noqa: F401  (one torch thread)
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "sat_tpu", "nltk", "matplotlib", "orbax",
-             "wandb", "skimage"}
+             "wandb", "skimage", "transformers"}
 
 # The CPU slice at toy size, in a fresh interpreter: tests/conftest.py has
 # already imported jax into this one.
@@ -27,6 +27,7 @@ import torch
 import sat_tpu_torch.caption_split  # noqa: F401
 import sat_tpu_torch.compat.torch_decoder  # noqa: F401
 import sat_tpu_torch.compat.torch_encoder  # noqa: F401
+import sat_tpu_torch.data.bert_vocab  # noqa: F401
 import sat_tpu_torch.evaluate  # noqa: F401
 import sat_tpu_torch.generate_caption  # noqa: F401
 import sat_tpu_torch.serve  # noqa: F401
@@ -58,8 +59,17 @@ enc = encoder_from_jax(init_encoder_params("densenet161", gen), "densenet161",
 out = build_caption_step("densenet161", dcfg, 3, device="cpu")(
     enc, dec, np.zeros((1, 64, 64, 3), np.float32))
 assert out["alphas"].shape == (1, 52, 4), out["alphas"].shape
+dcfg = DecoderConfig(vocab_size=30, encoder_dim=512, use_ado=True,
+                     use_bert=True, use_attention=True)
+dec = decoder_from_jax(init_decoder_params(dcfg, gen), dcfg, device="cpu")
+enc = encoder_from_jax(init_encoder_params("vgg19", gen), "vgg19",
+                       device="cpu")
+out = build_caption_step("vgg19", dcfg, 3, decode="greedy", device="cpu")(
+    enc, dec, images)
+assert out["tokens"].shape == (2, 52) and out["tokens"][0, 0] == 101
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "sat_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "sat_tpu",
+                                    "transformers"))
 assert not bad, bad
 print("ISOLATED")
 """

@@ -182,12 +182,20 @@ def test_unported_server_flags_raise(ckpt, flag):
 
 
 @pytest.mark.parametrize("flag", [["--bert-vocab", "vocab.txt"]])
-def test_sampling_and_bert_flags_are_rejected(flag):
-    """Nothing in the port reads BERT's flags yet, so the parser refuses
-    them rather than ignoring them (sampling's now parse:
-    test_sampling_flags_are_accepted)."""
-    with pytest.raises(SystemExit):
-        build_parser().parse_args(["--model", "m.npz"] + flag)
+def test_sampling_and_bert_flags_are_rejected(ckpt, tmp_path, flag):
+    """--bert-vocab parses, and the server of a BERT model (model_config's
+    "bert": true) reads the vocabulary it names, here a file that is not
+    there (tests/test_torch_bert.py serves a BERT model; the sampling
+    flags: test_sampling_flags_are_accepted)."""
+    args = build_parser().parse_args(
+        ["--model", ckpt["model"], "--device", "cpu"] + flag)
+    assert args.bert_vocab == flag[1]
+    config = json.loads((ckpt["root"] / "model_config.json").read_text())
+    (tmp_path / "model_config.json").write_text(
+        json.dumps(dict(config, bert=True)))
+    args.model_config = str(tmp_path / "model_config.json")
+    with pytest.raises(FileNotFoundError, match=flag[1]):
+        build_server(args)
 
 
 @pytest.mark.parametrize("flag", [["--temperature", "0.7"], ["--top-k", "5"],

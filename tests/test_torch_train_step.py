@@ -227,5 +227,28 @@ def test_checkpoint_loads_strictly_in_sat_tpu(tmp_path, ado):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="BERT"):
-        Decoder(DecoderConfig(vocab_size=V, encoder_dim=D, use_bert=True))
+    """BERT decoders train: a bank train step moves every parameter that
+    takes a gradient and leaves the frozen table as it was, and Adam holds
+    no state for it (tests/test_torch_bert.py holds the gradients against
+    sat_tpu)."""
+    cfg = DecoderConfig(vocab_size=V, encoder_dim=D, use_tf=True,
+                        use_ado=True, use_bert=True, use_attention=True,
+                        dropout_rate=0.0)
+    dec = Decoder(cfg).requires_grad_(True)
+    before = {n: p.detach().clone() for n, p in dec.named_parameters()}
+    feat_bank, caps_bank, batches = _bank(11)
+    caps_bank[:, 0] = 101                    # [CLS] ... [SEP]
+    caps_bank[:, -1] = 102
+    img_idx, row_idx = batches[0]
+    state, m = make_bank_train_step(cfg, ALPHA_C)(
+        init_train_state(dec), torch.from_numpy(feat_bank),
+        torch.from_numpy(caps_bank), torch.from_numpy(img_idx).long(),
+        torch.from_numpy(row_idx).long(), LR, None)
+    assert np.isfinite(float(m["loss"]))
+    after = dict(state.decoder.named_parameters())
+    assert torch.equal(after["embedding.weight"], before["embedding.weight"])
+    assert not torch.equal(after["f_out.weight"], before["f_out.weight"])
+    tracked = {id(p) for g in state.optimizer.param_groups
+               for p in g["params"]}
+    assert id(after["embedding.weight"]) not in tracked
+    assert len(tracked) == len(after) - 1
