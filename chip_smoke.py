@@ -8,9 +8,9 @@ sources in the checkout and drives the port's serving path at the flagship
 width: VGG19 on 128 images of 224 px, then the beam at width 5 with the
 soft-attention + ado decoder (vocab 2633, E = D = 512), weights random from
 --seed, then the same at the width of the ResNet152 and DenseNet161
-encoders, sample decode, BERT captioning (E = 768, V = 30,522) and the
-CLIs. Each phase prints one JSON line; a failed check exits non-zero and
-no result line is printed:
+encoders, sample decode, BERT captioning (E = 768, V = 30,522), the CLIs
+and the data layer from raw files. Each phase prints one JSON line; a
+failed check exits non-zero and no result line is printed:
 
   1. device  — needs CUDA; the card's name and power limit; TF32 off (the
                main path is exact f32)
@@ -119,6 +119,12 @@ no result line is printed:
                --bank-dtype bfloat16 --bf16-encoder (bf16 launches only);
                one blocked run with --network densenet161 (attention_bwd
                at D = 2208 on the CLI's path)
+  7a. tooling — on that dataset, one blocked run with --debug-nans and
+               --profile-dir (the same meter rows, launches and final state
+               as without, bit for bit; a trace whose device kernels
+               include attention_fwd and attention_bwd), and a fresh
+               per-batch `train --lr 1e38 --debug-nans` process, which must
+               stop with FloatingPointError
   7b. cli    — fresh processes on that dataset: generate_caption on a
                ResNet152 model (beam and its PNG; --decode sample
                --sample-seed 3 twice, one caption; the model as a `.pth`
@@ -126,12 +132,34 @@ no result line is printed:
                evaluate --split val (an in-process Trainer.validate's
                rows and BLEU), caption_split at --pipeline-depth 1 and 2
                (equal JSONL)
-  7c. bert_cli — the same dataset with BERT captions and a 30,522-line
-               vocab.txt written by the script: one blocked epoch of
+  7c. bert_cli — the same dataset with a 30,522-line vocab.txt written by
+               the script and BERT caption files written from a split of
+               its images by a fresh `generate_json_data_bert
+               --vocab-file` process (their layout checked): one blocked
+               epoch of
                `train --bert --bert-embeddings --bert-vocab` (BLEU, the
                table in the `.npz` bit for bit the `.npy`), a fresh
                `serve --bert-vocab` process against this process's words,
                `generate_caption --bert-vocab`
+  8. data    — the data layer from raw files at the flagship's width: a
+               Karpathy split of 512 train, 128 val and 16 test images of
+               640 x 480 and 500 x 375 (half JPEG, half PNG, four
+               grayscale PNGs, one BMP; five sentences each), a fresh
+               `generate_json_data` process (the files' layout checked),
+               the native loader built from sat_tpu_torch/native/preproc.cpp
+               (build seconds, the codecs built in) and held on 128 of the
+               files at 224 px to PIL's decode and its own resize (PNG bit
+               for bit, JPEG within max 0.06, mean 0.005), at 1 thread and
+               at all, and timed against PIL one row at a time (host
+               images/s, three runs each in turns); `SAT_NATIVE_PREPROC=1
+               train --cache-features --steps-per-dispatch 4 --fraction
+               0.25` as a fresh process (its rows decoded natively = the
+               files the codecs take) and the same run without the toggle
+               (two feature-cache keys a split); 128 `path` requests to an in-process server
+               under the toggle (its native rows, every served image the
+               native tensor, the tokens the caption step's on those
+               tensors); `train_models smoke` from a directory whose
+               data/flickr8k is the split
 
 Then come the `{"kernels": [...]}` line, the card's name and power limit as
 nvidia-smi gives them, and last `{"ok": true, "device": {...}}`. Details go
@@ -2565,6 +2593,9 @@ def phase_entry(enc_flat, wide, seed: int) -> dict:
               f"uninterrupted blocked one: "
               f"{ {k: v for k, v in bdiffs.items() if v} }")
 
+        tooling = entry_tooling(argv, k_flag, blk_dir, blk_log,
+                                blk_launches, root, n_train)
+
         # (g) the bf16 options through the CLI, blocked: --bf16-attention,
         # --bank-dtype bfloat16, --bf16-encoder (the precompute); every
         # attention launch is a bf16 variant's
@@ -2639,23 +2670,110 @@ def phase_entry(enc_flat, wide, seed: int) -> dict:
            "densenet161_launches": dn_launches, "densenet161_test": dn_last,
            "caption": caption, "log_tail": log.splitlines()[-6:]}
     emit(res)
-    res.update(cli=cli, bert_cli=bert_cli)
+    res.update(cli=cli, bert_cli=bert_cli, tooling=tooling)
     return res
 
 
-def run_cli(module: str, *args, timeout: int = 300):
+def entry_tooling(argv, k_flag, blk_dir, blk_log, blk_launches, root,
+                  n_train) -> dict:
+    """train.py's tooling flags on the entry phase's blocked run, in one
+    run with both: under --debug-nans it must log the same rows, launch
+    the same kernels and end in the same state bit for bit (the finite
+    flag is computed inside each block's graph and read with its metrics),
+    and --profile-dir must leave a trace whose device kernels include
+    attention_fwd and attention_bwd (the blocks' graph replays); and a
+    fresh per-batch `train --lr 1e38 --debug-nans` process must stop with
+    FloatingPointError (the first update's step size overflows to inf), so
+    that the flag is shown on both paths."""
+    import contextlib
+    import io
+
+    import torch
+    from sat_tpu_torch.train import main as train_main
+
+    def run(ckpt_dir, *extra):
+        out = io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            res = train_main(argv(ckpt_dir, *k_flag, *extra))
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, read_launches(), out.getvalue()
+
+    res = {}
+    tool_dir, trace_dir = (os.path.join(root, "tooling"),
+                           os.path.join(root, "trace"))
+    last, res["seconds"], launches, log = run(
+        tool_dir, "--debug-nans", "--profile-dir", trace_dir)
+    check(meter_rows(log) == meter_rows(blk_log) and "bleu4" in last,
+          "tooling: the --debug-nans --profile-dir run's meter rows differ "
+          "from the blocked run's")
+    check(launches == blk_launches,
+          f"tooling: launches {launches}, blocked {blk_launches}")
+    diffs = run_diff(blk_dir, tool_dir, n_train)
+    res["max_abs_diff"] = max(diffs.values())
+    check(res["max_abs_diff"] == 0,
+          f"tooling: the run ends elsewhere than the blocked run: "
+          f"{ {k: v for k, v in diffs.items() if v} }")
+    traces = os.listdir(trace_dir)
+    check(len(traces) == 1 and traces[0].endswith(".pt.trace.json"),
+          f"tooling: --profile-dir wrote {traces}")
+    path = os.path.join(trace_dir, traces[0])
+    res["trace_bytes"] = os.path.getsize(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            k = kernel_of(e.get("name", ""))
+            if k:
+                kernels[k] = kernels.get(k, 0) + 1
+    res["trace_kernels"] = kernels
+    check(kernels.get("attention_fwd", 0) > 0
+          and kernels.get("attention_bwd", 0) > 0,
+          f"tooling: the trace's attention kernels {kernels}")
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "sat_tpu_torch.train",
+         *argv(os.path.join(root, "nan"), "--lr", "1e38", "--debug-nans")],
+        capture_output=True, text=True, timeout=300, cwd=REPO_DIR,
+        env=cli_env())
+    res["nan_run_seconds"] = time.perf_counter() - t0
+    res["nan_run_exit_code"] = proc.returncode
+    res["nan_run_error"] = (proc.stderr.strip().splitlines() or [""])[-1]
+    check(proc.returncode != 0 and res["nan_run_error"].startswith(
+        "FloatingPointError: --debug-nans:"),
+        f"tooling: train --lr 1e38 --debug-nans exited "
+        f"{proc.returncode}: {proc.stderr[-1500:]}")
+    emit({"phase": "tooling", **res})
+    return res
+
+
+def run_cli(module: str, *args, timeout: int = 300, env=None, cwd=None):
     """(stdout, seconds) of a fresh `python -m sat_tpu_torch.<module>`
-    process, which must exit 0."""
+    process, which must exit 0; `env` adds to this process's environment,
+    `cwd` (default: the checkout) is where it runs."""
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", f"sat_tpu_torch.{module}", *args],
         capture_output=True, text=True, timeout=timeout,
-        cwd=os.path.dirname(os.path.abspath(__file__)),
-        env=dict(os.environ, PYTHONUNBUFFERED="1"))
+        cwd=cwd or REPO_DIR, env=cli_env(**(env or {})))
     check(proc.returncode == 0,
           f"cli {module} {' '.join(args)}: exit {proc.returncode}: "
           f"{proc.stderr[-2000:]}")
     return proc.stdout, time.perf_counter() - t0
+
+
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+
+
+def cli_env(**extra) -> dict:
+    """This process's environment for a fresh CLI process, the checkout on
+    its PYTHONPATH (for one started in another directory)."""
+    path = os.pathsep.join(p for p in (REPO_DIR, os.environ.get("PYTHONPATH"))
+                           if p)
+    return dict(os.environ, PYTHONUNBUFFERED="1", PYTHONPATH=path, **extra)
 
 
 def caption_of(stdout: str) -> str:
@@ -2757,6 +2875,7 @@ def phase_cli(root: str, ckpt_dir: str, enc_path: str, resnet) -> dict:
 # ids, and the BERT beam's completion ids ([unused0] and [PAD])
 BERT_V, BERT_E = 30522, 768
 BERT_PAD, BERT_CLS, BERT_SEP = 0, 101, 102
+BERT_UNK = 100
 BERT_STOP_IDS = (1, 0)
 
 
@@ -3350,9 +3469,42 @@ def bert_train(seed: int, table) -> dict:
             "bf16_profile": bf16_profile}
 
 
+def write_bert_split(root: str, seed: int) -> str:
+    """A Karpathy split of the entry phase's images, two sentences each,
+    in the order of its `{split}_img_paths.json` rows: 8 to 22 words of
+    the script's BERT vocabulary, a third of them a word and a word piece
+    run together ("w5p8": w5 ##p8), so that the longest sentence has more
+    word pieces than words."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    words = [i for i in range(1, BERT_V - 104) if i % 4]
+    pieces = [i for i in range(4, BERT_V - 104, 4)]
+    images = []
+    for split in ENTRY_IMAGES:
+        with open(os.path.join(root, f"{split}_img_paths.json")) as f:
+            paths = json.load(f)[::2]
+        for path in paths:
+            sentences = []
+            for _ in range(2):
+                toks = [f"w{rng.choice(words)}" for _ in range(
+                    int(rng.integers(8, 23)))]
+                toks = [t + f"p{rng.choice(pieces)}" if rng.random() < 1 / 3
+                        else t for t in toks]
+                sentences.append({"tokens": toks})
+            images.append({"filename": os.path.basename(path),
+                           "split": split, "sentences": sentences})
+    path = os.path.join(root, "dataset_bert.json")
+    with open(path, "w") as f:
+        json.dump({"images": images}, f)
+    return path
+
+
 def phase_bert_cli(root: str, enc_path: str, seed: int) -> dict:
-    """BERT through the CLIs on the entry phase's dataset, its captions
-    written straight as ids in sat_tpu's BERT layout: one blocked epoch of
+    """BERT through the CLIs on the entry phase's dataset, its caption
+    files written by `python -m sat_tpu_torch.generate_json_data_bert
+    --vocab-file` from a split of its images (`[CLS] + ids + [PAD]* +
+    [SEP]`, the length the words' + 2, the rows word pieces): one blocked
+    epoch of
     `python -m sat_tpu_torch.train --bert --bert-embeddings --bert-vocab`
     (BLEU, and the table in the `.npz` bit for bit the `.npy` given); a
     fresh `serve --bert-vocab --decode greedy` process, whose words for a
@@ -3374,17 +3526,30 @@ def phase_bert_cli(root: str, enc_path: str, seed: int) -> dict:
 
     gen = torch.Generator().manual_seed(seed + 13)
     vocab = write_bert_vocab(os.path.join(root, "bert_vocab.txt"))
+    res = {"seconds": {}}
+    out, res["seconds"]["generate_json_data_bert"] = run_cli(
+        "generate_json_data_bert", "--split-path",
+        write_bert_split(root, seed + 13), "--data-path", root,
+        "--max-captions", "2", "--vocab-file", vocab)
+    length = int(out.split("Maximum caption length: ")[1].split()[0])
+    res["caption_length"] = length
     for split in ENTRY_IMAGES:
         with open(os.path.join(root, f"{split}_img_paths.json")) as f:
             rows = len(json.load(f))
-        with open(os.path.join(root, f"{split}_captions_bert.json"),
-                  "w") as f:
-            json.dump(make_bert_captions(gen, rows).tolist(), f)
+        with open(os.path.join(root, f"{split}_captions_bert.json")) as f:
+            caps = np.asarray(json.load(f))
+        check(caps.shape == (rows, length + 2)
+              and (caps[:, 0] == BERT_CLS).all()
+              and (caps[:, -1] == BERT_SEP).all()
+              and (caps[:, 1:-1] != BERT_CLS).all()
+              and (caps[:, 1:-1] != BERT_UNK).all(),
+              f"bert cli: the {split} caption file {caps.shape}")
+    check(length == 24, f"bert cli: caption length {length}, want the "
+                        f"longest sentence's 22 words + 2")
     table = (torch.randn((BERT_V, BERT_E), generator=gen) * 0.02).numpy()
     table_path = os.path.join(root, "bert_table.npy")
     np.save(table_path, table)
     ckpt_dir = os.path.join(root, "bert")
-    res = {"seconds": {}}
     log, res["seconds"]["train"] = run_cli(
         "train", "--data", root, "--bert", "--bert-embeddings", table_path,
         "--bert-vocab", vocab, "--tf", "--ado", "--attention",
@@ -3396,12 +3561,15 @@ def phase_bert_cli(root: str, enc_path: str, seed: int) -> dict:
     check(all(len(b) == 4 and all(math.isfinite(v) and 0 <= v <= 1
                                   for v in b.values())
               for b in bleu.values()), f"bert cli: BLEU {bleu}")
-    check(f"Frozen BERT embedding table: {BERT_V * BERT_E}" in log,
-          "bert cli: the table is not printed apart")
     model = os.path.join(ckpt_dir, "model_vgg19_1.npz")
     with np.load(model) as arc:
         check(np.array_equal(arc["embedding"], table),
               "bert cli: the table in the .npz differs from the .npy")
+        trainable = sum(arc[k].size for k in arc.files if k != "embedding")
+    decoder_table = log.split("Decoder parameters:\n")[1]
+    check("| embedding " not in decoder_table.split("Total Trainable")[0]
+          and f"Total Trainable Params: {trainable}\n" in decoder_table,
+          "bert cli: the decoder table counts the frozen table")
 
     # a fresh serve process against this process, one cached image, B = 1,
     # on the worst-case decoder
@@ -3453,6 +3621,373 @@ def phase_bert_cli(root: str, enc_path: str, seed: int) -> dict:
     return res
 
 
+# ------------------------------------------------------------------ data
+
+# The data phase's split: COCO-like image sizes (the resize downscales),
+# five sentences an image
+DATA_IMAGES = {"train": 512, "val": 128, "test": 16}
+DATA_SHAPES = ((480, 640), (375, 500), (640, 480), (500, 375))
+DATA_CHECKED = 128         # files of the native checks and of the serving
+DATA_FRACTION = 0.25       # of each split, for the two training runs
+
+
+def data_kind(n: int) -> str:
+    """The format of the split's n-th image: every other one a JPEG, one
+    BMP (which the native codecs reject), four grayscale PNGs, the rest
+    RGB PNGs."""
+    if n == 7:
+        return "bmp"
+    if n % 2 == 0:
+        return "jpg"
+    return "gray" if n % 160 == 1 else "png"
+
+
+def write_split(root: str, seed: int) -> list:
+    """`<root>/dataset.json` in the schema of tests/_synth.py (a Karpathy
+    split) and its images in `<root>/imgs`: smooth random pictures with
+    noise, made and saved by a thread pool; sentences of 6-28 words drawn
+    from 3,000 words with Zipf frequencies. Returns [(path, kind)] in
+    split order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "imgs"))
+    noise = rng.integers(-12, 13, (704, 704, 3), dtype=np.int16)
+    words = [f"v{i}" for i in range(3000)]
+    zipf = 1.0 / np.arange(1, len(words) + 1)
+    zipf /= zipf.sum()
+
+    def save(base, oy, ox, h, w, path, kind):
+        arr = np.clip(np.asarray(base.resize((w, h), Image.BICUBIC),
+                                 np.int16) + noise[oy:oy + h, ox:ox + w],
+                      0, 255).astype(np.uint8)
+        if kind == "gray":
+            Image.fromarray(arr[:, :, 0], mode="L").save(path,
+                                                        compress_level=1)
+        elif kind == "jpg":
+            Image.fromarray(arr).save(path, quality=90)
+        elif kind == "png":
+            Image.fromarray(arr).save(path, compress_level=1)
+        else:
+            Image.fromarray(arr).save(path)
+
+    images, files, n = [], [], 0
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        futures = []
+        for split, count in DATA_IMAGES.items():
+            for i in range(count):
+                h, w = DATA_SHAPES[n % len(DATA_SHAPES)]
+                kind = data_kind(n)
+                base = Image.fromarray(rng.integers(0, 256, (6, 8, 3),
+                                                    np.uint8))
+                oy, ox = (int(v) for v in rng.integers(0, 64, 2))
+                ext = "png" if kind == "gray" else kind
+                name = f"{split}_{i:03d}.{ext}"
+                path = os.path.join(root, "imgs", name)
+                futures.append(pool.submit(save, base, oy, ox, h, w, path,
+                                           kind))
+                lengths = rng.integers(6, 29, 5)
+                drawn = rng.choice(len(words), size=int(lengths.sum()),
+                                   p=zipf)
+                cuts = np.cumsum(lengths)[:-1]
+                sentences = [{"tokens": [words[t] for t in part]}
+                             for part in np.split(drawn, cuts)]
+                images.append({"filename": name, "split": split,
+                               "sentences": sentences})
+                files.append((path, kind))
+                n += 1
+        for f in futures:
+            f.result()
+    with open(os.path.join(root, "dataset.json"), "w") as f:
+        json.dump({"dataset": "synthetic", "images": images}, f)
+    return files
+
+
+def phase_data(enc_flat, seed: int) -> dict:
+    """The data layer from raw files at the flagship's width: a split on
+    disk, `python -m sat_tpu_torch.generate_json_data` (the vocabulary from
+    the split), the native loader built from the checkout's source and held
+    to PIL on 128 files (a file its codecs do not take: PIL's decode and
+    the C++ resize, held to the resize's numpy mirror), with its host
+    images/s; `SAT_NATIVE_PREPROC=1 python -m sat_tpu_torch.train
+    --cache-features --steps-per-dispatch 4` on a quarter of each split
+    and the same run without the toggle (two feature-cache keys; the native
+    run's rows decoded natively = its JPEGs and PNGs, where the codecs are
+    built); 128 `path` requests
+    to the server under the toggle, answered with the caption step's tokens
+    of the natively loaded images; `python -m sat_tpu_torch.train_models
+    smoke` from a directory whose data/flickr8k is the split."""
+    import contextlib
+    import hashlib
+    import io
+
+    import numpy as np
+    import torch
+    from sat_tpu_torch.data import native
+    from sat_tpu_torch.data.transforms import (load_and_preprocess_image,
+                                               pil_loader)
+    from sat_tpu_torch.serve import build_parser, build_server
+    from sat_tpu_torch.train import main as train_main
+
+    check(os.environ.get("SAT_NATIVE_PREPROC") != "1",
+          "data: run without SAT_NATIVE_PREPROC=1 (the phase sets it)")
+    res = {"images": DATA_IMAGES, "seconds": {}}
+    secs = res["seconds"]
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        files = write_split(root, seed + 21)
+        secs["write_split"] = time.perf_counter() - t0
+        kinds = [k for _, k in files]
+        res["files"] = {k: kinds.count(k) for k in sorted(set(kinds))}
+
+        # the data-prep CLI, then the layout of its files
+        _, secs["generate_json_data"] = run_cli(
+            "generate_json_data", "--split-path",
+            os.path.join(root, "dataset.json"), "--data-path", root)
+        with open(os.path.join(root, "word_dict.json")) as f:
+            word_dict = json.load(f)
+        check(sorted(word_dict.values()) == list(range(len(word_dict)))
+              and [word_dict[w] for w in ("<start>", "<eos>", "<unk>",
+                                          "<pad>")] == [0, 1, 2, 3],
+              "data: word_dict.json's ids")
+        res["vocab"] = len(word_dict)
+        for split, count in DATA_IMAGES.items():
+            with open(os.path.join(root, f"{split}_img_paths.json")) as f:
+                paths = json.load(f)
+            with open(os.path.join(root, f"{split}_captions.json")) as f:
+                caps = np.asarray(json.load(f))
+            check(len(paths) == caps.shape[0] == 5 * count
+                  and caps.shape[1] == CAP_LEN
+                  and all(os.path.exists(p) for p in paths[::5])
+                  and (caps[:, 0] == 0).all()
+                  and ((caps == 1).sum(axis=1) == 1).all(),
+                  f"data: the {split} files' layout {caps.shape}")
+
+        # the native loader, built from the checkout's source
+        if os.path.exists(native._LIB_PATH):
+            os.remove(native._LIB_PATH)
+        t0 = time.perf_counter()
+        built = native.available()
+        res["build_seconds"] = time.perf_counter() - t0
+        check(built, "data: the native loader did not build")
+        support = native.decode_support()
+        decodes = {"jpg": bool(support & 1), "png": bool(support & 2),
+                   "gray": bool(support & 2), "bmp": False}
+        res["decode_support"] = support
+        res["codecs_missing"] = [c for c, bit in (("JPEG", 1), ("PNG", 2))
+                                 if not support & bit]
+        sample = files[:DATA_CHECKED]
+        paths = [p for p, _ in sample]
+        one, status = native.load_images(paths, SIZE, n_threads=1)
+        pool_rows, pool_status = native.load_images(paths, SIZE)
+        check(np.array_equal(status, pool_status)
+              and np.array_equal(one[status == native.OK],
+                                 pool_rows[status == native.OK]),
+              "data: load_images at 1 thread and at all threads differ")
+        jpeg_err, resize_err = [], []
+        for (path, kind), st, row in zip(sample, status, one):
+            check((st == native.OK) == decodes[kind],
+                  f"data: {kind} {path} has status {st}")
+            rgb = np.asarray(pil_loader(path), np.uint8)
+            via_pil = native.resize_normalize(rgb, SIZE)
+            if st != native.OK:
+                # the tier the file takes: PIL's decode, the C++ resize,
+                # held to the resize's numpy mirror
+                tier = load_and_preprocess_image(path, SIZE, use_native=True)
+                check(np.array_equal(tier, via_pil),
+                      f"data: {kind} {path} is not PIL + the C++ resize")
+                resize_err.append(float(np.abs(
+                    tier - native.resize_normalize_reference(rgb, SIZE))
+                    .max()))
+                continue
+            if kind == "jpg":
+                err = np.abs(row - via_pil)
+                jpeg_err.append((float(err.max()), float(err.mean())))
+            else:
+                check(np.array_equal(row, via_pil),
+                      f"data: {kind} {path} differs from PIL + resize")
+        if resize_err:
+            res["resize_max_abs_err"] = max(resize_err)
+            check(res["resize_max_abs_err"] < 1e-4,
+                  f"data: the C++ resize against its numpy mirror "
+                  f"{res['resize_max_abs_err']}")
+        if jpeg_err:
+            res["jpeg_max_abs_err"] = max(e[0] for e in jpeg_err)
+            res["jpeg_mean_abs_err"] = max(e[1] for e in jpeg_err)
+            check(res["jpeg_max_abs_err"] < 0.06
+                  and res["jpeg_mean_abs_err"] < 0.005,
+                  f"data: JPEG rows against PIL {res['jpeg_max_abs_err']} "
+                  f"max, {res['jpeg_mean_abs_err']} mean")
+
+        def native_tier():
+            rows, st = native.load_images(paths, SIZE)
+            for i in np.flatnonzero(st != native.OK):
+                rows[i] = load_and_preprocess_image(paths[i], SIZE,
+                                                    use_native=True)
+            return rows
+
+        def pil_rows():
+            return [load_and_preprocess_image(p, SIZE, use_native=False)
+                    for p in paths]
+
+        rates = {"native": [], "pil": []}
+        for _ in range(3):
+            for name, fn in (("native", native_tier), ("pil", pil_rows)):
+                t0 = time.perf_counter()
+                fn()
+                rates[name].append(len(paths) / (time.perf_counter() - t0))
+        res["host_images_per_s"] = rates
+        res["cpu_count"] = os.cpu_count()
+
+        # training from a quarter of each split, with the toggle (a fresh
+        # process) and without (in this process); each run publishes its
+        # feature cache
+        enc_npz = os.path.join(root, "vgg19.npz")
+        np.savez(enc_npz, **enc_flat)
+        cache = os.path.join(root, "feature_cache")
+
+        def data_argv(ckpt_dir):
+            return ["--data", root, "--tf", "--ado", "--attention",
+                    "--cache-features", "--steps-per-dispatch",
+                    str(ENTRY_K), "--epochs", "1", "--batch-size",
+                    str(TRAIN_B), "--log-interval", "10",
+                    "--checkpoint-dir", ckpt_dir, "--encoder-weights",
+                    enc_npz, "--feature-cache-dir", cache, "--fraction",
+                    str(DATA_FRACTION)]
+
+        def native_rows_of(log):
+            m = re.search(r"\((\d+) decoded by the native loader\)", log)
+            check(m is not None, "data: no count of native rows printed")
+            return int(m.group(1))
+
+        native_dir = os.path.join(root, "model_native")
+        log, secs["train_native"] = run_cli(
+            "train", *data_argv(native_dir), env={"SAT_NATIVE_PREPROC": "1"})
+        res["train_native_rows"] = native_rows_of(log)
+        kind_of = dict(files)
+        want_rows = 0
+        for split in DATA_IMAGES:
+            with open(os.path.join(root, f"{split}_img_paths.json")) as f:
+                rows = json.load(f)
+            want_rows += sum(decodes[kind_of[p]] for p in set(
+                rows[:int(len(rows) * DATA_FRACTION)]))
+        check(res["train_native_rows"] == want_rows,
+              f"data: {res['train_native_rows']} rows decoded natively, "
+              f"{want_rows} JPEGs and PNGs")
+        res["train_native_bleu"] = _bleu_of(log, "EvalMode.TEST")
+        out = io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            pil_last = train_main(data_argv(os.path.join(root, "model_pil")))
+        torch.cuda.synchronize()
+        secs["train_pil"] = time.perf_counter() - t0
+        res["train_pil_launches"] = read_launches()
+        check(native_rows_of(out.getvalue()) == 0 and "bleu4" in pil_last
+              and res["train_pil_launches"]["attention_fwd"] > 0
+              and res["train_pil_launches"]["attention_bwd"] > 0,
+              f"data: the run without the toggle {pil_last} "
+              f"{res['train_pil_launches']}")
+        keys = {}
+        for name in os.listdir(cache):
+            split, key = name[len("feats_"):-len(".npz")].split("_")
+            keys.setdefault(split, set()).add(key)
+        check(sorted(keys) == ["test", "train", "val"]
+              and all(len(k) == 2 for k in keys.values()),
+              f"data: feature-cache files {sorted(os.listdir(cache))}")
+
+        # serving the natively trained model from the files under the
+        # toggle; each batch the step takes is recorded with its tokens
+        os.environ["SAT_NATIVE_PREPROC"] = "1"
+        try:
+            server = build_server(build_parser().parse_args([
+                "--model", os.path.join(native_dir, "model_vgg19_1.npz"),
+                "--encoder-weights", enc_npz, "--port", "0",
+                "--max-batch", str(DATA_CHECKED), "--batch-window-ms",
+                "500"]))
+            step, served = server._caption_fn, []
+
+            def recording(arr):
+                out = step(arr)
+                served.append((arr.copy(), {k: out[k].clone() for k in (
+                    "tokens", "length", "score", "found")}))
+                return out
+
+            server._caption_fn = recording
+            server.start()
+            reset_launches()
+            t0 = time.perf_counter()
+            try:
+                with socket.create_connection(("127.0.0.1", server.port),
+                                              timeout=300) as sock:
+                    f = sock.makefile("rwb")
+                    f.write(b"".join(json.dumps({"id": i, "path": p})
+                                     .encode() + b"\n"
+                                     for i, p in enumerate(paths)))
+                    f.flush()
+                    replies = [json.loads(f.readline()) for _ in paths]
+                torch.cuda.synchronize()
+            finally:
+                server.stop()
+            secs["serve"] = time.perf_counter() - t0
+            res["serve_launches"] = read_launches()
+            res["serve_stats"] = {k: server.stats[k] for k in (
+                "requests", "batches", "errors", "captioned",
+                "native_rows")}
+            check(res["serve_stats"]["native_rows"]
+                  == sum(decodes[k] for _, k in sample)
+                  and res["serve_stats"]["captioned"] == len(paths),
+                  f"data: serving {res['serve_stats']}")
+            check(res["serve_launches"]["topk"] > 0
+                  and res["serve_launches"]["attention_fwd"] > 0,
+                  f"data: serving launches {res['serve_launches']}")
+            ref = {p: load_and_preprocess_image(p, SIZE, use_native=True)
+                   for p in paths}
+            by_digest = {hashlib.sha1(img.tobytes()).digest(): p
+                         for p, img in ref.items()}
+            answered = {}
+            for arr, out in served:
+                rows = [by_digest.get(hashlib.sha1(r.tobytes()).digest())
+                        for r in arr]
+                check(None not in rows,
+                      "data: a served image is not its natively loaded "
+                      "tensor")
+                want = step(np.stack([ref[p] for p in rows]))
+                check(all(same_bits(out[k], want[k]) for k in out),
+                      "data: the served tokens differ from the caption "
+                      "step's on the natively loaded images")
+                host = {k: v.cpu().numpy() for k, v in out.items()}
+                for i, p in enumerate(rows):
+                    answered.setdefault(p, " ".join(server._decode_tokens(
+                        host["tokens"][i], int(host["length"][i]),
+                        bool(host["found"][i]))))
+            for i, (p, reply) in enumerate(zip(paths, replies)):
+                check(reply.get("id") == i
+                      and reply.get("caption") == answered.get(p),
+                      f"data: reply {reply}, want {answered.get(p)!r}")
+        finally:
+            os.environ.pop("SAT_NATIVE_PREPROC", None)
+        res["serve_batches"] = len(served)
+
+        # the experiment runner, from a directory whose data/flickr8k is
+        # the split
+        with tempfile.TemporaryDirectory() as runs:
+            os.makedirs(os.path.join(runs, "data"))
+            os.symlink(root, os.path.join(runs, "data", "flickr8k"))
+            log, secs["train_models_smoke"] = run_cli(
+                "train_models", "smoke", cwd=runs, timeout=600)
+            check("Running:" in log and "Experiment failed" not in log
+                  and "EvalMode.TEST Epoch: 1\tBLEU-1 (" in log
+                  and os.path.exists(os.path.join(runs, "model",
+                                                  "model_vgg19_1.npz")),
+                  f"data: train_models smoke: {log[-1500:]}")
+    emit({"phase": "data", **res})
+    return res
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3489,6 +4024,8 @@ def main():
     lap("train")
     entry = phase_entry(enc_flat, wide, args.seed)
     lap("entry_cli_bert_cli")
+    data = phase_data(enc_flat, args.seed)
+    lap("data")
     emit({"phase_seconds": seconds})
 
     # each kernel's launches on its path: for top-k and the forward, the
@@ -3564,7 +4101,7 @@ def main():
                    "build_log": build["log"], "kernels": kernels,
                    "main": main_res, "serve": serve, "encoders": encoders,
                    "sample": sample, "bert": bert, "train": train,
-                   "entry": entry}, f,
+                   "entry": entry, "data": data}, f,
                   indent=1)
     emit(summary)
     print(dev["card"], flush=True)

@@ -21,13 +21,16 @@ sat_tpu's layout, so each module's counterpart sits under the same path:
   sat_tpu_torch.compat   — sat_tpu parameter archives, torchvision encoder
                            and reference decoder state_dicts <-> the
                            port's modules
-  sat_tpu_torch.data     — image preprocessing, caption dataset and loader,
-                           the BERT WordPiece vocabulary (decode only)
+  sat_tpu_torch.data     — image preprocessing (PIL, or the native C++
+                           loader of sat_tpu_torch/native), caption dataset
+                           and loader, the data prep of a Karpathy split,
+                           the BERT WordPiece tokenizer
+  sat_tpu_torch/native/  — the C++ source of the native image loader
   sat_tpu_torch.serve    — the captioning server (python -m sat_tpu_torch.serve)
   sat_tpu_torch.train    — the training CLI (python -m sat_tpu_torch.train)
-  sat_tpu_torch.generate_caption, .evaluate, .caption_split — the CLIs of
-                           generate_caption.py, evaluate.py and
-                           caption_split.py
+  sat_tpu_torch.generate_caption, .evaluate, .caption_split,
+  .generate_json_data, .generate_json_data_bert, .train_models — the CLIs
+                           of the top-level scripts of the same names
 
 The port imports torch and never jax or sat_tpu. Entry points run on the
 card (device="cuda") unless the caller asks for the CPU; on CPU tensors

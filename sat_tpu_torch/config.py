@@ -156,8 +156,6 @@ def unported_options(cfg: Config):
         ("--mesh-model > 1", cfg.mesh_model > 1,
          "parallel and multi-process"),
         ("--wandb", cfg.wandb, "CLIs and tooling"),
-        ("--profile-dir", cfg.profile_dir, "CLIs and tooling"),
-        ("--debug-nans", cfg.debug_nans, "CLIs and tooling"),
     ]
     return [(flag, item) for flag, on, item in checks if on]
 
@@ -285,9 +283,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--wandb", action="store_true", default=False,
                         help="log to Weights & Biases (not ported)")
     parser.add_argument("--debug-nans", action="store_true", default=False,
-                        help="stop at the first NaN (not ported)")
+                        help="stop with FloatingPointError at the first "
+                             "train step whose loss or parameters are not "
+                             "finite")
     parser.add_argument("--profile-dir", type=str, default=None,
-                        help="profiler trace directory (not ported)")
+                        help="write a torch.profiler trace of the run "
+                             "into this directory")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
     return parser

@@ -1,7 +1,7 @@
 """Streaming caption dataset and batch loader.
 
-Port of sat_tpu/data/dataset.py (single host, PIL decode). Batches are
-numpy arrays ready for the device:
+Port of sat_tpu/data/dataset.py (single host). Batches are numpy arrays
+ready for the device:
 
   imgs         (B, S, S, 3) float32, NHWC, ImageNet-normalized (or None)
   captions     (B, T) int32
@@ -14,8 +14,10 @@ all captions are padded to one width with each group's first caption. An
 epoch's order is a permutation seeded by (seed, epoch) with numpy, the
 same as sat_tpu's, and a producer thread prefetches batches. With
 `bert` the captions are the BERT ids of `{split}_captions_bert.json`
-(sat_tpu/data/bert_prep.py's layout). The native C++ decode tier is not
-ported.
+(data/bert_prep.py's layout). Under SAT_NATIVE_PREPROC=1 a batch's cache
+misses are decoded by one call of the native loader's thread pool
+(data/native.py), and only the files its codecs reject go through the
+per-image path; `native_rows` counts the rows the native tier decoded.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ from typing import Iterator, Optional
 
 import numpy as np
 
-from sat_tpu_torch.data.transforms import load_and_preprocess_image
+from sat_tpu_torch.data.transforms import (load_and_preprocess_image,
+                                           native_enabled)
 
 
 class CacheBudget:
@@ -80,6 +83,7 @@ class CaptionDataset:
         self._cache: Optional[dict] = {} if cache_images else None
         self._cache_budget = cache_budget
         self._cache_lock = threading.Lock()
+        self.native_rows = 0     # rows decoded by the native batch loader
 
     def _cache_put(self, path: str, img: np.ndarray) -> None:
         with self._cache_lock:
@@ -88,7 +92,8 @@ class CaptionDataset:
             if (self._cache_budget is not None
                     and not self._cache_budget.take(img.nbytes)):
                 return
-            self._cache[path] = img
+            # a row of a batch buffer would pin the whole buffer
+            self._cache[path] = img if img.base is None else img.copy()
 
     def __len__(self) -> int:
         return len(self.img_paths)
@@ -110,7 +115,36 @@ class CaptionDataset:
         return img
 
     def load_image_batch(self, idxs) -> np.ndarray:
-        return np.stack([self.load_image(i) for i in idxs])
+        """The images of rows `idxs`, (B, S, S, 3). Cache hits first; under
+        SAT_NATIVE_PREPROC=1 with the native codecs built, the misses in
+        one thread-pool call, whose rows fill the cache; every other miss,
+        and a file the codecs reject, through `load_image`."""
+        out = [None] * len(idxs)
+        if self._cache is not None:
+            with self._cache_lock:
+                for pos, i in enumerate(idxs):
+                    out[pos] = self._cache.get(self.img_paths[i])
+        miss = [pos for pos, img in enumerate(out) if img is None]
+
+        if miss and native_enabled():
+            from sat_tpu_torch.data import native
+            if native.decode_support():
+                imgs, status = native.load_images(
+                    [self.img_paths[idxs[pos]] for pos in miss],
+                    self.image_size)
+                done = [(pos, imgs[k]) for k, pos in enumerate(miss)
+                        if status[k] == native.OK]
+                for pos, img in done:
+                    out[pos] = img
+                    if self._cache is not None:
+                        self._cache_put(self.img_paths[idxs[pos]], img)
+                with self._cache_lock:
+                    self.native_rows += len(done)
+                miss = [pos for pos in miss if out[pos] is None]
+
+        for pos in miss:
+            out[pos] = self.load_image(idxs[pos])
+        return np.stack(out)
 
     def __getitem__(self, index: int):
         return (self.load_image(index), self.captions[index],

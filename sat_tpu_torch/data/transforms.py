@@ -1,12 +1,17 @@
-"""Host-side image preprocessing in numpy/PIL.
+"""Host-side image preprocessing in numpy/PIL, or the native C++ loader.
 
-Port of the PIL path of sat_tpu/data/transforms.py: resize to size x size
-(bilinear on the PIL image), scale to [0, 1], ImageNet-normalize. The output
-is NHWC float32, the layout the encoder takes. The native C++ decode tier is
-not ported yet.
+Port of sat_tpu/data/transforms.py: resize to size x size (bilinear on the
+PIL image), scale to [0, 1], ImageNet-normalize. The output is NHWC
+float32, the layout the encoder takes. With SAT_NATIVE_PREPROC=1 (or
+`use_native=True`) an image goes through the port's native loader
+(data/native.py) instead: the whole C++ path first, then PIL's decode with
+the C++ resize for a file the codecs reject, then PIL alone when the
+library did not build.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 from PIL import Image
@@ -30,8 +35,29 @@ def preprocess_pil(img: Image.Image,
     return (arr - _MEAN) / _STD
 
 
-def load_and_preprocess_image(path: str,
-                              size: int = constants.IMAGE_SIZE) -> np.ndarray:
+def native_enabled() -> bool:
+    """The SAT_NATIVE_PREPROC=1 toggle of the native loader."""
+    return os.environ.get("SAT_NATIVE_PREPROC") == "1"
+
+
+def load_and_preprocess_image(path: str, size: int = constants.IMAGE_SIZE,
+                              use_native: bool | None = None) -> np.ndarray:
+    """Load, resize and normalize one image. `use_native` (default: the
+    SAT_NATIVE_PREPROC=1 toggle) takes the native loader's tiers; PIL stays
+    the parity path, which the reference's torchvision transforms match bit
+    for bit, where the native resize differs by a visually identical
+    bilinear kernel."""
+    if use_native is None:
+        use_native = native_enabled()
+    if use_native:
+        from sat_tpu_torch.data import native
+        if native.decode_support():
+            out = native.load_image(path, size)
+            if out is not None:
+                return out
+        if native.available():
+            return native.resize_normalize(
+                np.asarray(pil_loader(path), np.uint8), size)
     return preprocess_pil(pil_loader(path), size)
 
 

@@ -49,8 +49,16 @@ BERT mode requires: sat_tpu's fallback, a download of bert-base-uncased's
 tokenizer, has no counterpart. The table is in every `.npz` and not in the
 optimizer.
 
-Not ported yet, each named in ROADMAP.md Queue 1: W&B, the profiler, NaN
-debugging and the device mesh.
+`--profile-dir` runs the whole of `run_training` under torch.profiler
+(host and, on the card, device activity) and writes its trace into the
+directory, as sat_tpu's jax.profiler trace does. `--debug-nans` stops the
+run with FloatingPointError, naming the epoch and the step, at the first
+train step whose loss or updated parameters are not finite: each step
+computes a finite flag on the device (inside the captured graph of a K-step
+block), which the one-behind read of the step's metrics checks; without
+the option the steps compute no flag.
+
+Not ported yet, each named in ROADMAP.md Queue 1: W&B and the device mesh.
 """
 
 from __future__ import annotations
@@ -72,7 +80,7 @@ from sat_tpu_torch.compat.jax_params import decoder_from_jax, encoder_from_jax
 from sat_tpu_torch.config import Config, unported_options
 from sat_tpu_torch.data.bert_vocab import load_bert_vocab
 from sat_tpu_torch.data.dataset import BatchLoader, CacheBudget, CaptionDataset
-from sat_tpu_torch.data.transforms import denormalize
+from sat_tpu_torch.data.transforms import denormalize, native_enabled
 from sat_tpu_torch.device import resolve_device, use_f32_math
 from sat_tpu_torch.engine import checkpoint as ckpt
 from sat_tpu_torch.engine.evaluate import caption_decoder, compute_bleu
@@ -88,6 +96,7 @@ from sat_tpu_torch.parallel.train_step import (init_train_state,
                                                place_optimizer_state)
 from sat_tpu_torch.utils.logging import MetricLogger
 from sat_tpu_torch.utils.meters import AverageMeter
+from sat_tpu_torch.utils.tables import count_parameters
 from sat_tpu_torch.utils.viz import save_attention_plot
 
 MAX_ATTENTION_PLOTS = 50     # per TEST pass, as the reference logs
@@ -204,8 +213,10 @@ class Trainer:
                     self._precompute_split_features(loader.dataset)
             total_bytes = sum(f.nbytes for f in self.features.values())
             n = sum(f.shape[0] for f in self.features.values())
+            native_rows = sum(ld.dataset.native_rows for ld in loaders)
             print(f"Precomputed frozen-encoder features for {n} unique "
-                  f"images in {time.time() - t0:.1f}s")
+                  f"images in {time.time() - t0:.1f}s ({native_rows} "
+                  f"decoded by the native loader)")
             self.use_bank = total_bytes <= cfg.feature_bank_hbm_gb * (1 << 30)
             if self.use_bank:
                 bank_dtype = getattr(torch, cfg.bank_dtype)
@@ -231,12 +242,14 @@ class Trainer:
         self.train_block = self.eval_block = None
         if self.use_bank:
             self.train_step = make_bank_train_step(
-                self.dcfg, cfg.alpha_c, rep_penalty_beta=cfg.rep_penalty_beta)
+                self.dcfg, cfg.alpha_c, rep_penalty_beta=cfg.rep_penalty_beta,
+                debug_nans=cfg.debug_nans)
             self.eval_step = make_bank_eval_step(self.dcfg, cfg.alpha_c)
             if cfg.steps_per_dispatch > 1:
                 self.train_block = make_bank_train_block(
                     self.dcfg, cfg.alpha_c,
-                    rep_penalty_beta=cfg.rep_penalty_beta)
+                    rep_penalty_beta=cfg.rep_penalty_beta,
+                    debug_nans=cfg.debug_nans)
                 self.eval_block = make_bank_eval_block(self.dcfg,
                                                        cfg.alpha_c)
         else:
@@ -248,21 +261,21 @@ class Trainer:
                 self.dcfg, cfg.network, cfg.alpha_c,
                 bf16_encoder=cfg.bf16_encoder,
                 from_features=cfg.cache_features,
-                rep_penalty_beta=cfg.rep_penalty_beta)
+                rep_penalty_beta=cfg.rep_penalty_beta,
+                debug_nans=cfg.debug_nans)
             self.eval_step = make_eval_step(self.dcfg, cfg.network,
                                             cfg.alpha_c,
                                             bf16_encoder=cfg.bf16_encoder,
                                             from_features=cfg.cache_features)
 
+        # sat_tpu's tables: the frozen encoder's (no trainable row), then
+        # the decoder's without BERT's frozen table
         print(f"Starting training with {cfg}")
-        print(f"Encoder parameters (frozen): "
-              f"{sum(p.numel() for p in self.encoder.parameters())}")
-        params = list(self.state.decoder.parameters())
-        print(f"Total Trainable Params: "
-              f"{sum(p.numel() for p in params if p.requires_grad)}")
-        if cfg.bert:
-            print(f"Frozen BERT embedding table: "
-                  f"{sum(p.numel() for p in params if not p.requires_grad)}")
+        print("Encoder parameters (frozen):")
+        count_parameters(enc_flat, trainable_filter=lambda n: False)
+        print("Decoder parameters:")
+        count_parameters(dec_flat, trainable_filter=(
+            (lambda n: not n.startswith("embedding")) if cfg.bert else None))
 
     def _resume(self) -> None:
         """Load the newest train state in --checkpoint-dir, if there is one:
@@ -292,12 +305,14 @@ class Trainer:
 
     def _feature_cache_key(self, split, unique_paths) -> str:
         """sat_tpu's disk-cache key of a split's features: the encoder,
-        the image size, bf16, the decode path (always PIL here), the
-        encoder weights' source and each unique image's path, size and
-        mtime. An archive of weights (--encoder-weights) gives sat_tpu's
-        key, so either package reads the other's file; random weights
-        from --seed are keyed apart from sat_tpu's, whose initializers
-        draw other numbers from the same seed."""
+        the image size, bf16, the decode path ("native" under
+        SAT_NATIVE_PREPROC=1, whose JPEG decode may differ from PIL's by a
+        unit of uint8, else "pil"), the encoder weights' source and each
+        unique image's path, size and mtime. An archive of weights
+        (--encoder-weights) gives sat_tpu's key, so either package reads
+        the other's file; random weights from --seed are keyed apart from
+        sat_tpu's, whose initializers draw other numbers from the same
+        seed."""
         cfg = self.cfg
         if cfg.encoder_weights:
             st = os.stat(cfg.encoder_weights)
@@ -307,7 +322,8 @@ class Trainer:
             src = f"torch-seed:{cfg.seed}"
         h = hashlib.sha1()
         h.update("\n".join([cfg.network, str(cfg.image_size),
-                            str(bool(cfg.bf16_encoder)), "pil", src,
+                            str(bool(cfg.bf16_encoder)),
+                            "native" if native_enabled() else "pil", src,
                             split]).encode())
         for p in unique_paths:
             st = os.stat(p)
@@ -317,8 +333,10 @@ class Trainer:
 
     def _precompute_split_features(self, ds, batch: int = 16):
         """Encode each unique image once: (features (U, L, D) float32 on the
-        host, row_map (N,) from dataset rows to feature rows). With
-        --feature-cache-dir the features are read from, or published to,
+        host, row_map (N,) from dataset rows to feature rows). The images
+        load a chunk at a time through `load_image_batch` (one native batch
+        call a chunk under SAT_NATIVE_PREPROC=1). With --feature-cache-dir
+        the features are read from, or published to,
         `feats_{split}_{key}.npz` there."""
         cfg = self.cfg
         first_row = {}
@@ -342,8 +360,8 @@ class Trainer:
 
         chunks = []
         for start in range(0, len(unique), batch):
-            imgs = np.stack([ds.load_image(first_row[p])
-                             for p in unique[start:start + batch]])
+            imgs = ds.load_image_batch([first_row[p]
+                                        for p in unique[start:start + batch]])
             chunks.append(encoder_forward(
                 self.encoder, cfg.network, imgs,
                 torch.bfloat16 if cfg.bf16_encoder else None).cpu().numpy())
@@ -416,7 +434,12 @@ class Trainer:
             """Host half of one step, run one batch behind the device: the
             float()/int() reads synchronize, so deferring them lets the
             device run step N while the host reads step N-1. With
-            --fast-metrics only log-interval batches are read."""
+            --fast-metrics only log-interval batches are read, and with
+            --debug-nans every batch's finite flag."""
+            if cfg.debug_nans and not bool(metrics["finite"]):
+                raise FloatingPointError(
+                    f"--debug-nans: the loss or the parameters stopped being "
+                    f"finite at epoch {epoch}, step {batch_idx}")
             if cfg.fast_metrics and batch_idx % cfg.log_interval != 0:
                 return
             n = int(metrics["caption_length"])
@@ -772,4 +795,17 @@ class Trainer:
 
 
 def run_training(cfg: Config, device="cuda") -> dict:
-    return Trainer(cfg, device=device).fit()
+    """Train as `cfg` says; under --profile-dir the whole run is profiled
+    (host activity, and the device's on the card) and its Chrome trace
+    written into that directory as `<host>_<pid>.<time>.pt.trace.json`."""
+    if not cfg.profile_dir:
+        return Trainer(cfg, device=device).fit()
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    activities = [ProfilerActivity.CPU]
+    if resolve_device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(cfg.profile_dir, exist_ok=True)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(cfg.profile_dir)):
+        return Trainer(cfg, device=device).fit()

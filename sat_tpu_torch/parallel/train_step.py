@@ -28,6 +28,12 @@ through `bank_rows`, which widens the gathered rows to f32 inside the step
 (and inside a captured block), so the decoder computes in f32 from
 bf16-rounded features. `bf16_encoder` runs the image path's encoder in
 bf16 (models/encoder.py).
+
+`debug_nans` (train.py's --debug-nans) adds a metric `finite` to each
+train step's: a device bool, true while the loss and every trainable
+parameter after the update are finite. A block computes it inside its
+captured step, so it costs no sync; the caller reads it with the other
+metrics. Without the option the steps compute exactly what they did.
 """
 
 from __future__ import annotations
@@ -136,6 +142,14 @@ def _loss_and_metrics(dcfg: DecoderConfig, alpha_c: float, decoder: Decoder,
     return loss, (metrics, preds, alphas)
 
 
+def _finite(loss, decoder: Decoder):
+    """One device bool: the loss and every trainable parameter finite."""
+    with torch.no_grad():
+        return torch.stack([torch.isfinite(loss).all()] + [
+            torch.isfinite(p).all() for p in decoder.parameters()
+            if p.requires_grad]).all()
+
+
 def _update(state: TrainState, loss) -> None:
     """Backward and one Adam step at the optimizer's lr."""
     state.optimizer.zero_grad(set_to_none=True)
@@ -171,7 +185,7 @@ def _device(state_or_decoder) -> torch.device:
 
 def make_train_step(dcfg: DecoderConfig, network: str, alpha_c: float,
                     bf16_encoder: bool = False, from_features: bool = False,
-                    rep_penalty_beta: float = 0.0):
+                    rep_penalty_beta: float = 0.0, debug_nans: bool = False):
     """`step(state, encoder, imgs, captions, lr, generator, row_mask=None)
     -> (state, metrics)`. With `from_features` the third argument is the
     annotation grid (B, L, D) and the encoder is skipped; else the encoder
@@ -188,23 +202,29 @@ def make_train_step(dcfg: DecoderConfig, network: str, alpha_c: float,
             row_mask, rep_penalty_beta)
         set_lr(state.optimizer, lr)
         _update(state, loss)
+        if debug_nans:
+            metrics["finite"] = _finite(loss, state.decoder)
         return state, metrics
 
     return step_fn
 
 
-def _bank_step(dcfg, alpha_c, rep_penalty_beta, state: TrainState,
-               feat_bank, caps_bank, img_idx, row_idx, generator, row_mask):
+def _bank_step(dcfg, alpha_c, rep_penalty_beta, debug_nans,
+               state: TrainState, feat_bank, caps_bank, img_idx, row_idx,
+               generator, row_mask):
     """One bank train step at the optimizer's lr: its metrics."""
     loss, (metrics, _, _) = _loss_and_metrics(
         dcfg, alpha_c, state.decoder, bank_rows(feat_bank, img_idx),
         caps_bank[row_idx], generator, True, row_mask, rep_penalty_beta)
     _update(state, loss)
+    if debug_nans:
+        metrics["finite"] = _finite(loss, state.decoder)
     return metrics
 
 
 def make_bank_train_step(dcfg: DecoderConfig, alpha_c: float,
-                         rep_penalty_beta: float = 0.0):
+                         rep_penalty_beta: float = 0.0,
+                         debug_nans: bool = False):
     """Feature-bank step: the frozen encoder's grids of every unique image
     live in device memory, f32 or bf16, and a step gathers its rows by
     index.
@@ -214,9 +234,9 @@ def make_bank_train_step(dcfg: DecoderConfig, alpha_c: float,
     def step_fn(state: TrainState, feat_bank, caps_bank, img_idx, row_idx,
                 lr, generator, row_mask=None):
         set_lr(state.optimizer, lr)
-        return state, _bank_step(dcfg, alpha_c, rep_penalty_beta, state,
-                                 feat_bank, caps_bank, img_idx, row_idx,
-                                 generator, row_mask)
+        return state, _bank_step(dcfg, alpha_c, rep_penalty_beta, debug_nans,
+                                 state, feat_bank, caps_bank, img_idx,
+                                 row_idx, generator, row_mask)
 
     return step_fn
 
@@ -301,7 +321,8 @@ def _write_out(buf, **values) -> None:
 
 
 def make_bank_train_block(dcfg: DecoderConfig, alpha_c: float,
-                          rep_penalty_beta: float = 0.0):
+                          rep_penalty_beta: float = 0.0,
+                          debug_nans: bool = False):
     """K optimizer steps in one dispatch, the port of sat_tpu's `lax.scan`
     block: `block(state, feat_bank (U, L, D), caps_bank (N, T), img_idx
     (K, B), row_idx (K, B), lr, generator, row_mask (K, B) or None) ->
@@ -328,8 +349,9 @@ def make_bank_train_block(dcfg: DecoderConfig, alpha_c: float,
         set_lr(state.optimizer, lr)
 
         def step(ii, ri, mask):
-            return _bank_step(dcfg, alpha_c, rep_penalty_beta, state,
-                              feat_bank, caps_bank, ii, ri, generator, mask)
+            return _bank_step(dcfg, alpha_c, rep_penalty_beta, debug_nans,
+                              state, feat_bank, caps_bank, ii, ri, generator,
+                              mask)
 
         if feat_bank.device.type != "cuda":
             runs = [step(img_idx[i], row_idx[i],

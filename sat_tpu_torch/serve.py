@@ -55,7 +55,8 @@ import torch
 from sat_tpu_torch import constants
 from sat_tpu_torch.config import Config
 from sat_tpu_torch.data.bert_vocab import load_bert_vocab
-from sat_tpu_torch.data.transforms import load_and_preprocess_image
+from sat_tpu_torch.data.transforms import (load_and_preprocess_image,
+                                           native_enabled)
 from sat_tpu_torch.device import resolve_device, use_f32_math
 
 
@@ -91,7 +92,7 @@ class CaptionServer:
         self._t_start = time.monotonic()
         self._stats_lock = threading.Lock()
         self.stats = {"requests": 0, "batches": 0, "errors": 0, "expired": 0,
-                      "captioned": 0}
+                      "captioned": 0, "native_rows": 0}
         # End-to-end (enqueue -> reply) latencies of recent successful
         # captions, seconds; bounded so a long-lived daemon's stats cost
         # stays O(1).
@@ -296,9 +297,25 @@ class CaptionServer:
 
     def _load_images(self, batch):
         """Every request's image; returns (imgs, live) with load failures
-        already answered."""
+        already answered. Under SAT_NATIVE_PREPROC=1 with the native codecs
+        built, the `path` requests' files go through one call of the native
+        loader's thread pool (counted in stats["native_rows"]); the files
+        it rejects, and every file otherwise, through
+        load_and_preprocess_image, as CaptionDataset.load_image_batch
+        does."""
+        images = [image for _, image, _ in batch]
+        disk = [i for i, image in enumerate(images) if image is None]
+        if disk and native_enabled():
+            from sat_tpu_torch.data import native
+            if native.decode_support():
+                loaded, status = native.load_images(
+                    [batch[i][0]["path"] for i in disk], self._image_size)
+                ok = [j for j, st in enumerate(status) if st == native.OK]
+                for j in ok:
+                    images[disk[j]] = loaded[j]
+                self._count("native_rows", len(ok))
         out_imgs, live = [], []
-        for req, image, reply in batch:
+        for (req, _, reply), image in zip(batch, images):
             if image is None:
                 try:
                     image = load_and_preprocess_image(req["path"],

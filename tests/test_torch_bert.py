@@ -396,13 +396,17 @@ def bert_run(tmp_path_factory, bert_data, vocab_file):
 def test_bert_epoch_keeps_the_table_frozen(bert_run, bert_data):
     """The `.npz` holds the table bit for bit as given and reads into
     sat_tpu's decoder template strictly; the train state's Adam has no
-    moments for it; validation and test report BLEU; the printed totals
-    keep the table apart."""
+    moments for it; validation and test report BLEU; the printed decoder
+    table, sat_tpu's, leaves the table out of its rows and total."""
     res, log = bert_run["res"], bert_run["log"]
     assert np.isfinite(res["loss"]) and 0.0 <= res["bleu1"] <= 1.0
     assert "EvalMode.VALIDATION Epoch: 1\tBLEU-1 (" in log
     assert "EvalMode.TEST Epoch: 1\tBLEU-1 (" in log
-    assert f"Frozen BERT embedding table: {V * E}" in log
+    decoder_table = log.split("Decoder parameters:\n")[1]
+    assert "| embedding " not in decoder_table.split("Total Trainable")[0]
+    with np.load(bert_run["npz"]) as arc:
+        trainable = sum(arc[k].size for k in arc.files if k != "embedding")
+    assert f"Total Trainable Params: {trainable}\n" in decoder_table
     table = np.load(bert_data["table"])
     with np.load(bert_run["npz"]) as arc:
         np.testing.assert_array_equal(arc["embedding"], table)

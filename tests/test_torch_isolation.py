@@ -27,10 +27,18 @@ import torch
 import sat_tpu_torch.caption_split  # noqa: F401
 import sat_tpu_torch.compat.torch_decoder  # noqa: F401
 import sat_tpu_torch.compat.torch_encoder  # noqa: F401
+import sat_tpu_torch.data.bert_prep  # noqa: F401
 import sat_tpu_torch.data.bert_vocab  # noqa: F401
+import sat_tpu_torch.data.vocab  # noqa: F401
 import sat_tpu_torch.evaluate  # noqa: F401
 import sat_tpu_torch.generate_caption  # noqa: F401
+import sat_tpu_torch.generate_json_data  # noqa: F401
+import sat_tpu_torch.generate_json_data_bert  # noqa: F401
 import sat_tpu_torch.serve  # noqa: F401
+import sat_tpu_torch.train_models  # noqa: F401
+import sat_tpu_torch.utils.tables  # noqa: F401
+from sat_tpu_torch.data import native
+from sat_tpu_torch.data.transforms import load_and_preprocess_image
 from sat_tpu_torch.compat.jax_params import decoder_from_jax, encoder_from_jax
 from sat_tpu_torch.engine.serving import build_caption_step
 from sat_tpu_torch.models.decoder import DecoderConfig, init_decoder_params
@@ -45,6 +53,14 @@ enc = encoder_from_jax(init_encoder_params("vgg19", gen), "vgg19",
                        device="cpu")
 images = np.random.default_rng(0).normal(size=(2, 32, 32, 3)).astype(
     np.float32)
+if native.available():
+    import tempfile
+    from PIL import Image
+    with tempfile.TemporaryDirectory() as tmp:
+        png = tmp + "/a.png"
+        Image.fromarray(np.zeros((40, 48, 3), np.uint8)).save(png)
+        native_img = load_and_preprocess_image(png, 32, use_native=True)
+        assert np.array_equal(native_img, native.load_image(png, 32))
 out = build_caption_step("vgg19", dcfg, 3, device="cpu")(enc, dec, images)
 assert out["tokens"].shape == (2, 52), out["tokens"].shape
 out = build_caption_step("vgg19", dcfg, 3, decode="sample", top_k=5,
@@ -185,6 +201,25 @@ def test_training_cli_runs_without_jax_or_sat_tpu(tmp_path):
         assert line in proc.stdout, line
 
 
+def _strings(tree):
+    """A module's string constants, less its docstrings and the values of
+    `"replaces"` keys (chip_smoke.py's kernel rows name the TPU kernel
+    each kernel replaces, as its output contract asks)."""
+    skip = set()
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef))
+                and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)):
+            skip.add(id(body[0].value))
+        if isinstance(node, ast.Dict):
+            skip.update(id(v) for k, v in zip(node.keys, node.values)
+                        if isinstance(k, ast.Constant)
+                        and k.value == "replaces")
+    return [n.value for n in ast.walk(tree) if isinstance(n, ast.Constant)
+            and isinstance(n.value, str) and id(n) not in skip]
+
+
 def _port_files():
     files = sorted((REPO / "sat_tpu_torch").rglob("*.py"))
     return files + [REPO / "chip_smoke.py", REPO / "time_train_step.py"]
@@ -229,3 +264,24 @@ def test_entry_points_default_to_cuda():
         main(["--data", "nowhere"])
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(Config(data="nowhere"))
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_path_into_the_jax_package(path):
+    """No port file names a file of the JAX package in its code: not
+    `native/preproc.cpp` (the port builds its own copy) and nothing under
+    `sat_tpu/`."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for s in _strings(tree):
+        assert "native/preproc" not in s and "sat_tpu/" not in s, (path, s)
+    joined = [tuple(c.value for c in node.args
+                    if isinstance(c, ast.Constant))
+              for node in ast.walk(tree) if isinstance(node, ast.Call)
+              and getattr(node.func, "attr", "") == "join"]
+    assert not any(("native", "preproc.cpp") == parts[:2]
+                   and path.name != "native.py" for parts in joined), path
+    if path.name == "native.py":
+        from sat_tpu_torch.data import native
+        assert native._SRC_PATH == str(REPO / "sat_tpu_torch" / "native"
+                                       / "preproc.cpp")

@@ -183,6 +183,8 @@ def test_step_lr_matches_sat_tpu():
 
 
 VOCAB_FILE = "<a bert vocab.txt>"
+PROFILE_DIR = "<a profile directory>"
+DATA = ["<the synthetic dataset>"]
 UNPORTED = (NotImplementedError, "ROADMAP.md")
 
 
@@ -196,19 +198,40 @@ UNPORTED = (NotImplementedError, "ROADMAP.md")
                   VOCAB_FILE], (FileNotFoundError, "e.npy"),
                  id="--bert-embeddings"),
     pytest.param(["--wandb"], UNPORTED, id="--wandb"),
-    pytest.param(["--profile-dir", "p"], UNPORTED, id="--profile-dir"),
-    pytest.param(["--debug-nans"], UNPORTED, id="--debug-nans")])
-def test_unported_training_flags_raise(flags, error, tmp_path):
+    pytest.param(DATA + ["--profile-dir", PROFILE_DIR], None,
+                 id="--profile-dir"),
+    pytest.param(DATA + ["--debug-nans", "--lr", "1e37"],
+                 (FloatingPointError, "at epoch 1, step 1"),
+                 id="--debug-nans")])
+def test_unported_training_flags_raise(flags, error, tmp_path, data):
     """The options still unported raise NotImplementedError naming
     ROADMAP.md. The BERT flags are ported: each case reaches the BERT
     path, which asks for --bert-vocab without it, and otherwise reads the
     vocabulary and then the table that the flags name, here files that
-    are not there (tests/test_torch_bert.py trains with both)."""
+    are not there (tests/test_torch_bert.py trains with both).
+    --profile-dir and --debug-nans are ported: each trains an epoch of
+    the synthetic dataset, the first writing its trace into the directory,
+    the second stopping at the step whose loss is not finite (the first
+    update at lr 1e37 leaves parameters of about 1e37;
+    tests/test_torch_tooling.py has both per batch and blocked)."""
     from tests._synth import write_synthetic_bert_vocab
 
     from sat_tpu_torch.train import main
     if VOCAB_FILE in flags:
         vocab = write_synthetic_bert_vocab(str(tmp_path / "vocab.txt"))
         flags = [vocab if f == VOCAB_FILE else f for f in flags]
+    if flags[:1] == DATA:
+        flags = ["--data", data["root"], "--image-size", str(SIZE),
+                 "--batch-size", "4", "--epochs", "1", "--tf", "--ado",
+                 "--attention", "--cache-features", "--encoder-weights",
+                 data["enc"], "--checkpoint-dir", str(tmp_path / "model"),
+                 *[str(tmp_path / "prof") if f == PROFILE_DIR else f
+                   for f in flags[1:]]]
+    argv = ["--data", "nowhere", "--device", "cpu"] + flags
+    if error is None:
+        assert "bleu4" in main(argv)
+        traces = os.listdir(tmp_path / "prof")
+        assert len(traces) == 1 and traces[0].endswith(".pt.trace.json")
+        return
     with pytest.raises(error[0], match=error[1]):
-        main(["--data", "nowhere", "--device", "cpu"] + flags)
+        main(argv)
