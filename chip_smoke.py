@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (sat_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0] [--out chiprun_out]
+    python3 chip_smoke.py [--seed 0] [--out DIR] [--phase parallel]
 
 Run from the root of a checkout. It builds the CUDA kernels from the
 sources in the checkout and drives the port's serving path at the flagship
@@ -141,6 +141,30 @@ failed check exits non-zero and no result line is printed:
                table in the `.npz` bit for bit the `.npy`), a fresh
                `serve --bert-vocab` process against this process's words,
                `generate_caption --bert-vocab`
+  7d. parallel — on that dataset, data-parallel training and mesh
+               serving on the one card (nothing here measures a speed-up
+               across cards): `torchrun --standalone --nproc_per_node 1 -m
+               sat_tpu_torch.train --mesh-data 1 --steps-per-dispatch 8`
+               (NCCL, the all-reduce inside the block's CUDA graph) against
+               the same run in this plain process, bit for bit; one block
+               replay under NCCL at world size 1, profiled (8 x 52
+               attention_fwd, 8 x 26 attention_bwd, and NCCL's kernels, or
+               none for one rank); two gloo ranks on cuda:0 driving the
+               Trainer through the API on 511 train rows (the last batch
+               padded), per batch and in blocks of 8 (eager: gloo cannot be
+               captured), each rank's host launches, against one process
+               within the bound of tests/test_torch_parallel.py; SIGTERM to
+               rank 1 alone: both stop at one boundary, rank 0 alone writes
+               the train state, resumed at world size 1 against the straight
+               run; `build_caption_step(mesh_data=2, devices=[cuda:0,
+               cuda:0])` at B = 127 and 128, worst case, the one-card step's
+               tokens, its score and alpha differences, times in turns; a
+               fresh `serve --mesh-data 2`, which must refuse with
+               make_mesh's message; the beam's kernel, `pallas_topk=False`
+               and `fast_topk=True` routes at B = 128, worst case, through
+               their graphs, the same tokens bit for bit, decode ms three
+               times each in turns (the kernels phase times the sort route
+               beside torch.topk at each top-k row's shape: `sort_ms`)
   8. data    — the data layer from raw files at the flagship's width: a
                Karpathy split of 512 train, 128 val and 16 test images of
                640 x 480 and 500 x 375 (half JPEG, half PNG, four
@@ -536,7 +560,8 @@ def topk_row(peaks, hz, gen) -> dict:
     torch.topk's at B = 128, and the one-pass kernel at every cluster size
     (the wrapper picks one from B)."""
     import torch
-    from sat_tpu_torch.ops.topk import cluster_size, launch, topk, topk_plain
+    from sat_tpu_torch.ops.topk import (cluster_size, launch, topk,
+                                        topk_library, topk_plain)
 
     x, adv = topk_inputs(gen)
     inputs = {Bx: torch.randn((Bx, BEAM * VOCAB), generator=gen).cuda()
@@ -558,6 +583,8 @@ def topk_row(peaks, hz, gen) -> dict:
     first, second = topk(x, BEAM), topk(x, BEAM)
     torch.cuda.synchronize()
     check(all(map(same_bits, first, second)), "topk: two launches differ")
+    check(all(map(same_bits, topk_library(x, BEAM), first)),
+          "topk: the library route (a stable sort) differs from the kernel")
 
     variants, by_cluster = {}, {}
     for Bx in TOPK_BATCHES:
@@ -585,6 +612,7 @@ def topk_row(peaks, hz, gen) -> dict:
         "checks": [name for name, _, _ in cases] + ["two launches"],
         "plain_ms": time_ms(lambda: topk_plain(x, BEAM), hz),
         "library_ms": time_ms(lambda: torch.topk(x, BEAM, dim=1), hz),
+        "sort_ms": time_ms(lambda: topk_library(x, BEAM), hz),
         "k20_ms": time_ms(lambda: topk(x, 20), hz),
         # one PyTorch kernel that does almost nothing: what a launch costs
         # by this method
@@ -876,7 +904,7 @@ def sample_topk_row(k: int, peaks, hz, gen, vocab: int = VOCAB,
     plain form on random and adversarial rows, two launches alike, times
     warm and cold beside the bound and torch.topk's."""
     import torch
-    from sat_tpu_torch.ops.topk import topk, topk_plain
+    from sat_tpu_torch.ops.topk import topk, topk_library, topk_plain
     x = torch.randn((B, vocab), generator=gen).cuda()
     adv = torch.randn((B, vocab), generator=gen)
     adv[0] = torch.randint(0, 3, (vocab,), generator=gen).float()
@@ -903,6 +931,7 @@ def sample_topk_row(k: int, peaks, hz, gen, vocab: int = VOCAB,
            "cold_ms": time_ms(lambda: topk(x, k), hz, cold=True),
            "plain_ms": time_ms(lambda: topk_plain(x, k), hz),
            "library_ms": time_ms(lambda: torch.topk(x, k, dim=1), hz),
+           "sort_ms": time_ms(lambda: topk_library(x, k), hz),
            **stream_ms(lambda: torch.amax(x, dim=1), hz),
            "bound_ms": max(t_bytes, t_ops) * 1e3,
            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
@@ -1597,23 +1626,42 @@ def phase_sample(dcfg, dec_flat, enc_flat, images, wide) -> dict:
     return out
 
 
-def profile_run(fn, top: int = 10) -> dict:
+PROFILE_PAD_S = 0.2   # the idle card's seconds on each side of a profiled run
+
+
+def profile_run(fn, top: int = 10, count=(), warmup: bool = False) -> dict:
     """One run of `fn` under torch.profiler: device time by kernel (and
     copy) name, the device's busy share of the wall time, the run's
-    host-clock wall time (the profiler's own cost included), and the
-    device calls of each attention kernel. Only device events count: a
+    host-clock wall time (the profiler's own cost included), the device
+    calls of each attention kernel, and of the device events whose names
+    hold each string of `count` (case aside). Only device events count: a
     host op such as aten::addmm also reports its kernels' time, which
-    would count them twice."""
+    would count them twice. The card idles PROFILE_PAD_S before and after
+    the run, inside the recorded window: the profiler drops a device event
+    whose timestamps fall outside that window, and on the H100 machines
+    the first kernels of a run that starts at once have been dropped (1-9
+    of a train step's or block's attention_fwd, none of its later
+    kernels). `device_lead_us` is how far the first device event's start
+    lies after the first host event's; a negative value is a clock offset
+    between the two. With `warmup`, one run of `fn` in a warm-up cycle of
+    the profiler comes first."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=(schedule(wait=0, warmup=1, active=1, repeat=1)
+                           if warmup else None)) as prof:
+        if warmup:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+        time.sleep(PROFILE_PAD_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        time.sleep(PROFILE_PAD_S)
 
     def device_us(e):
         return getattr(e, "self_device_time_total",
@@ -1630,9 +1678,21 @@ def profile_run(fn, top: int = 10) -> dict:
                                "events"}
     kernel_calls = {name: sum(n for k, _, n in rows if kernel_of(k) == name)
                     for name in KERNELS}
+    named = {sub: sum(n for k, _, n in rows if sub.lower() in k.lower())
+             for sub in count}
+    first = {}
+    for e in prof.events():
+        side = e.device_type == torch.autograd.DeviceType.CUDA
+        first[side] = min(first.get(side, math.inf), e.time_range.start)
+    lead_us = first.get(True, math.nan) - first.get(False, math.nan)
+    if lead_us < 0:
+        print(f"chip_smoke: a profile's first device event starts "
+              f"{-lead_us:.1f} us before its first host event",
+              file=sys.stderr)
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / wall_us,
-            "kernel_calls": kernel_calls,
+            "device_lead_us": lead_us,
+            "kernel_calls": kernel_calls, "named_calls": named,
             "top": [{"name": k[:90], "ms": us / 1e3, "calls": n,
                      "share_of_busy": us / busy_us}
                     for k, us, n in rows[:top]]}
@@ -2378,7 +2438,38 @@ def run_diff(dir_a: str, dir_b: str, step: int) -> dict:
     return diffs
 
 
-def phase_entry(enc_flat, wide, seed: int) -> dict:
+def write_entry_split(root: str, enc_flat) -> str:
+    """The entry phase's dataset in `root` (ENTRY_IMAGES random 224 px PNGs
+    a split, two caption rows an image, a VOCAB-word dictionary) and the
+    encoder's archive; returns the archive's path."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    gen = torch.Generator().manual_seed(7)
+    rng = np.random.default_rng(7)
+    words = ["<start>", "<eos>", "<unk>", "<pad>"] + [
+        f"w{i}" for i in range(4, VOCAB)]
+    with open(os.path.join(root, "word_dict.json"), "w") as f:
+        json.dump({w: i for i, w in enumerate(words)}, f)
+    os.makedirs(os.path.join(root, "imgs"))
+    for split, images in ENTRY_IMAGES.items():
+        paths = []
+        for i in range(images):        # two caption rows an image
+            path = os.path.join(root, "imgs", f"{split}_{i:03d}.png")
+            Image.fromarray(rng.integers(0, 256, (SIZE, SIZE, 3),
+                                         np.uint8)).save(path)
+            paths += [path, path]
+        with open(os.path.join(root, f"{split}_img_paths.json"), "w") as f:
+            json.dump(paths, f)
+        with open(os.path.join(root, f"{split}_captions.json"), "w") as f:
+            json.dump(make_captions(gen, len(paths)).tolist(), f)
+    enc_path = os.path.join(root, "vgg19.npz")
+    np.savez(enc_path, **enc_flat)
+    return enc_path
+
+
+def phase_entry(enc_flat, wide, seed: int, serving: tuple) -> dict:
     """`python -m sat_tpu_torch.train` for one epoch and its test pass on
     a dataset on disk; the same run preempted by SIGUSR1 after its first
     step and finished by `--resume`, which must end with the same decoder
@@ -2403,8 +2494,6 @@ def phase_entry(enc_flat, wide, seed: int) -> dict:
     from sat_tpu_torch.train import main as train_main
     from sat_tpu_torch.train import set_seed
 
-    gen = torch.Generator().manual_seed(7)
-    rng = np.random.default_rng(7)
     n_train = 2 * ENTRY_IMAGES["train"] // TRAIN_B       # train batches
     n_val = -(-2 * ENTRY_IMAGES["val"] // TRAIN_B)
 
@@ -2422,24 +2511,7 @@ def phase_entry(enc_flat, wide, seed: int) -> dict:
         return counts(attention_fwd=fwd * T, attention_bwd=bwd * T)
 
     with tempfile.TemporaryDirectory() as root:
-        words = ["<start>", "<eos>", "<unk>", "<pad>"] + [
-            f"w{i}" for i in range(4, VOCAB)]
-        with open(os.path.join(root, "word_dict.json"), "w") as f:
-            json.dump({w: i for i, w in enumerate(words)}, f)
-        os.makedirs(os.path.join(root, "imgs"))
-        for split, images in ENTRY_IMAGES.items():
-            paths = []
-            for i in range(images):        # two caption rows an image
-                path = os.path.join(root, "imgs", f"{split}_{i:03d}.png")
-                Image.fromarray(rng.integers(0, 256, (SIZE, SIZE, 3),
-                                             np.uint8)).save(path)
-                paths += [path, path]
-            with open(os.path.join(root, f"{split}_img_paths.json"), "w") as f:
-                json.dump(paths, f)
-            with open(os.path.join(root, f"{split}_captions.json"), "w") as f:
-                json.dump(make_captions(gen, len(paths)).tolist(), f)
-        enc_path = os.path.join(root, "vgg19.npz")
-        np.savez(enc_path, **enc_flat)
+        enc_path = write_entry_split(root, enc_flat)
 
         def argv(ckpt_dir, *extra, encoder=enc_path):
             return ["--data", root, "--tf", "--ado", "--attention",
@@ -2648,6 +2720,9 @@ def phase_entry(enc_flat, wide, seed: int) -> dict:
         caption = " ".join(decode_caption(row, word_dict))
         cli = phase_cli(root, ckpt_dir, enc_path, wide["resnet152"])
         bert_cli = phase_bert_cli(root, enc_path, seed)
+        t0 = time.perf_counter()
+        parallel = phase_parallel(root, enc_path, *serving)
+        parallel["seconds"] = time.perf_counter() - t0
     res = {"phase": "entry", "images": ENTRY_IMAGES, "seconds": seconds,
            "launches": run_launches, "test": last, "bleu": bleu,
            "test_seconds": test_seconds[0], "plots": len(plots),
@@ -2670,7 +2745,7 @@ def phase_entry(enc_flat, wide, seed: int) -> dict:
            "densenet161_launches": dn_launches, "densenet161_test": dn_last,
            "caption": caption, "log_tail": log.splitlines()[-6:]}
     emit(res)
-    res.update(cli=cli, bert_cli=bert_cli, tooling=tooling)
+    res.update(cli=cli, bert_cli=bert_cli, tooling=tooling, parallel=parallel)
     return res
 
 
@@ -2780,6 +2855,404 @@ def caption_of(stdout: str) -> str:
     return next(ln for ln in stdout.splitlines()
                 if ln.startswith("Caption: "))
 
+
+# The parallel phase: blocks of PAR_K steps; a fraction of the entry split
+# that leaves 511 train rows (the last batch of 63 pads to 64 over two
+# ranks; validation's 127 rows pad too)
+PAR_K = 8
+PAR_FRACTION = 511 / 512
+PAR_SYNC = 4           # the gloo ranks agree on a preemption every 4 batches
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def npz_diff(path_a: str, path_b: str, skip=()) -> dict:
+    """Per parameter: the largest difference between two decoder archives
+    and how many elements differ by more than 3e-4."""
+    import numpy as np
+    out = {}
+    with np.load(path_a) as a, np.load(path_b) as b:
+        for k in a.files:
+            if k not in skip:
+                d = np.abs(a[k].astype(np.float64) - b[k])
+                out[k] = (float(d.max()), int((d > 3e-4).sum()), d.size)
+    return out
+
+
+def params_close(diffs: dict, steps: int, lr: float) -> bool:
+    """Two runs' parameters agree, as tests/test_torch_parallel.py holds
+    them: every element within Adam's reach of the run (2 * steps * lr),
+    all but 1e-4 of each tensor's elements within 3e-4 (the score bias,
+    whose gradient is zero but for rounding, is left out by the caller)."""
+    return all(m <= 2 * steps * lr and n <= 1e-4 * size
+               for m, n, size in diffs.values())
+
+
+def par_config(root: str, enc_path: str, out: str, **kw):
+    """The gloo runs' configuration (sat_tpu_torch.config.Config), through
+    the API as the CLI would make it: the entry split cut to 511 train
+    rows, dropout 0, no test pass."""
+    from sat_tpu_torch.config import Config
+    args = dict(data=root, tf=True, ado=True, attention=True,
+                cache_features=True, epochs=1, batch_size=TRAIN_B,
+                log_interval=100, checkpoint_dir=out, lr=PARITY_LR,
+                encoder_weights=enc_path, dropout_rate=0.0,
+                feature_cache_dir=os.path.join(root, "feature_cache"),
+                fraction=PAR_FRACTION, perform_test=False, mesh_data=2)
+    args.update(kw)
+    return Config(**args)
+
+
+def parallel_rank(rank: int, spec: dict) -> None:
+    """One of the two gloo ranks on the card: `Trainer` through the API,
+    per batch, then in PAR_K blocks, then a run in which this rank, if it
+    is rank 1, sends itself SIGTERM at its first step. Prints one JSON
+    line: each run's seconds, launches and path, the preempted result and
+    the train states this rank wrote."""
+    import contextlib
+    import io
+    import signal
+
+    import torch
+    from sat_tpu_torch.engine import checkpoint as ckpt
+    from sat_tpu_torch.engine.loop import Trainer
+    from sat_tpu_torch.parallel import distributed as dist
+
+    dev = dist.initialize("cuda:0", backend="gloo", init_method=spec["init"],
+                          rank=rank, world_size=2, local_rank=rank,
+                          local_world_size=2)
+    saves, out = [], {"rank": rank, "device": str(dev),
+                      "backend": dist.backend()}
+    save = ckpt.save_train_state
+
+    def recorded(path, step, tree):
+        saves.append((step, tree["batch_offset"]))
+        return save(path, step, tree)
+
+    ckpt.save_train_state = recorded
+    for name, extra in (("batch", {}), ("blocked",
+                                        {"steps_per_dispatch": PAR_K})):
+        cfg = par_config(spec["root"], spec["enc"],
+                         os.path.join(spec["root"], f"gloo_{name}"), **extra)
+        with contextlib.redirect_stdout(io.StringIO()):
+            trainer = Trainer(cfg, device="cuda:0")
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            last = trainer.fit()
+        torch.cuda.synchronize()
+        out[name] = {"seconds": time.perf_counter() - t0,
+                     "launches": read_launches(), "val": last,
+                     "captured": getattr(trainer.train_block, "captured",
+                                         None)}
+    Trainer.PREEMPT_SYNC_EVERY = PAR_SYNC
+    cfg = par_config(spec["root"], spec["enc"],
+                     os.path.join(spec["root"], "gloo_cut"))
+    with contextlib.redirect_stdout(io.StringIO()):
+        trainer = Trainer(cfg, device="cuda:0")
+    step, calls = trainer.train_step, []
+
+    def signalled(*a, **k):
+        calls.append(1)
+        if rank == 1 and len(calls) == 1:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return step(*a, **k)
+
+    trainer.train_step = signalled
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        out["cut"] = trainer.fit()
+    out["cut_log"] = [ln for ln in log.getvalue().splitlines()
+                      if ln.startswith(("Signal", "Preempted"))]
+    out["saves"] = saves
+    dist.shutdown()
+    print(json.dumps(out), flush=True)
+
+
+def phase_parallel(root: str, enc_path: str, dcfg, worst_flat, enc_flat,
+                   images) -> dict:
+    """Data-parallel training and mesh serving on the one card: the
+    training CLI under torchrun at world size 1 (NCCL, the all-reduce in
+    the block's graph) against the same run without torchrun; a profile
+    of one block replay under NCCL; two gloo ranks on the card against one
+    process, per batch and blocked, and a SIGTERM to rank 1 alone, resumed
+    at world size 1; two serving replicas on the card against one; a
+    `serve --mesh-data 2` process that must refuse; the beam's three top-k
+    routes. Nothing here measures a speed-up across cards: the machine has
+    one."""
+    import contextlib
+    import io
+
+    import torch
+    from sat_tpu_torch.compat.jax_params import (decoder_from_jax,
+                                                 encoder_from_jax)
+    from sat_tpu_torch.engine.loop import Trainer
+    from sat_tpu_torch.engine.serving import build_caption_step
+    from sat_tpu_torch.models.beam import SYNC_EVERY, beam_search_batched
+    from sat_tpu_torch.models.decoder import DecoderConfig, init_decoder_params
+    from sat_tpu_torch.models.encoder import encoder_forward
+    from sat_tpu_torch.parallel import distributed as dist
+    from sat_tpu_torch.parallel.train_step import (init_train_state,
+                                                   make_bank_train_block)
+    from sat_tpu_torch.train import main as train_main
+    from sat_tpu_torch.utils.graphs import GraphCache
+
+    res = {"phase": "parallel", "card_count": torch.cuda.device_count()}
+    fcache = os.path.join(root, "feature_cache")
+    model = "model_vgg19_1.npz"
+
+    def argv(ckpt_dir, *extra):
+        return ["--data", root, "--tf", "--ado", "--attention",
+                "--cache-features", "--epochs", "1", "--batch-size",
+                str(TRAIN_B), "--log-interval", "1", "--checkpoint-dir",
+                ckpt_dir, "--encoder-weights", enc_path,
+                "--feature-cache-dir", fcache, "--steps-per-dispatch",
+                str(PAR_K), *extra]
+
+    # (a) NCCL at world size 1: the CLI under torchrun, then in this plain
+    # process; one rank computes a plain step's bits (the bound is 0)
+    nccl_dir, plain_dir = (os.path.join(root, d) for d in ("nccl", "plain"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m", "sat_tpu_torch.train",
+         "--mesh-data", "1", *argv(nccl_dir)],
+        capture_output=True, text=True, timeout=600, cwd=REPO_DIR,
+        env=cli_env())
+    res["torchrun_seconds"] = time.perf_counter() - t0
+    check(proc.returncode == 0, f"parallel: torchrun train exit "
+                                f"{proc.returncode}: {proc.stderr[-2000:]}")
+    check("EvalMode.TEST Epoch: 1\tBLEU-1 (" in proc.stdout,
+          "parallel: the torchrun run printed no test BLEU")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as log:
+        train_main(argv(plain_dir))
+    torch.cuda.synchronize()
+    res["plain_seconds"] = time.perf_counter() - t0
+    check(meter_rows(log.getvalue()) == meter_rows(proc.stdout),
+          "parallel: torchrun's meter rows differ from the plain run's")
+    diffs = npz_diff(os.path.join(nccl_dir, model),
+                     os.path.join(plain_dir, model))
+    res["nccl_world1_max_abs_diff"] = max(m for m, _, _ in diffs.values())
+    check(res["nccl_world1_max_abs_diff"] == 0,
+          f"parallel: one NCCL rank ends elsewhere than one process: "
+          f"{ {k: v for k, v in diffs.items() if v[0]} }")
+
+    # (b) one block replay under NCCL at world size 1, profiled: K times a
+    # step's attention launches, and the all-reduce's device work
+    env = dict(MASTER_ADDR="localhost", MASTER_PORT=str(free_port()),
+               RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1")
+    os.environ.update(env)
+    try:
+        check(dist.initialize("cuda") == torch.device("cuda", 0)
+              and dist.backend() == "nccl", "parallel: no NCCL group")
+        gen = torch.Generator().manual_seed(11)
+        tcfg = DecoderConfig(vocab_size=VOCAB, encoder_dim=D, use_tf=True,
+                             use_ado=True, use_attention=True)
+        state = init_train_state(decoder_from_jax(
+            init_decoder_params(tcfg, gen), tcfg, "cuda", trainable=True))
+        bank = torch.rand((BANK_U, L, D), generator=gen).cuda()
+        caps = make_captions(gen, BANK_N).cuda()
+        img_idx = torch.randint(0, BANK_U, (PAR_K, TRAIN_B),
+                                generator=gen).cuda()
+        row_idx = torch.randint(0, BANK_N, (PAR_K, TRAIN_B),
+                                generator=gen).cuda()
+        block = make_bank_train_block(tcfg, 1.0, distributed=True)
+        dgen = torch.Generator(device="cuda").manual_seed(1)
+
+        def run():
+            return block(state, bank, caps, img_idx, row_idx, 1e-4, dgen,
+                         n_rows=TRAIN_B)
+
+        reset_launches()
+        run()                                         # warm-up + capture
+        torch.cuda.synchronize()
+        res["nccl_capture_launches"] = read_launches()
+        check(block.captured and block.graphs.captures == 1,
+              "parallel: the NCCL block was not captured")
+        reset_launches()
+        prof = profile_run(run, count=("nccl",), warmup=True)
+        check(read_launches() == counts(),
+              f"parallel: a replay launched from the host "
+              f"{read_launches()}")
+    finally:
+        dist.shutdown()
+        for k in env:
+            os.environ.pop(k, None)
+    calls = prof.get("kernel_calls", {})
+    check(calls.get("attention_fwd") == PAR_K * 2 * T
+          and calls.get("attention_bwd") == PAR_K * T,
+          f"parallel: a block replay ran {calls} on the device, expected "
+          f"{PAR_K} x ({2 * T}, {T})")
+    nccl_calls = prof["named_calls"]["nccl"]
+    res["nccl_block_profile"] = prof
+    res["nccl_allreduce"] = (
+        f"{nccl_calls} NCCL kernels in a replay of {PAR_K} steps"
+        if nccl_calls else "NCCL launched nothing for the all-reduce of "
+        "one rank (in place, nothing to move): not a failure")
+    check(nccl_calls in (0, PAR_K), f"parallel: {nccl_calls} NCCL kernels "
+                                    f"in a block of {PAR_K} steps")
+
+    # (c) two gloo ranks on the card, against one process
+    spec = {"root": root, "enc": enc_path,
+            "init": "file://" + os.path.join(root, "gloo_rendezvous")}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--parallel-rank",
+         str(rank), "--parallel-spec", json.dumps(spec)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=REPO_DIR, env=cli_env()) for rank in range(2)]
+    ranks = []
+    for proc in procs:
+        stdout, stderr = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"parallel: gloo rank exit "
+                                    f"{proc.returncode}: {stderr[-2000:]}")
+        ranks.append(json.loads(stdout.strip().splitlines()[-1]))
+    res["gloo_seconds"] = time.perf_counter() - t0
+    n_batches = -(-int(2 * ENTRY_IMAGES["train"] * PAR_FRACTION) // TRAIN_B)
+    n_val = -(-int(2 * ENTRY_IMAGES["val"] * PAR_FRACTION) // TRAIN_B)
+    want = counts(attention_fwd=(2 * n_batches + n_val) * T,
+                  attention_bwd=n_batches * T)
+    for r in ranks:
+        check(r["backend"] == "gloo" and r["device"] == "cuda:0",
+              f"parallel: rank {r['rank']} ran {r['backend']} on "
+              f"{r['device']}")
+        for name in ("batch", "blocked"):
+            check(r[name]["launches"] == want,
+                  f"parallel: gloo rank {r['rank']} {name} launches "
+                  f"{r[name]['launches']}, expected {want}")
+        check(r["blocked"]["captured"] is False,
+              "parallel: a gloo block claims a captured graph")
+        check(r["cut"] == {"preempted": True, "epoch": 1}
+              and f"Preempted at epoch 1 batch {PAR_SYNC}" in r["cut_log"][
+                  -1], f"parallel: gloo rank {r['rank']} cut run "
+                       f"{r['cut']} {r['cut_log']}")
+    check(ranks[0]["saves"] == [[n_batches, 0], [n_batches, 0],
+                                [PAR_SYNC, PAR_SYNC]]
+          and ranks[1]["saves"] == [],
+          f"parallel: train states written: rank 0 {ranks[0]['saves']}, "
+          f"rank 1 {ranks[1]['saves']}")
+    check(any(ln.startswith("Signal") for ln in ranks[1]["cut_log"])
+          and not any(ln.startswith("Signal") for ln in ranks[0]["cut_log"]),
+          "parallel: the SIGTERM reached another rank than rank 1")
+    res["gloo_ranks"] = ranks
+    one_dir = os.path.join(root, "one_process")
+    with contextlib.redirect_stdout(io.StringIO()):
+        Trainer(par_config(root, enc_path, one_dir, mesh_data=0)).fit()
+    gloo_model = os.path.join(root, "gloo_batch", model)
+    skip = ("attention/v/b",)
+    diffs = npz_diff(gloo_model, os.path.join(one_dir, model), skip)
+    res["gloo_vs_one_process"] = {
+        "max_abs_diff": max(m for m, _, _ in diffs.values()),
+        "elements_beyond_3e-4": sum(n for _, n, _ in diffs.values())}
+    check(params_close(diffs, n_batches, PARITY_LR),
+          f"parallel: two gloo ranks end elsewhere than one process: "
+          f"{ {k: v for k, v in diffs.items() if v[1]} }")
+    blocked = npz_diff(gloo_model, os.path.join(root, "gloo_blocked", model))
+    res["gloo_blocked_max_abs_diff"] = max(m for m, _, _ in blocked.values())
+    check(res["gloo_blocked_max_abs_diff"] == 0,
+          "parallel: the gloo blocked run differs from its per-batch run")
+    cut_dir = os.path.join(root, "gloo_cut")
+    with contextlib.redirect_stdout(io.StringIO()) as log:
+        resumed = Trainer(par_config(root, enc_path, cut_dir, mesh_data=0,
+                                     resume=True))
+        check((resumed.start_epoch, resumed.state.step) == (1, PAR_SYNC),
+              f"parallel: resumed at epoch {resumed.start_epoch} step "
+              f"{resumed.state.step}")
+        resumed.fit()
+    check(resumed.state.step == n_batches, "parallel: resumed run's steps")
+    diffs = npz_diff(os.path.join(cut_dir, model), gloo_model, skip)
+    res["resume_world1_max_abs_diff"] = max(m for m, _, _ in diffs.values())
+    check(params_close(diffs, n_batches, PARITY_LR),
+          f"parallel: the state of two ranks resumed on one ends elsewhere "
+          f"than the straight run: "
+          f"{ {k: v for k, v in diffs.items() if v[1]} }")
+
+    # (d) mesh serving: two replicas on the one card, worst case
+    enc = encoder_from_jax(enc_flat, "vgg19", "cuda")
+    dec = decoder_from_jax(worst_flat, dcfg, "cuda")
+    one = build_caption_step("vgg19", dcfg, BEAM)
+    two = build_caption_step("vgg19", dcfg, BEAM, mesh_data=2,
+                             devices=["cuda:0", "cuda:0"])
+    serving = {}
+    for Bx in (127, B):
+        batch = images[:Bx]
+        want_out = one(enc, dec, batch)
+        reset_launches()
+        got = two(enc, dec, batch)                     # the replicas capture
+        torch.cuda.synchronize()
+        capture_launches = read_launches()
+        times = {"one_ms": [], "mesh_ms": []}
+        for _ in range(2):
+            for name, step in (("one_ms", one), ("mesh_ms", two)):
+                times[name].append(host_ms(lambda: step(enc, dec, batch)))
+        again = two(enc, dec, batch)
+        for k in ("tokens", "length", "found"):
+            check(torch.equal(got[k], want_out[k])
+                  and torch.equal(again[k], got[k]),
+                  f"parallel: mesh serving's {k} differ from one card's "
+                  f"at B = {Bx}")
+        serving[f"b{Bx}"] = {
+            "score_max_abs_diff": (got["score"] - want_out["score"]).abs()
+            .nan_to_num(0.0).max().item(),
+            "alphas_max_abs_diff": (got["alphas"] - want_out["alphas"])
+            .abs().max().item(),
+            "capture_launches": capture_launches, **times}
+    # B = 127 pads to 128: each replica's slice of 64 rows is captured at
+    # the first batch, and B = 128 replays the same graphs
+    first = serving["b127"]["capture_launches"]
+    check(first["topk"] > 0 and first["attention_fwd"] > 0
+          and serving[f"b{B}"]["capture_launches"] == counts(),
+          f"parallel: the replicas launched {first}, then "
+          f"{serving[f'b{B}']['capture_launches']}")
+    res["mesh_serving"] = serving
+    proc = subprocess.run(
+        [sys.executable, "-m", "sat_tpu_torch.serve", "--model",
+         os.path.join(nccl_dir, model), "--encoder-weights", enc_path,
+         "--mesh-data", "2", "--port", "0"],
+        capture_output=True, text=True, timeout=300, cwd=REPO_DIR,
+        env=cli_env())
+    refusal = "mesh data=2 x model=1 needs 2 devices, but only 1 are visible"
+    check(proc.returncode != 0 and refusal in proc.stderr,
+          f"parallel: serve --mesh-data 2 on one card exit "
+          f"{proc.returncode}: {proc.stderr[-1000:]}")
+    res["serve_mesh_refusal"] = refusal
+
+    # (e) the beam's top-k routes at B = 128, worst case, through graphs
+    feats = encoder_forward(enc, "vgg19", images[:B])
+    routes = {"kernel": {}, "pallas_topk_false": {"pallas_topk": False},
+              "fast_topk": {"fast_topk": True}}
+    caches = {name: GraphCache() for name in routes}
+
+    def decode(name):
+        return beam_search_batched(dec, feats, BEAM, graphs=caches[name],
+                                   **routes[name])
+
+    reset_launches()
+    outs = {name: decode(name) for name in routes}    # captures
+    torch.cuda.synchronize()
+    route_launches = read_launches()
+    for name in routes:
+        check(torch.equal(outs[name].tokens, outs["kernel"].tokens)
+              and same_bits(outs[name].score, outs["kernel"].score),
+              f"parallel: the {name} route's tokens differ from the "
+              f"kernel's")
+    decode_ms = {name: [] for name in routes}
+    for _ in range(3):
+        for name in routes:
+            decode_ms[name].append(host_ms(lambda: decode(name)))
+    check(route_launches["topk"] == 2 * sum(beam_blocks(STEPS, SYNC_EVERY)),
+          f"parallel: top-k launches of the three captures "
+          f"{route_launches}: only the kernel route's capture launches it")
+    res["topk_routes"] = {"decode_ms": decode_ms,
+                          "capture_launches": route_launches}
+    emit({k: v for k, v in res.items() if k not in ("gloo_ranks",
+                                                     "nccl_block_profile")})
+    return res
 
 def phase_cli(root: str, ckpt_dir: str, enc_path: str, resnet) -> dict:
     """The CLIs as fresh processes, on the entry phase's dataset and
@@ -2916,7 +3389,8 @@ def bert_topk_row(peaks, hz, gen) -> dict:
     cluster size and at each of 1, 2 and 4; two launches alike; times warm
     and cold beside the bound, the plain form's and torch.topk's."""
     import torch
-    from sat_tpu_torch.ops.topk import cluster_size, launch, topk, topk_plain
+    from sat_tpu_torch.ops.topk import (cluster_size, launch, topk,
+                                        topk_library, topk_plain)
     x, adv = bert_topk_inputs(gen)
     checks = []
     for label, inp in (("random", x), ("adversarial", adv)):
@@ -2944,6 +3418,7 @@ def bert_topk_row(peaks, hz, gen) -> dict:
            "cold_ms": time_ms(lambda: topk(x, BEAM), hz, cold=True),
            "plain_ms": time_ms(lambda: topk_plain(x, BEAM), hz),
            "library_ms": time_ms(lambda: torch.topk(x, BEAM, dim=1), hz),
+           "sort_ms": time_ms(lambda: topk_library(x, BEAM), hz),
            **stream_ms(lambda: torch.amax(x, dim=1), hz),
            "ms_by_cluster": {c: time_ms(lambda: launch(x, BEAM, c), hz)
                              for c in (1, 2, 4)},
@@ -3992,7 +4467,34 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--out", type=str, default="chiprun_out")
+    parser.add_argument("--phase", choices=["parallel"], default=None,
+                        help="run only this phase (after device and build) "
+                             "on the entry phase's dataset; prints no result "
+                             "line")
+    # a gloo rank of the parallel phase, started by the phase itself
+    parser.add_argument("--parallel-rank", type=int, default=None,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--parallel-spec", type=str, default=None,
+                        help=argparse.SUPPRESS)
     args = parser.parse_args()
+    if args.parallel_rank is not None:
+        parallel_rank(args.parallel_rank, json.loads(args.parallel_spec))
+        return
+    if args.phase == "parallel":
+        phase_device()
+        phase_build()
+        dcfg, _, worst_flat, enc_flat, images = make_weights(args.seed)
+        with tempfile.TemporaryDirectory() as root:
+            enc_path = write_entry_split(root, enc_flat)
+            res = phase_parallel(root, enc_path, dcfg, worst_flat, enc_flat,
+                                 images)
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, "chip_smoke_parallel.json"),
+                  "w") as f:
+            json.dump(res, f, indent=1)
+        print("chip_smoke: phase parallel passed (--phase prints no result "
+              "line)", flush=True)
+        return
 
     seconds, t0 = {}, time.perf_counter()
 
@@ -4022,8 +4524,9 @@ def main():
     lap("bert")
     train = phase_train(args.seed, enc_flat)
     lap("train")
-    entry = phase_entry(enc_flat, wide, args.seed)
-    lap("entry_cli_bert_cli")
+    entry = phase_entry(enc_flat, wide, args.seed,
+                        (dcfg, worst_flat, enc_flat, images))
+    lap("entry_cli_bert_cli_parallel")
     data = phase_data(enc_flat, args.seed)
     lap("data")
     emit({"phase_seconds": seconds})
@@ -4091,7 +4594,7 @@ def main():
             row["host_launches"] = main_res["host_launches"][name]
     summary = {"kernels": [{k: row.get(k) for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "sort_ms",
         "bound_share", "cold_ms", "host_launches", "shape")}
         for row in kernels]}
     os.makedirs(args.out, exist_ok=True)

@@ -13,7 +13,8 @@ sat_tpu's layout, so each module's counterpart sits under the same path:
   sat_tpu_torch.ops      — LSTM cell and the CUDA kernels (exact top-k,
                            fused attention forward and backward) with
                            their plain forms
-  sat_tpu_torch.parallel — the train and eval steps (one device)
+  sat_tpu_torch.parallel — the train and eval steps, torch.distributed
+                           (one rank per card) and the data-parallel mesh
   sat_tpu_torch.engine   — caption step, the training loop, checkpoints
                            and train state, token decoding and BLEU
   sat_tpu_torch.utils    — metrics and loss, meters, metric logging,

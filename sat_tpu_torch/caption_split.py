@@ -26,9 +26,13 @@ the host was queued before it; the loader prepares the next images in its
 own thread at any depth. At
 depth 1 each batch is written before the next is queued. A BERT model
 reads the split's BERT captions and decodes with the WordPiece
-vocabulary of --bert-vocab, which it needs. --fast-topk,
---no-pallas-topk and --mesh-data other than 1 have no counterpart yet and
-raise.
+vocabulary of --bert-vocab, which it needs. --no-pallas-topk and
+--fast-topk take the beam's library top-k route (models/beam.py).
+--mesh-data N (0: every card) decodes each batch over N cards, one replica
+of the weights a card, as the server does (engine/serving.py): the batch
+is padded to a multiple of N, each card decodes its slice, and the
+padding is cut off; the JSONL and BLEU are the one-card run's. With
+--device cpu the replicas share the host.
 """
 
 from __future__ import annotations
@@ -63,13 +67,16 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--fast-topk", action="store_true", default=False)
     parser.add_argument("--pallas-topk", action=argparse.BooleanOptionalAction,
                         default=None,
-                        help="accepted for caption_split.py's flag set: the "
-                             "beam always runs the exact top-k kernel")
+                        help="the beam's top-k: the kernel (default unless "
+                             "--fast-topk); --no-pallas-topk forces the "
+                             "library route")
     parser.add_argument("--bf16-decode", action="store_true", default=False,
                         help="store the beam's grid and attention keys in "
                              "bfloat16 (scores stay f32)")
     parser.add_argument("--batch-size", type=int, default=64)
-    parser.add_argument("--mesh-data", type=int, default=1)
+    parser.add_argument("--mesh-data", type=int, default=1,
+                        help="data-parallel decode over N cards, one "
+                             "replica each (0 = every visible card)")
     parser.add_argument("--pipeline-depth", type=int, default=2,
                         help="batches in flight (module note); 1 = "
                              "synchronous")
@@ -84,16 +91,11 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _check_ported(args) -> None:
-    for on, what, item in (
-            (args.fast_topk, "--fast-topk (sat_tpu's approximate TPU top-k)",
-             "still to port"),
-            (args.pallas_topk is False, "--no-pallas-topk (sat_tpu's "
-             "lax.top_k A/B arm)", "still to port"),
-            (args.mesh_data != 1, "--mesh-data", "mesh serving")):
-        if on:
-            raise NotImplementedError(f"{what} is not ported yet "
-                                      f"(ROADMAP.md, Queue 1: {item})")
+def _check_args(args) -> None:
+    """Refuse, before loading anything, what sat_tpu refuses: both top-k
+    routes at once, bad sampling knobs."""
+    from sat_tpu_torch.models.beam import use_kernel_topk
+    use_kernel_topk(args.fast_topk, args.pallas_topk)
     if args.decode == "sample":
         from sat_tpu_torch.models.beam import validate_sampling_params
         validate_sampling_params(args.temperature, args.top_k, args.top_p)
@@ -107,42 +109,81 @@ def main(argv=None) -> dict:
                                            beam_search_batched,
                                            extract_caption, greedy_caption,
                                            sample_caption)
+    from sat_tpu_torch.device import resolve_device
+    from sat_tpu_torch.engine.serving import MeshRunner, padded_noise
     from sat_tpu_torch.models.encoder import encoder_forward
-    from sat_tpu_torch.serve import load_model
+    from sat_tpu_torch.parallel.mesh import make_mesh
+    from sat_tpu_torch.serve import host_mesh, load_model
     from sat_tpu_torch.utils.graphs import GraphCache
 
     args = build_parser().parse_args(argv)
-    _check_ported(args)
+    _check_args(args)
     use_f32_math()
+    dev = resolve_device(args.device)
+    runner = None
+    if args.mesh_data != 1:
+        mesh = make_mesh(args.mesh_data,
+                         devices=host_mesh(dev, args.mesh_data))
+        runner = MeshRunner(mesh) if len(mesh) > 1 else None
     cfg, dcfg, encoder, decoder, vocab = load_model(
         args.model, args.model_config, encoder_weights=args.encoder_weights,
-        device=args.device, bert_vocab=args.bert_vocab)
+        device=dev, bert_vocab=args.bert_vocab)
     ds = CaptionDataset(cfg.data, args.split, fraction=args.fraction,
                         bert=cfg.bert, image_size=cfg.image_size)
     loader = BatchLoader(ds, args.batch_size, shuffle=False)
     words_of = caption_decoder(vocab)
     graphs = GraphCache()
 
-    def decode(feats, batch_idx):
-        """The batch's result, its copy to the host queued at once (before
-        the next batch's encoder), and an event that marks the copy done
-        (None on the CPU)."""
+    def decode_rows(dec, feats, batch_idx, cache, noise=None):
         if args.decode == "beam":
-            result = beam_search_batched(decoder, feats, args.beam_size,
-                                         bf16=args.bf16_decode, graphs=graphs)
-        elif args.decode == "greedy":
-            result = greedy_caption(decoder, feats, graphs=graphs)
-        else:
-            result = sample_caption(
-                decoder, feats,
-                batch_generator(args.sample_seed, batch_idx, feats.device),
-                args.temperature, args.top_k, args.top_p, graphs=graphs)
+            return beam_search_batched(dec, feats, args.beam_size,
+                                       bf16=args.bf16_decode, graphs=cache,
+                                       fast_topk=args.fast_topk,
+                                       pallas_topk=args.pallas_topk)
+        if args.decode == "greedy":
+            return greedy_caption(dec, feats, graphs=cache)
+        generator = (None if noise is not None else batch_generator(
+            args.sample_seed, batch_idx, feats.device))
+        return sample_caption(dec, feats, generator, args.temperature,
+                              args.top_k, args.top_p, graphs=cache,
+                              noise=noise)
+
+    def queue_copy(result):
+        """The result's copy to the host, queued at once (before the next
+        batch's encoder), and an event that marks the copy done (None on
+        the CPU)."""
         host = [t.to("cpu", non_blocking=True) for t in result]
-        if feats.device.type != "cuda":
+        if dev.type != "cuda":
             return host, None
         copied = torch.cuda.Event()
         copied.record()
         return host, copied
+
+    if runner is None:
+        def encode(imgs):
+            return encoder_forward(encoder, cfg.network, imgs)
+
+        def decode(feats, batch_idx):
+            return queue_copy(decode_rows(decoder, feats, batch_idx, graphs))
+    else:
+        def encode(imgs):      # each card encodes its own slice
+            return imgs
+
+        def decode(imgs, batch_idx):
+            noise = None
+            if args.decode == "sample":
+                noise = padded_noise(dcfg, len(imgs), len(runner.devices),
+                                     dev, batch_generator(args.sample_seed,
+                                                          batch_idx, dev))
+
+            def replica(i, d, cache, modules, rows, lo, hi):
+                enc, dec = modules
+                return decode_rows(
+                    dec, encoder_forward(enc, cfg.network, rows), batch_idx,
+                    cache, None if noise is None else noise[:, lo:hi])
+
+            return queue_copy(runner.run(replica, imgs, (encoder, decoder),
+                                         dev))
 
     out_f = open(args.out, "w") if args.out else None
     hypotheses, all_refs = [], []
@@ -178,7 +219,7 @@ def main(argv=None) -> dict:
     depth = max(1, args.pipeline_depth)
     t0 = time.perf_counter()
     for batch_idx, (imgs, _, all_captions) in enumerate(loader.epoch(0)):
-        feats = encoder_forward(encoder, cfg.network, imgs)   # queued
+        feats = encode(imgs)                                   # queued
         while pending and len(pending) >= depth - 1:
             drain(*pending.popleft())
         pending.append((len(imgs), all_captions, decode(feats, batch_idx)))

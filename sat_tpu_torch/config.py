@@ -8,7 +8,7 @@ byte as sat_tpu writes it; the framework's extension fields go to the
 file are ignored when loading.
 
 `build_arg_parser` has all of train.py's flags, plus `--device` (cuda by
-default, or cpu). `unported_options` names the options whose path the port
+default, or cpu; under torchrun a bare cuda is the card of LOCAL_RANK). `unported_options` names the options whose path the port
 does not have yet; the training CLI raises on them.
 """
 
@@ -151,10 +151,7 @@ def unported_options(cfg: Config):
     """[(option, ROADMAP.md Queue 1 item)] for each set option whose path
     the port does not have yet."""
     checks = [
-        ("--mesh-data > 1", cfg.mesh_data > 1,
-         "parallel and multi-process"),
-        ("--mesh-model > 1", cfg.mesh_model > 1,
-         "parallel and multi-process"),
+        ("--mesh-model > 1", cfg.mesh_model > 1, "the vocab-sharded head"),
         ("--wandb", cfg.wandb, "CLIs and tooling"),
     ]
     return [(flag, item) for flag, on, item in checks if on]
@@ -204,9 +201,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         help="use attention (default: False)")
     # --- framework extensions ---
     parser.add_argument("--mesh-data", type=int, default=0,
-                        help="data-parallel axis size (not ported above 1)")
+                        help="data-parallel axis size: 0 (every rank) or "
+                             "the WORLD_SIZE of a torchrun launch")
     parser.add_argument("--mesh-model", type=int, default=1,
-                        help="model-parallel axis size (not ported above 1)")
+                        help="model-parallel axis size (the vocab-sharded "
+                             "head; not ported above 1)")
     parser.add_argument("--bf16-encoder", action="store_true", default=False,
                         help="run encoder convolutions in bfloat16")
     parser.add_argument("--checkpoint-dir", type=str, default="model",

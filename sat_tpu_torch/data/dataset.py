@@ -1,7 +1,7 @@
 """Streaming caption dataset and batch loader.
 
-Port of sat_tpu/data/dataset.py (single host). Batches are numpy arrays
-ready for the device:
+Port of sat_tpu/data/dataset.py. Batches are numpy arrays ready for the
+device:
 
   imgs         (B, S, S, 3) float32, NHWC, ImageNet-normalized (or None)
   captions     (B, T) int32
@@ -18,6 +18,16 @@ same as sat_tpu's, and a producer thread prefetches batches. With
 misses are decoded by one call of the native loader's thread pool
 (data/native.py), and only the files its codecs reject go through the
 per-image path; `native_rows` counts the rows the native tier decoded.
+
+Data parallel (parallel/distributed.py): node h of H takes the stripe
+`order[h::H]` of each epoch's permutation, as sat_tpu's host h does, so
+the union of the nodes' batch b is the global batch b. Within a node,
+each batch is padded to a multiple of the node's ranks by repeating its
+last row, and local rank r takes the r-th contiguous slice of the padded
+batch, as device r of sat_tpu's mesh does (`local_index`,
+`local_count`). `row_mask(b)` marks a slice's real rows and
+`global_rows(b)` counts the global batch's: both follow from the schedule
+alone.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ import numpy as np
 
 from sat_tpu_torch.data.transforms import (load_and_preprocess_image,
                                            native_enabled)
+from sat_tpu_torch.parallel.mesh import pad_batch, slice_bounds
 
 
 class CacheBudget:
@@ -152,34 +163,78 @@ class CaptionDataset:
 
 
 class BatchLoader:
-    """Shuffling, prefetching batch iterator: one epoch is
+    """Shuffling, sharding, prefetching batch iterator: one epoch is
     `for batch in loader.epoch(epoch_num)`. The final partial batch is kept
-    unless `drop_last`, as in the reference's DataLoader."""
+    unless `drop_last`, as in the reference's DataLoader. `shard_index` and
+    `shard_count` pick the node's stripe, `local_index` and `local_count`
+    the rank's slice of each of its batches (module note)."""
 
     def __init__(self, dataset: CaptionDataset, batch_size: int,
-                 shuffle: bool = True, seed: int = 42, prefetch: int = 2,
-                 drop_last: bool = False, with_indices: bool = False,
-                 load_images: bool = True):
+                 shuffle: bool = True, seed: int = 42,
+                 shard_index: int = 0, shard_count: int = 1,
+                 local_index: int = 0, local_count: int = 1,
+                 prefetch: int = 2, drop_last: bool = False,
+                 with_indices: bool = False, load_images: bool = True):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
+        self.shard_index = shard_index
+        self.shard_count = shard_count
+        self.local_index = local_index
+        self.local_count = local_count
         self.prefetch = prefetch
         self.drop_last = drop_last
         self.with_indices = with_indices
         self.load_images = load_images
 
+    def _stripe_rows(self) -> int:
+        return len(self.dataset) // self.shard_count
+
     def batches_per_epoch(self) -> int:
-        n = len(self.dataset)
+        n = self._stripe_rows()
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
+    def batch_rows(self, b: int) -> int:
+        """Real rows of the node's batch b."""
+        return min(self.batch_size, self._stripe_rows() - b * self.batch_size)
+
+    def global_rows(self, b: int) -> int:
+        """Real rows of the global batch b: every node's batch b has as
+        many."""
+        return self.batch_rows(b) * self.shard_count
+
+    def row_mask(self, b: int) -> Optional[np.ndarray]:
+        """The real rows of this rank's slice of batch b, or None when the
+        node's batch needed no padding."""
+        n, parts = self.batch_rows(b), self.local_count
+        if n % parts == 0:
+            return None
+        lo, hi = slice_bounds(-(-n // parts) * parts, parts, self.local_index)
+        return np.arange(lo, hi) < n
+
+    def _local_slice(self, idxs: np.ndarray) -> np.ndarray:
+        if self.local_count <= 1:
+            return idxs
+        (padded,), _ = pad_batch([idxs], self.local_count)
+        return padded[slice(*slice_bounds(len(padded), self.local_count,
+                                          self.local_index))]
+
     def _epoch_indices(self, epoch: int) -> np.ndarray:
         n = len(self.dataset)
         if self.shuffle:
-            return np.random.default_rng((self.seed, epoch)).permutation(n)
-        return np.arange(n)
+            order = np.random.default_rng((self.seed, epoch)).permutation(n)
+        else:
+            order = np.arange(n)
+        if self.shard_count == 1:
+            return order
+        # host h's stripe: the union of the stripes' batch b is
+        # order[b*bs*H : (b+1)*bs*H], the global batch b
+        per_shard = n // self.shard_count
+        return order[:per_shard * self.shard_count][
+            self.shard_index::self.shard_count]
 
     def _make_batch(self, idxs: np.ndarray):
         imgs = (self.dataset.load_image_batch(idxs)
@@ -198,7 +253,7 @@ class BatchLoader:
         splits = [order[i:i + bs] for i in range(0, len(order), bs)]
         if self.drop_last and splits and len(splits[-1]) < bs:
             splits.pop()
-        splits = splits[skip:]
+        splits = [self._local_slice(s) for s in splits[skip:]]
         if self.prefetch <= 0:
             for idxs in splits:
                 yield self._make_batch(idxs)

@@ -1,6 +1,6 @@
-"""Training orchestration on one device.
+"""Training orchestration, on one card or data parallel over ranks.
 
-Port of sat_tpu/engine/loop.py's single-device path. Per epoch: the train
+Port of sat_tpu/engine/loop.py. Per epoch: the train
 step over every batch, with the reference's meters, stdout lines and
 metric names; a validation pass (loss, top-1, top-5 and BLEU-1..4 of the
 teacher-forced argmax captions, with a table of predictions); the decoder
@@ -58,7 +58,28 @@ computes a finite flag on the device (inside the captured graph of a K-step
 block), which the one-behind read of the step's metrics checks; without
 the option the steps compute no flag.
 
-Not ported yet, each named in ROADMAP.md Queue 1: W&B and the device mesh.
+Data parallel: under `torchrun` (parallel/distributed.py) each rank is one
+card of sat_tpu's data axis, and one node of ranks is one sat_tpu process.
+`--mesh-data` must be 0 (every rank) or WORLD_SIZE. The loaders give node h
+the stripe `order[h::H]` and each rank its slice of the node's padded batch
+(data/dataset.py), so the global batches, their padding and their row order
+are sat_tpu's with `--mesh-data N` and `--batch-size B` per process. The
+steps sum gradients and metrics over the ranks (parallel/train_step.py);
+each rank holds the whole feature bank (sat_tpu shards it over the data
+axis: ROADMAP.md, Queue 1). The multi-host branches of sat_tpu's loop
+follow: rank 0 alone writes the feature cache (atomically), the decoder
+archives, model_config.json and its sidecar, the train state and the
+metric log, and the other ranks wait for it; the preemption flag is OR'd
+over the ranks every PREEMPT_SYNC_EVERY batches and on the last (every
+max(1, PREEMPT_SYNC_EVERY // K) blocks), so every rank stops at one
+boundary; evaluation gathers every rank's tokens and captions before BLEU,
+in sat_tpu's row order, and each rank plots its own images, tagged
+`p{rank}_b...`. The parameters start from rank 0's, and each rank's
+dropout generator is seeded from (seed, rank). A train state written at one
+world size resumes at another: `batch_offset` counts global batches.
+
+W&B (`--wandb`) and the vocab-sharded head (`--mesh-model > 1`) are not
+ported; each raises, naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -74,6 +95,7 @@ from enum import Enum
 
 import numpy as np
 import torch
+import torch.distributed
 
 from sat_tpu_torch import constants
 from sat_tpu_torch.compat.jax_params import decoder_from_jax, encoder_from_jax
@@ -86,6 +108,8 @@ from sat_tpu_torch.engine import checkpoint as ckpt
 from sat_tpu_torch.engine.evaluate import caption_decoder, compute_bleu
 from sat_tpu_torch.models.decoder import DecoderConfig, init_decoder_params
 from sat_tpu_torch.models.encoder import encoder_forward, init_encoder_params
+from sat_tpu_torch.parallel import distributed as dist
+from sat_tpu_torch.parallel.mesh import validate_host_divisibility
 from sat_tpu_torch.parallel.train_step import (init_train_state,
                                                make_bank_eval_block,
                                                make_bank_eval_step,
@@ -119,6 +143,38 @@ class TrainingPreempted(Exception):
     state is saved; `fit` ends the run. Rerun with --resume."""
 
 
+def dropout_seed(seed: int, rank: int, step: int = 0) -> int:
+    """The seed of rank `rank`'s dropout generator at a fresh start
+    (step 0): `seed` itself on rank 0, so that a one-rank run draws what a
+    plain process does, else one drawn from the pair. A resumed rank
+    other than 0, whose generator the train state does not hold, takes
+    the seed of (seed, rank, step)."""
+    if rank == 0 and step == 0:
+        return seed
+    seq = np.random.SeedSequence([seed % 2 ** 64, rank, step])
+    return int(seq.generate_state(1, np.uint64)[0] >> 1)
+
+
+def data_ranks(mesh_data: int) -> int:
+    """The ranks of the data axis: every rank for `--mesh-data` 0, else
+    exactly WORLD_SIZE; any other value is refused at start-up with the
+    counts spelled out, as sat_tpu's make_mesh and
+    validate_host_divisibility refuse theirs."""
+    world = dist.world_size()
+    if mesh_data > world:
+        raise ValueError(
+            f"mesh data={mesh_data} x model=1 needs {mesh_data} devices, "
+            f"but only {world} rank(s) run (WORLD_SIZE={world}); reduce "
+            f"--mesh-data or launch with torchrun --nproc_per_node "
+            f"{mesh_data}")
+    if 0 < mesh_data < world:
+        raise ValueError(
+            f"--mesh-data {mesh_data} would leave {world - mesh_data} of "
+            f"the {world} ranks idle: pass 0 (every rank) or {world}")
+    validate_host_divisibility(world, dist.node_count())
+    return world
+
+
 class Trainer:
     def __init__(self, cfg: Config, device="cuda",
                  logger: MetricLogger | None = None):
@@ -128,9 +184,14 @@ class Trainer:
                 "not ported yet (ROADMAP.md, Queue 1): " + ", ".join(
                     f"{flag} ({item})" for flag, item in unported))
         self.cfg = cfg
-        self.device = resolve_device(device)
+        # a no-op in a plain process; under torchrun this rank's card
+        self.device = dist.initialize(device)
+        self.distributed = torch.distributed.is_initialized()
+        self.rank = dist.rank()
+        self.n_data = data_ranks(cfg.mesh_data)
         use_f32_math()
-        self.logger = logger or MetricLogger(cfg.log_jsonl)
+        self.logger = logger or MetricLogger(
+            cfg.log_jsonl if dist.is_primary() else None)
 
         # the word dict, or BERT's WordPiece vocabulary
         if cfg.bert:
@@ -171,12 +232,14 @@ class Trainer:
         self.state = init_train_state(decoder_from_jax(
             dec_flat, self.dcfg, self.device, trainable=True))
         self.dropout_gen = torch.Generator(device=self.device).manual_seed(
-            cfg.seed)
+            dropout_seed(cfg.seed, self.rank))
         self.start_epoch = 1
         self._resume_batch_offset = 0
         self._preempt_requested = False
         if cfg.resume:
             self._resume()
+        if self.distributed:
+            dist.broadcast_module(self.state.decoder)
 
         # ---- data
         t0 = time.time()
@@ -190,8 +253,12 @@ class Trainer:
                                 image_size=cfg.image_size,
                                 cache_budget=budget)
             loader = BatchLoader(ds, cfg.batch_size, shuffle=True,
-                                 seed=cfg.seed, with_indices=True,
-                                 load_images=load_images)
+                                 seed=cfg.seed,
+                                 shard_index=dist.node_index(),
+                                 shard_count=dist.node_count(),
+                                 local_index=dist.local_rank(),
+                                 local_count=dist.local_world_size(),
+                                 with_indices=True, load_images=load_images)
             loader.split = split
             return loader
 
@@ -240,18 +307,20 @@ class Trainer:
 
         # ---- steps
         self.train_block = self.eval_block = None
+        shared = dict(distributed=self.distributed)
         if self.use_bank:
             self.train_step = make_bank_train_step(
                 self.dcfg, cfg.alpha_c, rep_penalty_beta=cfg.rep_penalty_beta,
-                debug_nans=cfg.debug_nans)
-            self.eval_step = make_bank_eval_step(self.dcfg, cfg.alpha_c)
+                debug_nans=cfg.debug_nans, **shared)
+            self.eval_step = make_bank_eval_step(self.dcfg, cfg.alpha_c,
+                                                 **shared)
             if cfg.steps_per_dispatch > 1:
                 self.train_block = make_bank_train_block(
                     self.dcfg, cfg.alpha_c,
                     rep_penalty_beta=cfg.rep_penalty_beta,
-                    debug_nans=cfg.debug_nans)
+                    debug_nans=cfg.debug_nans, **shared)
                 self.eval_block = make_bank_eval_block(self.dcfg,
-                                                       cfg.alpha_c)
+                                                       cfg.alpha_c, **shared)
         else:
             if cfg.steps_per_dispatch > 1:
                 print("--steps-per-dispatch needs the device feature bank "
@@ -262,11 +331,12 @@ class Trainer:
                 bf16_encoder=cfg.bf16_encoder,
                 from_features=cfg.cache_features,
                 rep_penalty_beta=cfg.rep_penalty_beta,
-                debug_nans=cfg.debug_nans)
+                debug_nans=cfg.debug_nans, **shared)
             self.eval_step = make_eval_step(self.dcfg, cfg.network,
                                             cfg.alpha_c,
                                             bf16_encoder=cfg.bf16_encoder,
-                                            from_features=cfg.cache_features)
+                                            from_features=cfg.cache_features,
+                                            **shared)
 
         # sat_tpu's tables: the frozen encoder's (no trainable row), then
         # the decoder's without BERT's frozen table
@@ -291,7 +361,12 @@ class Trainer:
         self.state.optimizer.load_state_dict(tree["optimizer"])
         place_optimizer_state(self.state.optimizer)
         self.state.step = int(tree["step"])
-        ckpt.set_generator_state(self.dropout_gen, tree["dropout_generator"])
+        if self.rank == 0:
+            ckpt.set_generator_state(self.dropout_gen,
+                                     tree["dropout_generator"])
+        else:
+            self.dropout_gen.manual_seed(dropout_seed(cfg.seed, self.rank,
+                                                      self.state.step))
         offset = int(tree["batch_offset"])
         if offset > 0:
             self.start_epoch = int(tree["epoch"])
@@ -368,8 +443,9 @@ class Trainer:
         feats = (np.concatenate(chunks) if chunks
                  else np.zeros((0, 1, cfg.encoder_dim), np.float32))
 
-        if cache_file is not None:
-            # published by rename: a killed run leaves no truncated entry
+        if cache_file is not None and dist.is_primary():
+            # rank 0 publishes, by rename: a killed run leaves no truncated
+            # entry, and no rank reads one that is not whole
             os.makedirs(cfg.feature_cache_dir, exist_ok=True)
             tmp = cache_file + f".{os.getpid()}.tmp.npz"
             np.savez(tmp, feats=feats)
@@ -389,24 +465,48 @@ class Trainer:
         return (self.bank[split]["rows"][rows].to(self.device),
                 rows.to(self.device))
 
-    def _run_train_step(self, split, imgs, captions, idxs, lr):
+    def _slice_args(self, loader, batches):
+        """(row_mask, n_rows) of this rank's slice of the loader's batch
+        (or, for a list of batch indices, a block of full batches): the
+        mask on the device, or None when nothing is padded, and the global
+        batch's real rows under a process group (else None)."""
+        if not self.distributed:
+            return None, None
+        many = isinstance(batches, (list, range))
+        first = batches[0] if many else batches
+        mask = loader.row_mask(first)
+        if mask is not None:
+            mask = torch.as_tensor(np.stack([mask] * len(batches)) if many
+                                   else mask, device=self.device)
+        return mask, loader.global_rows(first)
+
+    def _run_train_step(self, split, imgs, captions, idxs, lr, batch_idx):
+        mask, n_rows = self._slice_args(self.train_loader, batch_idx)
+        extra = {} if n_rows is None else {"row_mask": mask,
+                                           "n_rows": n_rows}
         if self.use_bank:
             img_idx, row_idx = self._bank_indices(split, idxs)
             b = self.bank[split]
             return self.train_step(self.state, b["feats"], b["caps"],
-                                   img_idx, row_idx, lr, self.dropout_gen)
+                                   img_idx, row_idx, lr, self.dropout_gen,
+                                   **extra)
         return self.train_step(self.state, self.encoder,
                                self._step_inputs(split, imgs, idxs),
-                               captions, lr, self.dropout_gen)
+                               captions, lr, self.dropout_gen, **extra)
 
-    def _run_eval_step(self, split, imgs, captions, idxs):
+    def _run_eval_step(self, loader, imgs, captions, idxs, batch_idx):
+        split = loader.split
+        mask, n_rows = self._slice_args(loader, batch_idx)
+        extra = {} if n_rows is None else {"row_mask": mask,
+                                           "n_rows": n_rows}
         if self.use_bank:
             img_idx, row_idx = self._bank_indices(split, idxs)
             b = self.bank[split]
             return self.eval_step(self.state.decoder, b["feats"], b["caps"],
-                                  img_idx, row_idx)
+                                  img_idx, row_idx, **extra)
         return self.eval_step(self.state.decoder, self.encoder,
-                              self._step_inputs(split, imgs, idxs), captions)
+                              self._step_inputs(split, imgs, idxs), captions,
+                              **extra)
 
     # --------------------------------------------------------------- epochs
 
@@ -418,6 +518,33 @@ class Trainer:
         """Ask the epoch loop to save the train state and stop at the next
         step boundary (the signal handlers of `fit` call this)."""
         self._preempt_requested = True
+
+    # The ranks agree on a preemption every this many batches and on the
+    # epoch's last: the OR over the ranks is a synchronous collective, and
+    # a signal may reach one rank only (sat_tpu's cadence).
+    PREEMPT_SYNC_EVERY = 8
+
+    def _preempt_agreed(self, batch_idx: int = -1, n_batches: int = 0,
+                        poll: bool | None = None) -> bool:
+        """Whether to save and stop at this boundary, the same answer on
+        every rank. One rank acts on its own flag at every boundary; several
+        OR their flags on the polling batches only, which every rank
+        computes alike (`poll`, for a block schedule, else every
+        PREEMPT_SYNC_EVERY-th batch and the last), and answer False
+        between them."""
+        if dist.world_size() == 1:
+            return self._preempt_requested
+        if poll is None:
+            poll = (batch_idx % self.PREEMPT_SYNC_EVERY
+                    == self.PREEMPT_SYNC_EVERY - 1
+                    or batch_idx == n_batches - 1)
+        return poll and dist.any_flag(self._preempt_requested)
+
+    def _preempt(self, epoch: int, end: int) -> None:
+        self._save_train_state(epoch, batch_offset=end)
+        print(f"Preempted at epoch {epoch} batch {end}: train state saved; "
+              f"rerun with --resume to continue")
+        raise TrainingPreempted()
 
     def train_epoch(self, epoch: int) -> None:
         print(f"Epoch {epoch} - Starting train")
@@ -459,23 +586,20 @@ class Trainer:
             })
 
         if self.train_block is not None:
-            self._train_epoch_blocked(epoch, lr, skip, finish)
+            self._train_epoch_blocked(epoch, lr, skip, n_batches, finish)
             return
 
         pending = deque()
         for batch_idx, (imgs, captions, _, idxs) in enumerate(
                 self.train_loader.epoch(epoch, skip=skip), start=skip):
             self.state, metrics = self._run_train_step(
-                "train", imgs, captions, idxs, lr)
-            if self._preempt_requested:
+                "train", imgs, captions, idxs, lr, batch_idx)
+            if self._preempt_agreed(batch_idx, n_batches):
                 # as sat_tpu: the batch just trained is saved as trained
                 # but its metrics are not read
                 while pending:
                     finish(*pending.popleft())
-                self._save_train_state(epoch, batch_offset=batch_idx + 1)
-                print(f"Preempted at epoch {epoch} batch {batch_idx + 1}: "
-                      f"train state saved; rerun with --resume to continue")
-                raise TrainingPreempted()
+                self._preempt(epoch, batch_idx + 1)
             pending.append((batch_idx, metrics))
             if len(pending) >= 2:
                 finish(*pending.popleft())
@@ -486,16 +610,20 @@ class Trainer:
         """sat_tpu's block layout, shared by the blocked train and eval
         epochs: the epoch's full-size batches in blocks of K (the last
         block may be shorter), and a short final batch split off as the
-        tail for the per-batch step. Returns (blocks, tail, n_full), n_full
-        being the tail's position in the epoch's batch list."""
+        tail for the per-batch step (`size_fn`: a batch's real rows on
+        the node). Returns (blocks, tail, n_full,
+        poll_every): n_full is the tail's position in the epoch's batch
+        list, and the ranks agree on a preemption every poll_every blocks
+        (and after the last)."""
         tail = None
         if items and size_fn(items[-1]) != self.cfg.batch_size:
             tail = items[-1]
             items = items[:-1]
         blocks = [items[i:i + K] for i in range(0, len(items), K)]
-        return blocks, tail, len(items)
+        return (blocks, tail, len(items),
+                max(1, self.PREEMPT_SYNC_EVERY // K))
 
-    def _train_epoch_blocked(self, epoch, lr, skip, finish):
+    def _train_epoch_blocked(self, epoch, lr, skip, n_batches, finish):
         """--steps-per-dispatch's epoch body (sat_tpu's
         `_train_epoch_blocked`): K optimizer steps a dispatch, their
         metrics read back once a block, one block behind, through the
@@ -507,31 +635,36 @@ class Trainer:
         bank = self.bank["train"]
         idx_batches = [idxs for (_, _, _, idxs)
                        in self.train_loader.epoch(epoch, skip=skip)]
-        blocks, tail, n_full = self._block_schedule(idx_batches, K)
+        # on the node, the tail is the short batch: compare node rows, not
+        # the rank's (padded) slices
+        sizes = {id(x): self.train_loader.batch_rows(skip + i)
+                 for i, x in enumerate(idx_batches)}
+        blocks, tail, n_full, poll_every = self._block_schedule(
+            idx_batches, K, size_fn=lambda x: sizes[id(x)])
 
         def finish_block(start_idx, metrics_k):
             metrics_k = {k: v.cpu() for k, v in metrics_k.items()}
             for j in range(len(metrics_k["loss"])):
                 finish(start_idx + j, {k: v[j] for k, v in metrics_k.items()})
 
-        def preempt(end):
-            self._save_train_state(epoch, batch_offset=end)
-            print(f"Preempted at epoch {epoch} batch {end}: train state "
-                  f"saved; rerun with --resume to continue")
-            raise TrainingPreempted()
-
         pending = None
         for blk_i, chunk in enumerate(blocks):
             start_idx = skip + blk_i * K
             img_idx, row_idx = self._bank_indices("train", np.stack(chunk))
+            mask, n_rows = self._slice_args(
+                self.train_loader, range(start_idx, start_idx + len(chunk)))
+            extra = {} if n_rows is None else {"row_mask": mask,
+                                               "n_rows": n_rows}
             self.state, metrics_k = self.train_block(
                 self.state, bank["feats"], bank["caps"], img_idx, row_idx, lr,
-                self.dropout_gen)
-            if self._preempt_requested:
+                self.dropout_gen, **extra)
+            last = blk_i == len(blocks) - 1 and tail is None
+            if self._preempt_agreed(
+                    poll=blk_i % poll_every == poll_every - 1 or last):
                 if pending:
                     finish_block(*pending)
                 finish_block(start_idx, metrics_k)
-                preempt(start_idx + len(chunk))
+                self._preempt(epoch, start_idx + len(chunk))
             if pending:
                 finish_block(*pending)
             pending = (start_idx, metrics_k)
@@ -541,16 +674,41 @@ class Trainer:
         if tail is not None:
             batch_idx = skip + n_full
             self.state, metrics = self._run_train_step("train", None, None,
-                                                       tail, lr)
+                                                       tail, lr, batch_idx)
             finish(batch_idx, metrics)     # trained; a resume skips it
-            if self._preempt_requested:
-                preempt(batch_idx + 1)
+            if self._preempt_agreed(batch_idx, n_batches):
+                self._preempt(epoch, batch_idx + 1)
+
+    def _global_rows(self, loader, batch_idx, pred_tokens, captions,
+                     all_captions):
+        """(tokens, captions, all captions) of the global batch's real
+        rows, in sat_tpu's order: each rank's slice gathered in rank order
+        (node by node, each node's padded batch in order), the padding
+        dropped. One process has them already."""
+        n = len(captions)
+        if not self.distributed:
+            return pred_tokens.cpu(), captions, all_captions
+        mask = loader.row_mask(batch_idx)
+        mask = np.ones(n, bool) if mask is None else mask
+        cols = [pred_tokens.shape[1], captions.shape[1]]
+        rows = torch.cat([pred_tokens.cpu().long(),
+                          torch.as_tensor(captions).long(),
+                          torch.as_tensor(all_captions).reshape(n, -1).long(),
+                          torch.as_tensor(mask).long()[:, None]], dim=1)
+        rows = dist.gather(rows).cpu()
+        rows = rows[rows[:, -1] == 1, :-1]
+        toks, caps, alls = rows.split(
+            [cols[0], cols[1], rows.shape[1] - sum(cols)], dim=1)
+        return (toks, caps.int().numpy(),
+                alls.int().reshape((len(rows),) + all_captions.shape[1:])
+                .numpy())
 
     def run_evaluation(self, epoch: int, loader: BatchLoader,
                        mode: EvalMode) -> dict:
         """Loss, top-1, top-5 and BLEU-1..4 over the split, one batch behind
         the device; a table of each batch's last target and prediction; in
-        TEST mode, attention plots of the first images."""
+        TEST mode, attention plots of the first images (under several
+        ranks, of each rank's own images)."""
         cfg = self.cfg
         losses, top1, top5 = AverageMeter(), AverageMeter(), AverageMeter()
         decoded_all_captions, decoded_hypotheses = [], []
@@ -568,10 +726,12 @@ class Trainer:
             top1.update(float(metrics["acc1"]), n)
             top5.update(float(metrics["acc5"]), n)
 
-            batch_captions = self.decode(captions.tolist())
-            batch_hypotheses = self.decode(pred_tokens.cpu().tolist())
+            toks_g, caps_g, all_g = self._global_rows(
+                loader, batch_idx, pred_tokens, captions, all_captions)
+            batch_captions = self.decode(caps_g.tolist())
+            batch_hypotheses = self.decode(toks_g.tolist())
             decoded_hypotheses.extend(batch_hypotheses)
-            for cap_set in all_captions.tolist():
+            for cap_set in all_g.tolist():
                 decoded_all_captions.append(self.decode(cap_set))
 
             if batch_idx % cfg.log_interval == 0:
@@ -585,22 +745,30 @@ class Trainer:
 
             if mode != EvalMode.TEST or viz_count >= MAX_ATTENTION_PLOTS:
                 return
+            # this rank's own real rows, without a collective: the ranks'
+            # budgets part ways here
+            mask = loader.row_mask(batch_idx)
+            n_own = len(imgs) if mask is None else int(mask.sum())
+            own_words = self.decode(pred_tokens[:n_own].cpu().tolist())
+            own_refs = self.decode(captions[:n_own].tolist())
             os.makedirs(viz_dir, exist_ok=True)
             alphas = alphas.cpu().numpy()
-            for img_idx in range(len(imgs)):
+            for img_idx in range(n_own):
                 if viz_count >= MAX_ATTENTION_PLOTS:
                     break
-                words = batch_hypotheses[img_idx]
+                words = own_words[img_idx]
                 if len(words) == 0:
                     print(f"No caption for image {img_idx}, skipping "
                           f"attention visualization")
                     break
-                tag = f"b{batch_idx}_i{img_idx}"
+                tag = (f"p{self.rank}_b{batch_idx}_i{img_idx}"
+                       if dist.world_size() > 1
+                       else f"b{batch_idx}_i{img_idx}")
                 png = os.path.join(viz_dir, f"{tag}.png")
                 save_attention_plot(
                     png, denormalize(imgs[img_idx]), words, alphas[img_idx],
-                    cfg.grid_side,
-                    reference_caption=" ".join(batch_captions[img_idx]))
+                    cfg.grid_side, reference_caption=" ".join(
+                        own_refs[img_idx]))
                 self.logger.log_image(f"attention_viz/e{epoch}_{tag}", png,
                                       caption=" ".join(words))
                 viz_count += 1
@@ -608,9 +776,9 @@ class Trainer:
         # Blocked validation (--steps-per-dispatch) for VALIDATION only:
         # TEST needs each batch's alphas for its plots.
         if self.eval_block is not None and mode == EvalMode.VALIDATION:
-            self._eval_blocked(epoch, loader, finish)
+            self._eval_blocked(epoch, loader, n_batches, finish)
         else:
-            self._eval_per_batch(epoch, loader, mode, finish)
+            self._eval_per_batch(epoch, loader, mode, n_batches, finish)
 
         bleu = compute_bleu(decoded_all_captions, decoded_hypotheses)
         self.logger.log({
@@ -634,16 +802,17 @@ class Trainer:
         return {"loss": losses.avg, "top1": top1.avg, "top5": top5.avg,
                 **bleu}
 
-    def _eval_per_batch(self, epoch, loader, mode, finish):
+    def _eval_per_batch(self, epoch, loader, mode, n_batches, finish):
         pending = deque()
         for batch_idx, (imgs, captions, all_captions, idxs) in enumerate(
                 loader.epoch(epoch)):
             metrics, pred_tokens, alphas = self._run_eval_step(
-                loader.split, imgs, captions, idxs)
+                loader, imgs, captions, idxs, batch_idx)
             # Validation honours a preemption too: the trained epoch is
             # saved as complete, and the interrupted pass, which carries no
             # state, is dropped.
-            if mode == EvalMode.VALIDATION and self._preempt_requested:
+            if mode == EvalMode.VALIDATION and self._preempt_agreed(
+                    batch_idx, n_batches):
                 while pending:
                     finish(*pending.popleft())
                 self._preempt_eval(epoch)
@@ -654,7 +823,7 @@ class Trainer:
         while pending:
             finish(*pending.popleft())
 
-    def _eval_blocked(self, epoch, loader, finish):
+    def _eval_blocked(self, epoch, loader, n_batches, finish):
         """Blocked VALIDATION (sat_tpu's `_eval_blocked`): K eval batches a
         dispatch, their metrics and tokens read once a block, one block
         behind, through the per-batch pass's `finish`, so meters, stdout,
@@ -666,8 +835,9 @@ class Trainer:
         split = loader.split
         bank = self.bank[split]
         batches = list(loader.epoch(epoch))
-        blocks, tail, n_full = self._block_schedule(
-            batches, K, size_fn=lambda b: b[1].shape[0])
+        sizes = {id(x): loader.batch_rows(i) for i, x in enumerate(batches)}
+        blocks, tail, n_full, poll_every = self._block_schedule(
+            batches, K, size_fn=lambda x: sizes[id(x)])
 
         def finish_block(start_idx, chunk, metrics_k, toks_k):
             metrics_k = {k: v.cpu() for k, v in metrics_k.items()}
@@ -681,10 +851,16 @@ class Trainer:
         for blk_i, chunk in enumerate(blocks):
             img_idx, row_idx = self._bank_indices(
                 split, np.stack([c[3] for c in chunk]))
+            mask, n_rows = self._slice_args(
+                loader, range(blk_i * K, blk_i * K + len(chunk)))
+            extra = {} if n_rows is None else {"row_mask": mask,
+                                               "n_rows": n_rows}
             metrics_k, toks_k = self.eval_block(
                 self.state.decoder, bank["feats"], bank["caps"], img_idx,
-                row_idx)
-            if self._preempt_requested:
+                row_idx, **extra)
+            last = blk_i == len(blocks) - 1 and tail is None
+            if self._preempt_agreed(
+                    poll=blk_i % poll_every == poll_every - 1 or last):
                 if pending:
                     finish_block(*pending)
                 self._preempt_eval(epoch)
@@ -697,8 +873,8 @@ class Trainer:
         if tail is not None:
             imgs, captions, all_captions, idxs = tail
             metrics, pred_tokens, alphas = self._run_eval_step(
-                split, imgs, captions, idxs)
-            if self._preempt_requested:
+                loader, imgs, captions, idxs, n_full)
+            if self._preempt_agreed(n_full, n_batches):
                 self._preempt_eval(epoch)
             finish(n_full, imgs, captions, all_captions, metrics,
                    pred_tokens, alphas)
@@ -724,14 +900,19 @@ class Trainer:
     def save_epoch(self, epoch: int) -> str:
         """The epoch's decoder `.npz`, `model_config.json` (with its
         `sat_config.json` sidecar) and the train state, in
-        --checkpoint-dir."""
+        --checkpoint-dir; rank 0 writes them."""
         cfg = self.cfg
-        path = ckpt.save_decoder_checkpoint(cfg.checkpoint_dir, cfg.network,
-                                            epoch, self.state.decoder)
-        self.logger.save_file(path)
-        config_path = os.path.join(cfg.checkpoint_dir, "model_config.json")
-        cfg.save_model_config(config_path)
-        self.logger.save_file(config_path)
+        path = os.path.join(cfg.checkpoint_dir,
+                            f"model_{cfg.network}_{epoch}.npz")
+        if dist.is_primary():
+            path = ckpt.save_decoder_checkpoint(cfg.checkpoint_dir,
+                                                cfg.network, epoch,
+                                                self.state.decoder)
+            self.logger.save_file(path)
+            config_path = os.path.join(cfg.checkpoint_dir,
+                                       "model_config.json")
+            cfg.save_model_config(config_path)
+            self.logger.save_file(config_path)
         self._save_train_state(epoch, batch_offset=0)
         return path
 
@@ -745,12 +926,15 @@ class Trainer:
                 "dropout_generator": ckpt.generator_state(self.dropout_gen)}
 
     def _save_train_state(self, epoch: int, batch_offset: int) -> None:
-        """With --keep-checkpoints N, older states are pruned after the new
-        one is on disk."""
-        ckpt.save_train_state(self.cfg.checkpoint_dir, self.state.step,
-                              self.train_state_tree(epoch, batch_offset))
-        ckpt.prune_train_states(self.cfg.checkpoint_dir,
-                                self.cfg.keep_checkpoints)
+        """Rank 0 writes the state and, with --keep-checkpoints N, prunes
+        the older ones after the new one is on disk; no rank goes on before
+        it has."""
+        if dist.is_primary():
+            ckpt.save_train_state(self.cfg.checkpoint_dir, self.state.step,
+                                  self.train_state_tree(epoch, batch_offset))
+            ckpt.prune_train_states(self.cfg.checkpoint_dir,
+                                    self.cfg.keep_checkpoints)
+        dist.barrier()
 
     @contextmanager
     def _preempt_handlers(self):

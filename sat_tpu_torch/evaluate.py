@@ -11,8 +11,9 @@ attention plots) on the model's config with sat_tpu's overrides:
 
 The flags are evaluate.py's; --device (default cuda) is added. The model
 is a sat_tpu `.npz` or a reference `.pth` decoder with `model_config.json`
-beside it (or --model-config); a BERT model needs --bert-vocab.
-`main` returns the pass's metrics.
+beside it (or --model-config); a BERT model needs --bert-vocab. The pass
+runs on this run's ranks (`--mesh-data` 0: one process, or torchrun's),
+whatever the model was trained on. `main` returns the pass's metrics.
 """
 
 from __future__ import annotations
@@ -53,8 +54,10 @@ def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     config_path = args.model_config or os.path.join(
         os.path.dirname(args.model) or ".", "model_config.json")
+    # mesh_data 0: every rank of this run, whatever the training's was (a
+    # sidecar of a torchrun run says its WORLD_SIZE)
     overrides = dict(model=args.model, fraction=args.fraction,
-                     perform_test=False, resume=False)
+                     perform_test=False, resume=False, mesh_data=0)
     if args.batch_size:
         overrides["batch_size"] = args.batch_size
     if args.encoder_weights:

@@ -18,8 +18,9 @@ same result. --decode sample draws from a generator seeded with
 and the card's and the CPU's generators differ. A BERT model's caption is
 sat_tpu's rendering, `tokenizer.decode(ids).split()` over the start
 token, the caption and its stop token, with the WordPiece vocabulary of
---bert-vocab (data/bert_vocab.py). --wandb-run and --wandb-model (Queue 1
-item 9) are not ported and raise.
+--bert-vocab (data/bert_vocab.py). --wandb-run and --wandb-model restore a
+model from W&B over the network, which the port does not do (ROADMAP.md,
+Queue 1: CLIs and tooling); they raise.
 """
 
 from __future__ import annotations
@@ -167,7 +168,7 @@ def main(argv=None):
     if args.wandb_run or args.wandb_model:
         raise NotImplementedError(
             "--wandb-run/--wandb-model are not ported yet (ROADMAP.md, "
-            "Queue 1: tooling)")
+            "Queue 1: CLIs and tooling)")
     use_f32_math()
     cfg, dcfg, encoder, decoder, vocab = load_model(
         args.model, args.model_config, encoder_weights=args.encoder_weights,

@@ -40,8 +40,20 @@ a cache (`graphs=None`, the default) the same code runs eagerly, as the
 CPU always does. The exact
 top-k is the CUDA kernel of ops/topk.py and the
 attention middle the one of ops/fused_attention.py on the card, their
-plain forms on the CPU. `fast_topk` (an approximate TPU top-k) and
-`mesh_data > 1` are not ported and raise.
+plain forms on the CPU.
+
+The top-k routes, as sat_tpu selects them: `pallas_topk=True` the kernel,
+`pallas_topk=False` the library route (ops/topk.py::topk_library,
+sat_tpu's `lax.top_k`), and `fast_topk=True` the library route too:
+sat_tpu's `approx_max_k(aggregate_to_topk=True)` is exact off the TPU.
+Both routes are exact with one tie order, so they give the same tokens.
+The default (None) is the kernel unless `fast_topk` is asked for; asking
+for both raises sat_tpu's ValueError. Unlike sat_tpu, the default keeps
+the kernel under a serving mesh (`mesh_data > 1`): sat_tpu turns it off
+because GSPMD may replicate the custom call over the mesh, and here each
+card runs its own replica (engine/serving.py). `mesh_data` is the number
+of cards the caller splits the batch over; as in sat_tpu, chunking
+engages at `chunk` images a card.
 
 `bf16=True` is sat_tpu's bf16 decode: the attention keys are computed and
 the LSTM state initialised from the f32 grid, and then the grid and the
@@ -63,7 +75,7 @@ from sat_tpu_torch import constants
 from sat_tpu_torch.models.attention import precompute_attention_keys
 from sat_tpu_torch.models.decoder import (Decoder, decode_step, embed_tokens,
                                           init_lstm_state)
-from sat_tpu_torch.ops.topk import topk
+from sat_tpu_torch.ops.topk import topk, topk_library
 from sat_tpu_torch.utils.graphs import GraphCache
 
 # Beam steps between two host reads of the exit test. On the H100 at
@@ -96,6 +108,7 @@ class _Spec(NamedTuple):
     backtrack: bool
     start_token: int
     bf16: bool
+    library_topk: bool = False
 
     @property
     def grid_dtype(self) -> torch.dtype:
@@ -114,9 +127,17 @@ def stop_ids(cfg) -> tuple[int, int]:
             else constants.BEAM_STOP_VANILLA)
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
-                               f"Queue 1: still to port)")
+def use_kernel_topk(fast_topk: bool, pallas_topk: bool | None) -> bool:
+    """Whether the beam takes the top-k kernel (module note)."""
+    if pallas_topk is None:
+        return not fast_topk
+    if fast_topk and pallas_topk:
+        raise ValueError(
+            "fast_topk and pallas_topk are mutually exclusive: fast_topk "
+            "is the APPROXIMATE approx_max_k mode, pallas_topk the exact "
+            "selection kernel — silently preferring one would "
+            "misrepresent the decode contract (review r4)")
+    return pallas_topk
 
 
 def _graph_cache(graphs: GraphCache | None, device: torch.device):
@@ -228,7 +249,8 @@ def _beam_step(dec: Decoder, spec: _Spec, buf: dict) -> None:
 
     cand = (buf["scores"][..., None] + logits).masked_fill(
         ~buf["live"][..., None], neg_inf)
-    values, flat_idx = topk(cand.reshape(B, K * V), K)    # (B, K)
+    select = topk_library if spec.library_topk else topk
+    values, flat_idx = select(cand.reshape(B, K * V), K)  # (B, K)
     parent = flat_idx // V
     word = flat_idx % V
     valid = ranks[None, :] < live_count[:, None]
@@ -329,7 +351,8 @@ def beam_search_batched(dec: Decoder, features: torch.Tensor, beam_size: int,
                         bf16: bool = False, chunk: int | None = 128,
                         mesh_data: int = 1, backtrack: bool = True,
                         sync_every: int = SYNC_EVERY,
-                        graphs: GraphCache | None = None) -> BeamResult:
+                        graphs: GraphCache | None = None,
+                        pallas_topk: bool | None = None) -> BeamResult:
     """features (B, L, D) -> BeamResult with leading batch dim B.
 
     All B beams advance together over flat (B*K) decode rows with one
@@ -344,29 +367,28 @@ def beam_search_batched(dec: Decoder, features: torch.Tensor, beam_size: int,
     parent pointers and rebuilds the winning path once after the loop;
     False carries the whole token and alpha history per beam, reindexed by
     parent each step. Both give the same result. `sync_every` steps run
-    between two host reads of the exit test; `graphs` and `bf16` as in the
-    module note.
+    between two host reads of the exit test; `graphs`, `bf16`,
+    `fast_topk`, `pallas_topk` and `mesh_data` as in the module note.
     """
-    if fast_topk:
-        raise _not_ported("fast_topk (the approximate TPU top-k)")
-    if mesh_data > 1:
-        raise _not_ported("mesh serving (mesh_data > 1)")
+    kernel_topk = use_kernel_topk(fast_topk, pallas_topk)
     if sync_every < 1:
         raise ValueError(f"sync_every must be >= 1, got {sync_every}")
     cfg = dec.cfg
     B = features.shape[0]
+    chunk = chunk * max(mesh_data, 1) if chunk else None
     if chunk and B > chunk:
         parts = [beam_search_batched(dec, features[s:s + chunk], beam_size,
                                      max_steps, dedup, bf16=bf16, chunk=None,
                                      backtrack=backtrack,
-                                     sync_every=sync_every, graphs=graphs)
+                                     sync_every=sync_every, graphs=graphs,
+                                     pallas_topk=kernel_topk)
                  for s in range(0, B, chunk)]
         return BeamResult(*(torch.cat(f, dim=0) for f in zip(*parts)))
 
     B, L, D = features.shape
     spec = _Spec(B, beam_size, L, D, cfg.embedding_size,
                  cfg.effective_vocab_size, max_steps, dedup, backtrack,
-                 cfg.start_token, bf16)
+                 cfg.start_token, bf16, not kernel_topk)
     cache = _graph_cache(graphs, features.device)
     if cache is None:
         buf = _beam_buffers(spec, features.device, features)

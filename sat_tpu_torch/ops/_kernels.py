@@ -134,6 +134,17 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+_count_lock = threading.Lock()
+
+
+def count(wrapper, attr: str = "launches") -> None:
+    """Add one to a wrapper's launch count. Under a lock: a serving mesh
+    launches from one thread a replica, and `+=` on an attribute is a
+    read-modify-write."""
+    with _count_lock:
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+
+
 def check_launch(name: str, rc: int) -> None:
     """Raise when a C entry reports a CUDA error (cudaGetLastError after the
     launch): a refused launch never runs, and a later synchronize would not

@@ -165,9 +165,9 @@ def attention_fwd(keys, feats, u_h, v, b_v, rows_per_image: int = 1):
             B, R, L, E, D, torch.cuda.current_stream().cuda_stream)
     _kernels.check_launch("attention_fwd", rc)
     if bf16:
-        attention_fwd.launches_bf16 += 1
+        _kernels.count(attention_fwd, "launches_bf16")
     else:
-        attention_fwd.launches += 1
+        _kernels.count(attention_fwd)
     return ctx, alpha
 
 
@@ -257,9 +257,9 @@ def attention_bwd(keys, feats, u_h, v, alpha, dctx, dalpha,
             B, L, E, D, torch.cuda.current_stream().cuda_stream)
     _kernels.check_launch("attention_bwd", rc)
     if bf16:
-        attention_bwd.launches_bf16 += 1
+        _kernels.count(attention_bwd, "launches_bf16")
     else:
-        attention_bwd.launches += 1
+        _kernels.count(attention_bwd)
     return dkeys, dfeats, du_h, dv_part.sum(dim=0), dbv_part.sum().reshape(1)
 
 

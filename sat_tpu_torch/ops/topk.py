@@ -23,6 +23,14 @@ which must happen before a capture: utils/graphs.py's warm-up run makes it.
 `topk.launches` counts on the host, where the wrapper runs: a capture counts
 once and its replays never, so on a graph path count the kernel's rows in a
 profile instead.
+
+`topk_library` is the library route, the counterpart of sat_tpu's
+`lax.top_k` (its beam's `pallas_topk=False`, and `fast_topk`, whose
+`approx_max_k(aggregate_to_topk=True)` is exact off the TPU): a stable
+descending `torch.sort` cut to k, which keeps `lax.top_k`'s order (value
+descending, lower index first among equal values, NaN first). It is not a
+port of the kernel and launches none; a caller selects it by a flag, and
+nothing falls back to it.
 """
 
 from __future__ import annotations
@@ -30,6 +38,14 @@ from __future__ import annotations
 import torch
 
 from sat_tpu_torch.ops import _kernels
+
+
+def topk_library(x: torch.Tensor, k: int):
+    """(values (B, k) f32, indices (B, k) int64) of lax.top_k: a stable
+    descending sort of each row of x (B, N), cut to k. `torch.topk`
+    documents no order among equal values, so it is not used."""
+    values, indices = torch.sort(x, dim=1, descending=True, stable=True)
+    return values[:, :k].contiguous(), indices[:, :k].contiguous()
 
 
 def topk_plain(x: torch.Tensor, k: int):
@@ -91,7 +107,7 @@ def launch(x: torch.Tensor, k: int, cluster: int):
                               indices.data_ptr(), B, N, k, cluster,
                               torch.cuda.current_stream().cuda_stream)
     _kernels.check_launch("topk", rc)
-    topk.launches += 1
+    _kernels.count(topk)
     return values, indices
 
 

@@ -1,1 +1,1 @@
-"""The training and evaluation steps (one device)."""
+"""The training and evaluation steps, the process group and the mesh."""

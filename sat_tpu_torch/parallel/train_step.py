@@ -1,6 +1,6 @@
 """The training and evaluation steps.
 
-Port of sat_tpu/parallel/train_step.py for one device. A train step is the
+Port of sat_tpu/parallel/train_step.py. A train step is the
 frozen encoder's forward (or precomputed features), the decoder's unroll,
 the reference loss (packed cross-entropy + the doubly-stochastic
 regularizer, reference train.py:150-162), the backward pass and one Adam
@@ -42,17 +42,20 @@ import warnings
 from dataclasses import dataclass
 
 import torch
+import torch.distributed
 
 from sat_tpu_torch import constants
 from sat_tpu_torch.models.decoder import (Decoder, DecoderConfig,
                                           decoder_forward)
 from sat_tpu_torch.models.encoder import encoder_forward
+from sat_tpu_torch.parallel import distributed as dist
 from sat_tpu_torch.utils.graphs import GraphCache
 from sat_tpu_torch.utils.metrics import (attention_regularization,
                                          calculate_caption_lengths,
+                                         percent,
                                          reference_packed_cross_entropy,
                                          repetition_penalty,
-                                         sequence_accuracy)
+                                         sequence_accuracy, top_k_hits)
 
 
 @dataclass
@@ -116,20 +119,36 @@ def special_ids(use_bert: bool):
 
 def _loss_and_metrics(dcfg: DecoderConfig, alpha_c: float, decoder: Decoder,
                       features, captions, generator, train: bool,
-                      row_mask=None, rep_penalty_beta: float = 0.0):
+                      row_mask=None, rep_penalty_beta: float = 0.0,
+                      n_rows: int | None = None):
     """(loss, (metrics, preds, alphas)). `row_mask` (B,) bool excludes
-    batch-padding rows from the loss, gradients and every metric."""
+    batch-padding rows from the loss, gradients and every metric. With
+    `n_rows` (a data-parallel rank's slice) the loss is this rank's share
+    of the global batch's, and the metrics are the numerators that
+    `_reduce` sums over the ranks."""
     captions = captions.long()
     preds, alphas = decoder_forward(decoder, dcfg, features, captions,
                                     generator=generator, train=train)
     targets = captions[:, 1:]
-    loss = (reference_packed_cross_entropy(preds, targets, row_mask)
-            + attention_regularization(alphas, alpha_c, row_mask))
+    # a slice that is the whole global batch (one rank) takes the plain
+    # means, the same numbers, so that one rank computes a plain step's bits
+    share = (None if row_mask is None and n_rows == captions.shape[0]
+             else n_rows)
+    loss = (reference_packed_cross_entropy(preds, targets, row_mask, share)
+            + attention_regularization(alphas, alpha_c, row_mask, share))
     pad_id, skip_ids = special_ids(dcfg.use_bert)
     if rep_penalty_beta:
         loss = loss + repetition_penalty(preds, (pad_id, dcfg.start_token),
-                                         rep_penalty_beta, row_mask)
+                                         rep_penalty_beta, row_mask, share)
     with torch.no_grad():
+        if n_rows is not None:
+            hits1, tokens = top_k_hits(preds, targets, 1, pad_id, row_mask)
+            hits5, _ = top_k_hits(preds, targets, 5, pad_id, row_mask)
+            sums = torch.stack([
+                loss.detach(), hits1.float(), hits5.float(), tokens.float(),
+                calculate_caption_lengths(captions, skip_ids,
+                                          row_mask).float()])
+            return loss, ({"sums": sums}, preds, alphas)
         metrics = {
             "loss": loss.detach(),
             "acc1": sequence_accuracy(preds, targets, 1, ignore_index=pad_id,
@@ -150,16 +169,40 @@ def _finite(loss, decoder: Decoder):
             if p.requires_grad]).all()
 
 
-def _update(state: TrainState, loss) -> None:
-    """Backward and one Adam step at the optimizer's lr."""
+def _reduce(sums, grads=()) -> dict:
+    """One SUM all-reduce over the ranks of the gradients (in place) and
+    of a step's metric numerators (`_loss_and_metrics`' "sums"); returns
+    the global batch's metrics."""
+    grads = list(grads)
+    flat = torch.cat([g.reshape(-1) for g in grads] + [sums])
+    torch.distributed.all_reduce(flat)
+    at = 0
+    for g in grads:
+        g.copy_(flat[at:at + g.numel()].view_as(g))
+        at += g.numel()
+    loss, hits1, hits5, tokens, caption_length = flat[at:].unbind()
+    return {"loss": loss, "acc1": percent(hits1, tokens),
+            "acc5": percent(hits5, tokens),
+            "caption_length": caption_length.round().long()}
+
+
+def _update(state: TrainState, loss, sums=None):
+    """Backward and one Adam step at the optimizer's lr. Given a rank's
+    metric numerators `sums`, the gradients and the numerators are summed
+    over the ranks first, and the global metrics returned."""
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    metrics = None
+    if sums is not None:
+        metrics = _reduce(sums, [p.grad for p in state.decoder.parameters()
+                                 if p.grad is not None])
     with warnings.catch_warnings():
         # Per-batch steps run the capturable update uncaptured on purpose
         # (the same bits as a block's): torch warns once for that.
         warnings.filterwarnings("ignore", message=".*capturable=True")
         state.optimizer.step()
     state.step += 1
+    return metrics
 
 
 def _features(enc, network: str, imgs, from_features: bool, device,
@@ -183,96 +226,119 @@ def _device(state_or_decoder) -> torch.device:
     return next(dec.parameters()).device
 
 
+def _train_metrics(state, loss, metrics, distributed, debug_nans):
+    """Backward, the all-reduce when `distributed`, Adam; the step's
+    metrics."""
+    reduced = _update(state, loss, metrics["sums"] if distributed else None)
+    if distributed:
+        metrics = reduced
+    if debug_nans:
+        metrics["finite"] = _finite(loss, state.decoder)
+    return metrics
+
+
 def make_train_step(dcfg: DecoderConfig, network: str, alpha_c: float,
                     bf16_encoder: bool = False, from_features: bool = False,
-                    rep_penalty_beta: float = 0.0, debug_nans: bool = False):
-    """`step(state, encoder, imgs, captions, lr, generator, row_mask=None)
-    -> (state, metrics)`. With `from_features` the third argument is the
-    annotation grid (B, L, D) and the encoder is skipped; else the encoder
-    runs in bf16 under `bf16_encoder`."""
+                    rep_penalty_beta: float = 0.0, debug_nans: bool = False,
+                    distributed: bool = False):
+    """`step(state, encoder, imgs, captions, lr, generator, row_mask=None,
+    n_rows=None) -> (state, metrics)`. With `from_features` the third
+    argument is the annotation grid (B, L, D) and the encoder is skipped;
+    else the encoder runs in bf16 under `bf16_encoder`. `distributed`:
+    the rank's slice of a global batch of `n_rows` real rows (module
+    note)."""
 
     def step_fn(state: TrainState, encoder, imgs, captions, lr, generator,
-                row_mask=None):
+                row_mask=None, n_rows=None):
         dev = _device(state)
         features = _features(encoder, network, imgs, from_features, dev,
                              bf16_encoder)
         captions = torch.as_tensor(captions, device=dev)
         loss, (metrics, _, _) = _loss_and_metrics(
             dcfg, alpha_c, state.decoder, features, captions, generator, True,
-            row_mask, rep_penalty_beta)
+            row_mask, rep_penalty_beta, n_rows if distributed else None)
         set_lr(state.optimizer, lr)
-        _update(state, loss)
-        if debug_nans:
-            metrics["finite"] = _finite(loss, state.decoder)
-        return state, metrics
+        return state, _train_metrics(state, loss, metrics, distributed,
+                                     debug_nans)
 
     return step_fn
 
 
-def _bank_step(dcfg, alpha_c, rep_penalty_beta, debug_nans,
+def _bank_step(dcfg, alpha_c, rep_penalty_beta, debug_nans, distributed,
                state: TrainState, feat_bank, caps_bank, img_idx, row_idx,
-               generator, row_mask):
+               generator, row_mask, n_rows):
     """One bank train step at the optimizer's lr: its metrics."""
     loss, (metrics, _, _) = _loss_and_metrics(
         dcfg, alpha_c, state.decoder, bank_rows(feat_bank, img_idx),
-        caps_bank[row_idx], generator, True, row_mask, rep_penalty_beta)
-    _update(state, loss)
-    if debug_nans:
-        metrics["finite"] = _finite(loss, state.decoder)
-    return metrics
+        caps_bank[row_idx], generator, True, row_mask, rep_penalty_beta,
+        n_rows if distributed else None)
+    return _train_metrics(state, loss, metrics, distributed, debug_nans)
 
 
 def make_bank_train_step(dcfg: DecoderConfig, alpha_c: float,
                          rep_penalty_beta: float = 0.0,
-                         debug_nans: bool = False):
+                         debug_nans: bool = False,
+                         distributed: bool = False):
     """Feature-bank step: the frozen encoder's grids of every unique image
     live in device memory, f32 or bf16, and a step gathers its rows by
     index.
     `step(state, feat_bank (U, L, D), caps_bank (N, T), img_idx (B,),
-    row_idx (B,), lr, generator, row_mask=None) -> (state, metrics)`."""
+    row_idx (B,), lr, generator, row_mask=None, n_rows=None) -> (state,
+    metrics)`."""
 
     def step_fn(state: TrainState, feat_bank, caps_bank, img_idx, row_idx,
-                lr, generator, row_mask=None):
+                lr, generator, row_mask=None, n_rows=None):
         set_lr(state.optimizer, lr)
         return state, _bank_step(dcfg, alpha_c, rep_penalty_beta, debug_nans,
-                                 state, feat_bank, caps_bank, img_idx,
-                                 row_idx, generator, row_mask)
+                                 distributed, state, feat_bank, caps_bank,
+                                 img_idx, row_idx, generator, row_mask,
+                                 n_rows)
 
     return step_fn
 
 
-def _eval(dcfg, alpha_c, decoder, features, captions, row_mask):
+def _eval(dcfg, alpha_c, decoder, features, captions, row_mask,
+          n_rows=None):
+    """(metrics, argmax tokens, alphas); with `n_rows`, the metrics of the
+    global batch, summed over the ranks."""
     with torch.no_grad():
         _, (metrics, preds, alphas) = _loss_and_metrics(
             dcfg, alpha_c, decoder, features, captions, None, False,
-            row_mask)
+            row_mask, n_rows=n_rows)
+        if n_rows is not None:
+            metrics = _reduce(metrics["sums"])
         return metrics, preds.argmax(dim=2).int(), alphas
 
 
-def make_bank_eval_step(dcfg: DecoderConfig, alpha_c: float):
-    """`eval(decoder, feat_bank, caps_bank, img_idx, row_idx, row_mask=None)
-    -> (metrics, pred_tokens (B, T), alphas (B, T, L))`."""
+def make_bank_eval_step(dcfg: DecoderConfig, alpha_c: float,
+                        distributed: bool = False):
+    """`eval(decoder, feat_bank, caps_bank, img_idx, row_idx, row_mask=None,
+    n_rows=None) -> (metrics, pred_tokens (B, T), alphas (B, T, L))`."""
 
     def eval_fn(decoder, feat_bank, caps_bank, img_idx, row_idx,
-                row_mask=None):
+                row_mask=None, n_rows=None):
         return _eval(dcfg, alpha_c, decoder, bank_rows(feat_bank, img_idx),
-                     caps_bank[row_idx], row_mask)
+                     caps_bank[row_idx], row_mask,
+                     n_rows if distributed else None)
 
     return eval_fn
 
 
 def make_eval_step(dcfg: DecoderConfig, network: str, alpha_c: float,
-                   bf16_encoder: bool = False, from_features: bool = False):
-    """`eval(decoder, encoder, imgs, captions, row_mask=None) -> (metrics,
-    pred_tokens (B, T), alphas (B, T, L))`; `bf16_encoder` and
-    `from_features` as in make_train_step."""
+                   bf16_encoder: bool = False, from_features: bool = False,
+                   distributed: bool = False):
+    """`eval(decoder, encoder, imgs, captions, row_mask=None, n_rows=None)
+    -> (metrics, pred_tokens (B, T), alphas (B, T, L))`; `bf16_encoder`,
+    `from_features` and `distributed` as in make_train_step."""
 
-    def eval_fn(decoder, encoder, imgs, captions, row_mask=None):
+    def eval_fn(decoder, encoder, imgs, captions, row_mask=None,
+                n_rows=None):
         dev = _device(decoder)
         features = _features(encoder, network, imgs, from_features, dev,
                              bf16_encoder)
         return _eval(dcfg, alpha_c, decoder, features,
-                     torch.as_tensor(captions, device=dev), row_mask)
+                     torch.as_tensor(captions, device=dev), row_mask,
+                     n_rows if distributed else None)
 
     return eval_fn
 
@@ -320,40 +386,51 @@ def _write_out(buf, **values) -> None:
         buf["out"][k].copy_(v)
 
 
+def _eager_block(feat_bank, distributed: bool) -> bool:
+    """Whether a block runs its K steps eagerly: on the CPU, and under a
+    process group whose collectives a graph cannot hold (gloo)."""
+    return feat_bank.device.type != "cuda" or (distributed
+                                               and not dist.capturable())
+
+
 def make_bank_train_block(dcfg: DecoderConfig, alpha_c: float,
                           rep_penalty_beta: float = 0.0,
-                          debug_nans: bool = False):
+                          debug_nans: bool = False,
+                          distributed: bool = False):
     """K optimizer steps in one dispatch, the port of sat_tpu's `lax.scan`
     block: `block(state, feat_bank (U, L, D), caps_bank (N, T), img_idx
-    (K, B), row_idx (K, B), lr, generator, row_mask (K, B) or None) ->
-    (state, metrics)`, each metric stacked to (K,) and left on the device,
-    so the host reads them once a block.
+    (K, B), row_idx (K, B), lr, generator, row_mask (K, B) or None,
+    n_rows=None) -> (state, metrics)`, each metric stacked to (K,) and
+    left on the device, so the host reads them once a block.
 
     On the card one train step is captured per (B, T, decoder config,
-    mask) shape, and the block replays it K times. Before each replay the
-    step's index (and mask) slots are refreshed from the block's one upload
-    by device-to-device copies; after it, its metrics are copied into row i
-    of the stacked outputs. The first run of a new shape is the capture's
-    eager warm-up. The lr is the optimizer's device tensor, filled once a
-    block; the dropout generator is registered with the graph, so replay i
-    draws the masks that the i-th per-batch step would, and leaves the
-    generator where K per-batch steps leave it. On the CPU the block is K
-    per-batch steps. Either way the block computes what K consecutive
-    `make_bank_train_step` calls do, bit for bit. `block.graphs` is its
-    GraphCache."""
+    mask, n_rows) shape, and the block replays it K times. Before each
+    replay the step's index (and mask) slots are refreshed from the block's
+    one upload by device-to-device copies; after it, its metrics are copied
+    into row i of the stacked outputs. The first run of a new shape is the
+    capture's eager warm-up. The lr is the optimizer's device tensor,
+    filled once a block; the dropout generator is registered with the
+    graph, so replay i draws the masks that the i-th per-batch step would,
+    and leaves the generator where K per-batch steps leave it. Under
+    `distributed` the captured step holds the all-reduce (NCCL); under
+    gloo, and on the CPU, the block is K per-batch steps. Either way the
+    block computes what K consecutive `make_bank_train_step` calls do, bit
+    for bit. `block.graphs` is its GraphCache, `block.captured` whether
+    its last call replayed a graph."""
     cache = GraphCache()
 
     def block_fn(state: TrainState, feat_bank, caps_bank, img_idx, row_idx,
-                 lr, generator, row_mask=None):
+                 lr, generator, row_mask=None, n_rows=None):
         K = img_idx.shape[0]
         set_lr(state.optimizer, lr)
 
         def step(ii, ri, mask):
             return _bank_step(dcfg, alpha_c, rep_penalty_beta, debug_nans,
-                              state, feat_bank, caps_bank, ii, ri, generator,
-                              mask)
+                              distributed, state, feat_bank, caps_bank, ii,
+                              ri, generator, mask, n_rows)
 
-        if feat_bank.device.type != "cuda":
+        block_fn.captured = not _eager_block(feat_bank, distributed)
+        if not block_fn.captured:
             runs = [step(img_idx[i], row_idx[i],
                          None if row_mask is None else row_mask[i])
                     for i in range(K)]
@@ -363,7 +440,7 @@ def make_bank_train_block(dcfg: DecoderConfig, alpha_c: float,
         gens = () if generator is None else (generator,)
         slot = cache.slot(
             ("train", img_idx.shape[1], caps_bank.shape[1], dcfg,
-             row_mask is None),
+             row_mask is None, n_rows),
             (state.decoder, state.optimizer, feat_bank, caps_bank) + gens,
             lambda: _index_slots(feat_bank, img_idx, row_idx, row_mask))
 
@@ -376,30 +453,34 @@ def make_bank_train_block(dcfg: DecoderConfig, alpha_c: float,
         return state, metrics
 
     block_fn.graphs = cache
+    block_fn.captured = False
     return block_fn
 
 
-def make_bank_eval_block(dcfg: DecoderConfig, alpha_c: float):
+def make_bank_eval_block(dcfg: DecoderConfig, alpha_c: float,
+                         distributed: bool = False):
     """K eval batches in one dispatch: `block(decoder, feat_bank, caps_bank,
-    img_idx (K, B), row_idx (K, B), row_mask (K, B) or None) -> (metrics,
-    tokens (K, B, T-1))`, each metric stacked to (K,), all on the device.
-    No alphas: the blocked path serves VALIDATION, where nothing reads
-    them. On the card one eval step is captured per (B, T, mask) shape and
-    replayed K times, as in `make_bank_train_block`; on the CPU the block is
-    K eval steps."""
+    img_idx (K, B), row_idx (K, B), row_mask (K, B) or None, n_rows=None)
+    -> (metrics, tokens (K, B, T-1))`, each metric stacked to (K,), all on
+    the device. No alphas: the blocked path serves VALIDATION, where
+    nothing reads them. On the card one eval step is captured per (B, T,
+    mask, n_rows) shape and replayed K times, as in
+    `make_bank_train_block`; on the CPU, and under gloo, the block is K
+    eval steps."""
     cache = GraphCache()
 
     def block_fn(decoder, feat_bank, caps_bank, img_idx, row_idx,
-                 row_mask=None):
+                 row_mask=None, n_rows=None):
         K = img_idx.shape[0]
+        n = n_rows if distributed else None
 
         def step(ii, ri, mask):
             metrics, tokens, _ = _eval(dcfg, alpha_c, decoder,
                                        bank_rows(feat_bank, ii),
-                                       caps_bank[ri], mask)
+                                       caps_bank[ri], mask, n)
             return metrics, tokens
 
-        if feat_bank.device.type != "cuda":
+        if _eager_block(feat_bank, distributed):
             runs = [step(img_idx[i], row_idx[i],
                          None if row_mask is None else row_mask[i])
                     for i in range(K)]
@@ -409,7 +490,7 @@ def make_bank_eval_block(dcfg: DecoderConfig, alpha_c: float):
 
         slot = cache.slot(
             ("eval", img_idx.shape[1], caps_bank.shape[1], dcfg,
-             row_mask is None),
+             row_mask is None, n),
             (decoder, feat_bank, caps_bank),
             lambda: _index_slots(feat_bank, img_idx, row_idx, row_mask))
 

@@ -30,9 +30,12 @@ from a generator seeded from (--seed, i), so a restarted server replays
 the same captions for the same request order; without --seed a
 process-unique value takes its place. The card's and the CPU's generators
 give different draws from one seed. --bf16-decode runs the encoder in
-bf16 and the beam on a bf16 grid (engine/serving.py). Flags for what the
-port does not have yet (--fast-topk, --mesh-data other than 1,
---no-pallas-topk) raise at startup.
+bf16 and the beam on a bf16 grid (engine/serving.py). --no-pallas-topk and
+--fast-topk take the beam's library top-k route (models/beam.py).
+--mesh-data N (0: every card) serves each batch over N cards, one replica
+of the weights a card (engine/serving.py), the buckets padded to a
+multiple of N; more cards than are visible is refused at start-up (with
+--device cpu the N replicas share the host).
 
 Shutdown: SIGTERM/SIGINT, or a client line {"cmd": "shutdown"}.
 """
@@ -72,7 +75,7 @@ class CaptionServer:
                  max_batch: int = 32, batch_window_ms: float = 5.0,
                  host: str = "127.0.0.1", port: int = 0,
                  request_ttl_s: float = 60.0, image_pool=None,
-                 overlap: bool = True):
+                 overlap: bool = True, bucket_quantum: int = 1):
         self._caption_fn = caption_fn     # (B,S,S,3) f32 -> dict of tensors
         self._image_size = image_size
         # Pre-decoded (N, S, S, 3) f32 rows for `{"cached": idx}` requests;
@@ -82,6 +85,8 @@ class CaptionServer:
         self._overlap = overlap
         self._decode_tokens = decode_tokens   # token row -> list of words
         self._max_batch = max(1, max_batch)
+        # a mesh's card count: every bucket divides over the mesh
+        self._bucket_quantum = max(1, bucket_quantum)
         self._window_s = batch_window_ms / 1e3
         self._ttl_s = request_ttl_s
         self._host, self._port = host, port
@@ -287,13 +292,16 @@ class CaptionServer:
         return batch
 
     def _bucket(self, n: int) -> int:
-        """Smallest power of two >= n, capped at --max-batch (serve.py's
-        bucket at a quantum of 1): it bounds the batch shapes the step
-        captures."""
-        b = 1
+        """Smallest quantum * power of two >= n, capped at --max-batch
+        (serve.py's bucket): it bounds the batch shapes the step captures,
+        and the quantum (the mesh's card count, else 1) keeps every bucket,
+        the cap included, divisible over the mesh."""
+        q = self._bucket_quantum
+        b = q
         while b < n:
             b *= 2
-        return min(b, max(self._max_batch, n))
+        cap = ((self._max_batch + q - 1) // q) * q
+        return min(b, max(cap, ((n + q - 1) // q) * q))
 
     def _load_images(self, batch):
         """Every request's image; returns (imgs, live) with load failures
@@ -487,21 +495,27 @@ def load_image_pool(preload: str, image_size: int, count: int) -> np.ndarray:
     return np.stack(rows).astype(np.float32)
 
 
+def host_mesh(device, mesh_data: int):
+    """The devices a `--device cpu` mesh may use: as many replicas on the
+    host as asked for (None on the card: the visible cards)."""
+    if resolve_device(device).type == "cpu":
+        return ["cpu"] * max(mesh_data, 1)
+    return None
+
+
 def build_server(args) -> CaptionServer:
     from sat_tpu_torch.engine.evaluate import caption_decoder
     from sat_tpu_torch.engine.serving import build_caption_step
     from sat_tpu_torch.models.beam import batch_generator
 
-    if getattr(args, "pallas_topk", None) is False:
-        raise NotImplementedError(
-            "--no-pallas-topk (sat_tpu's lax.top_k A/B arm) has no "
-            "counterpart: the port's beam always uses its exact top-k")
     use_f32_math()
     mesh_data = getattr(args, "mesh_data", 1)
+    mesh = None
     if mesh_data != 1:
-        raise NotImplementedError(
-            "--mesh-data is not ported yet (ROADMAP.md, Queue 1: mesh "
-            "serving)")
+        # refuse more cards than are visible before loading anything
+        from sat_tpu_torch.parallel.mesh import make_mesh
+        mesh = make_mesh(mesh_data, devices=host_mesh(args.device,
+                                                      mesh_data))
     cfg, dcfg, encoder, decoder, vocab = load_model(
         args.model, args.model_config, encoder_weights=args.encoder_weights,
         device=args.device, bert_vocab=args.bert_vocab)
@@ -510,7 +524,10 @@ def build_server(args) -> CaptionServer:
                               fast_topk=args.fast_topk, bf16=args.bf16_decode,
                               decode=decode_mode, device=args.device,
                               temperature=args.temperature, top_k=args.top_k,
-                              top_p=args.top_p)
+                              top_p=args.top_p,
+                              pallas_topk=getattr(args, "pallas_topk", None),
+                              mesh_data=len(mesh) if mesh else 1,
+                              devices=mesh)
     words = caption_decoder(vocab)
 
     if decode_mode == "sample":
@@ -550,7 +567,8 @@ def build_server(args) -> CaptionServer:
                          batch_window_ms=args.batch_window_ms,
                          host=args.host, port=args.port,
                          request_ttl_s=args.request_ttl_s,
-                         image_pool=image_pool, overlap=args.overlap)
+                         image_pool=image_pool, overlap=args.overlap,
+                         bucket_quantum=len(mesh) if mesh else 1)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -576,8 +594,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--fast-topk", action="store_true", default=False)
     parser.add_argument("--pallas-topk", action=argparse.BooleanOptionalAction,
                         default=None,
-                        help="accepted for serve.py's flag set: the beam "
-                             "always runs the exact top-k kernel")
+                        help="the beam's top-k: the kernel (default unless "
+                             "--fast-topk); --no-pallas-topk forces the "
+                             "library route (a stable sort: lax.top_k's "
+                             "order)")
     parser.add_argument("--bf16-decode", action="store_true", default=False)
     parser.add_argument("--bert-vocab", type=str, default=None,
                         help="local bert-base-uncased vocab.txt (a BERT "
@@ -586,7 +606,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--port", type=int, default=8765)
     parser.add_argument("--max-batch", type=int, default=32)
     parser.add_argument("--batch-window-ms", type=float, default=5.0)
-    parser.add_argument("--mesh-data", type=int, default=1)
+    parser.add_argument("--mesh-data", type=int, default=1,
+                        help="data-parallel serving over N cards, one "
+                             "replica each (0 = every visible card)")
     parser.add_argument("--request-ttl-s", type=float, default=60.0,
                         help="drop queued requests older than this; 0 "
                              "disables")

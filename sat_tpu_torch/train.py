@@ -6,7 +6,15 @@ The flags are train.py's (the reference's argparse surface plus sat_tpu's
 extensions); `--device` picks the card (cuda, the default) or the CPU,
 where every kernel runs its plain PyTorch form. The run computes in float32
 (`device.use_f32_math`: no TF32). A flag whose path is not
-ported yet raises NotImplementedError naming its ROADMAP.md item. `main`
+ported yet raises NotImplementedError naming its ROADMAP.md item.
+
+Data parallel, one rank per card (engine/loop.py):
+
+    torchrun --nproc_per_node N -m sat_tpu_torch.train --mesh-data N ...
+
+trains on the global batches that sat_tpu's one process forms with
+`--mesh-data N` and the same `--batch-size`; NCCL carries the gradients
+between cards, gloo between CPU ranks (`--device cpu`). `main`
 returns what `Trainer.fit` does: the last evaluation's metrics, or
 `{"preempted": True, "epoch": e}` after a SIGTERM or SIGUSR1 (rerun with
 --resume to continue).
@@ -21,7 +29,8 @@ import torch
 
 from sat_tpu_torch.config import (build_arg_parser, config_from_args,
                                   unported_options)
-from sat_tpu_torch.device import resolve_device, use_f32_math
+from sat_tpu_torch.device import use_f32_math
+from sat_tpu_torch.parallel import distributed as dist
 
 
 def set_seed(seed: int) -> None:
@@ -40,11 +49,14 @@ def main(argv=None) -> dict:
         raise NotImplementedError(
             "not ported yet (ROADMAP.md, Queue 1): " + ", ".join(
                 f"{flag} ({item})" for flag, item in unported))
-    device = resolve_device(args.device)
+    device = dist.initialize(args.device)
     use_f32_math()
     set_seed(cfg.seed)
     from sat_tpu_torch.engine.loop import run_training
-    return run_training(cfg, device=device)
+    try:
+        return run_training(cfg, device=device)
+    finally:
+        dist.shutdown()
 
 
 if __name__ == "__main__":

@@ -25,7 +25,11 @@ copies what it keeps out of them after.
     collection could destroy some other, dead graph there
     (cudaGraphExecDestroy), which a capturing stream forbids, and the
     capture would fail (seen on the H100 with graphs that died in a
-    reference cycle). PyTorch no longer collects before a capture itself.
+    reference cycle). PyTorch no longer collects before a capture itself;
+  - a serving mesh runs one thread a replica (engine/serving.py), so
+    captures take a process-wide lock, one at a time, and forbid unsafe
+    CUDA calls in the capturing thread only ("thread_local"): another
+    replica's thread may allocate, copy or wait meanwhile.
 
 A capture or a replay that fails raises; nothing falls back to eager. A
 caller that wants the eager path asks for it: it passes no GraphCache to
@@ -35,6 +39,7 @@ the beam, or `graphs=False` to the caption step.
 from __future__ import annotations
 
 import gc
+import threading
 import time
 from typing import Callable
 
@@ -44,24 +49,28 @@ import torch
 def capture(fn: Callable, buffers, generators=()) -> torch.cuda.CUDAGraph:
     """Run `fn(buffers)` once eagerly on a side stream (the warm-up), then
     capture `fn(buffers)` into a new CUDA graph, drawing from `generators`."""
-    current = torch.cuda.current_stream()
-    side = torch.cuda.Stream()
-    side.wait_stream(current)
-    with torch.cuda.stream(side):
-        fn(buffers)
-    current.wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    for gen in generators:
-        graph.register_generator_state(gen)
-    collecting = gc.isenabled()
-    gc.disable()
-    try:
-        with torch.cuda.graph(graph):
+    with _capturing:
+        current = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
             fn(buffers)
-    finally:
-        if collecting:
-            gc.enable()
+        current.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        for gen in generators:
+            graph.register_generator_state(gen)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                fn(buffers)
+        finally:
+            if collecting:
+                gc.enable()
     return graph
+
+
+_capturing = threading.Lock()   # one capture at a time in the process
 
 
 class Slot:

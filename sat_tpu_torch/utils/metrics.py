@@ -12,6 +12,12 @@ rows are real. Top-k membership follows `lax.top_k`'s order (value
 descending, lower index first among equal values), so that ties, which the
 ado head's ReLU'd logits have in plenty, count as they do in sat_tpu:
 the target is in the top k when fewer than k entries come before it.
+
+`n_rows` is for data-parallel training (parallel/train_step.py): the real
+rows of the whole global batch, of which this rank holds some. A loss term
+given it divides its masked sum by the global count instead of its own, so
+that the ranks' terms sum to the global batch's mean; `top_k_hits` gives an
+accuracy's numerator and denominator apart, for the same reason.
 """
 
 from __future__ import annotations
@@ -38,20 +44,31 @@ def legacy_accuracy(preds: torch.Tensor, targets: torch.Tensor,
     return _in_top_k(preds, targets, k).sum() * (100.0 / targets.shape[0])
 
 
+def top_k_hits(preds: torch.Tensor, targets: torch.Tensor, k: int,
+               ignore_index: int = 0, row_mask: torch.Tensor | None = None):
+    """(hits, total): the non-padding positions whose target is among the
+    top k of preds (B, T, V), and the non-padding positions, of targets
+    (B, T)."""
+    correct = _in_top_k(preds, targets, k)
+    mask = targets != ignore_index
+    if row_mask is not None:
+        mask = mask & row_mask[:, None]
+    return (correct & mask).sum(), mask.sum()
+
+
+def percent(hits: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
+    """hits as a percentage of total; 0.0 when total is 0."""
+    return torch.where(total > 0, hits * 100.0 / total.clamp(min=1),
+                       torch.zeros((), device=hits.device))
+
+
 def sequence_accuracy(preds: torch.Tensor, targets: torch.Tensor, k: int,
                       ignore_index: int = 0,
                       row_mask: torch.Tensor | None = None) -> torch.Tensor:
     """Top-k token accuracy over non-padding positions, as a percentage.
     preds (B, T, V) logits, targets (B, T) ids; 0.0 when every position is
     padding."""
-    correct = _in_top_k(preds, targets, k)
-    mask = targets != ignore_index
-    if row_mask is not None:
-        mask = mask & row_mask[:, None]
-    total = mask.sum()
-    hits = (correct & mask).sum()
-    return torch.where(total > 0, hits * 100.0 / total.clamp(min=1),
-                       torch.zeros((), device=preds.device))
+    return percent(*top_k_hits(preds, targets, k, ignore_index, row_mask))
 
 
 def calculate_caption_lengths(captions: torch.Tensor, skip_ids,
@@ -69,13 +86,18 @@ def calculate_caption_lengths(captions: torch.Tensor, skip_ids,
 
 
 def reference_packed_cross_entropy(preds: torch.Tensor, targets: torch.Tensor,
-                                   row_mask: torch.Tensor | None = None):
+                                   row_mask: torch.Tensor | None = None,
+                                   n_rows: int | None = None):
     """Mean cross-entropy over the first T-1 timesteps of every row (the
     reference packs each row with length `len(row) - 1`)."""
     t_keep = preds.shape[1] - 1
     logits = preds[:, :t_keep].reshape(-1, preds.shape[-1])
     labels = targets[:, :t_keep].reshape(-1).long()
     nll = -F.log_softmax(logits, dim=-1).gather(1, labels[:, None])[:, 0]
+    if n_rows is not None:
+        w = (torch.ones_like(nll) if row_mask is None
+             else row_mask.to(nll.dtype).repeat_interleave(t_keep))
+        return (nll * w).sum() / float(max(n_rows * t_keep, 1))
     if row_mask is None:
         return nll.mean()
     w = row_mask.to(nll.dtype).repeat_interleave(t_keep)
@@ -83,10 +105,15 @@ def reference_packed_cross_entropy(preds: torch.Tensor, targets: torch.Tensor,
 
 
 def attention_regularization(alphas: torch.Tensor, alpha_c: float,
-                             row_mask: torch.Tensor | None = None):
+                             row_mask: torch.Tensor | None = None,
+                             n_rows: int | None = None):
     """Doubly-stochastic attention penalty (reference train.py:154);
     alphas (B, T, L)."""
     sq = (1.0 - alphas.sum(dim=1)) ** 2                   # (B, L)
+    if n_rows is not None:
+        if row_mask is not None:
+            sq = sq * row_mask.to(sq.dtype)[:, None]
+        return alpha_c * sq.sum() / float(max(n_rows * sq.shape[1], 1))
     if row_mask is None:
         return alpha_c * sq.mean()
     w = row_mask.to(sq.dtype)[:, None]
@@ -94,7 +121,8 @@ def attention_regularization(alphas: torch.Tensor, alpha_c: float,
 
 
 def repetition_penalty(preds: torch.Tensor, ignore_ids, beta: float = 1.0,
-                       row_mask: torch.Tensor | None = None):
+                       row_mask: torch.Tensor | None = None,
+                       n_rows: int | None = None):
     """Penalty on consecutive repeated argmax tokens (reference
     train.py:357-384), off unless Config.rep_penalty_beta is set."""
     pred_tokens = preds.argmax(dim=2)                              # (B, T)
@@ -104,6 +132,10 @@ def repetition_penalty(preds: torch.Tensor, ignore_ids, beta: float = 1.0,
     for idx in ignore_ids:
         mask &= shifted != idx
     masked = repetitions[:, 1:] * mask[:, 1:].float()
+    if n_rows is not None:
+        if row_mask is not None:
+            masked = masked * row_mask.float()[:, None]
+        return (masked.sum() / float(max(n_rows, 1))) * beta
     if row_mask is None:
         return (masked.sum() / pred_tokens.shape[0]) * beta
     w = row_mask.float()

@@ -112,8 +112,18 @@ def test_greedy_matches_sat_tpu(seed):
 
 @pytest.mark.parametrize("option", ["fast_topk", "mesh_data"])
 def test_unported_options_raise(option):
-    _, _, dec = decoder_pair(V, D, True, True)
-    kwargs = {"fast_topk": True, "mesh_data": 2}
-    with pytest.raises(NotImplementedError):
-        port_beam(dec, torch.zeros(1, L, D), 3,
-                  **{option: kwargs[option]})
+    """The two options that once raised: fast_topk takes the library
+    top-k route (exact, as sat_tpu's approx_max_k is off the TPU), and
+    mesh_data=2 chunks at `chunk` images a card. Each gives sat_tpu's
+    beam with the same option, and the tokens of the default beam."""
+    jcfg, params, dec = decoder_pair(V, D, True, True, seed=4)
+    feats = features(44, (5, L, D))
+    kwargs = {option: {"fast_topk": True, "mesh_data": 2}[option]}
+    ref = beam_search_batched(params, jcfg, jnp.asarray(feats), 3,
+                              max_steps=MAX_STEPS, chunk=2, **kwargs)
+    got = port_beam(dec, torch.from_numpy(feats), 3, max_steps=MAX_STEPS,
+                    chunk=2, **kwargs)
+    _compare(ref, got)
+    plain = port_beam(dec, torch.from_numpy(feats), 3, max_steps=MAX_STEPS,
+                      chunk=2)
+    np.testing.assert_array_equal(to_np(got.tokens), to_np(plain.tokens))

@@ -266,11 +266,15 @@ def test_caption_split_sample_is_seeded(model_dir, tmp_path, capsys):
 @pytest.mark.parametrize("flag", [["--fast-topk"], ["--no-pallas-topk"],
                                   ["--mesh-data", "2"],
                                   ["--bert-vocab", "v.txt"]])
-def test_caption_split_unported_flags_raise(model_dir, flag, tmp_path):
-    """The options still unported raise NotImplementedError. --bert-vocab
-    is ported: with a BERT model's config it reaches the BERT path, which
-    reads the vocabulary it names, here a file that is not there
-    (tests/test_torch_bert.py runs caption_split on a BERT model)."""
+def test_caption_split_unported_flags_raise(model_dir, flag, tmp_path,
+                                            capsys):
+    """The flags that once raised are ported: --fast-topk and
+    --no-pallas-topk take the beam's library top-k route, and --mesh-data
+    2 decodes each batch over two replicas (on the host with --device
+    cpu), the odd batches padded; each writes the default run's JSONL, line
+    for line. --bert-vocab: with a BERT model's config the run reaches the
+    BERT path, which reads the vocabulary it names, here a file that is not
+    there (tests/test_torch_bert.py runs caption_split on a BERT model)."""
     from sat_tpu_torch.caption_split import main
     argv = ["--model", model_dir["model"], "--device", "cpu", *flag]
     if flag[0] == "--bert-vocab":
@@ -281,8 +285,16 @@ def test_caption_split_unported_flags_raise(model_dir, flag, tmp_path):
         with pytest.raises(FileNotFoundError, match=flag[1]):
             main(argv + ["--model-config", str(bert_config)])
         return
-    with pytest.raises(NotImplementedError):
-        main(argv)
+    files = []
+    for extra in ([], flag):
+        out = str(tmp_path / f"caps{len(extra)}.jsonl")
+        main(argv[:4] + ["--encoder-weights", model_dir["encoder"],
+                         "--split", "test", "--beam-size", "3",
+                         "--batch-size", "3", "--out", out, *extra])
+        with open(out) as f:
+            files.append(f.read())
+    capsys.readouterr()
+    assert files[0].count("\n") == 6 and files[1] == files[0]
 
 
 def test_generate_caption_cli_writes_its_figure(model_dir, tmp_path, capsys):

@@ -961,3 +961,66 @@ def test_bert_bank_train_step_on_the_card_matches_the_cpu(cuda):
     for name, want in out["cpu"][1].items():
         bound = 2.05e-3 if name == "attention/v/b" else 3e-4
         assert np.abs(out["cuda"][1][name] - want).max() <= bound, name
+
+
+@pytest.mark.parametrize("B,N,k", [(128, TOPK_N, 5), (7, 2633, 10),
+                                   (128, 5 * 30522, 5)])
+def test_library_route_equals_the_kernel(cuda, B, N, k):
+    """The stable-sort route (`pallas_topk=False`, `fast_topk`) gives the
+    kernel's values and indices on the card, ties and -inf rows included
+    (NaN aside: the sort ranks it first, as lax.top_k does, the kernel as
+    -inf)."""
+    from sat_tpu_torch.ops.topk import topk_library
+    x = _rows(B + 1, B, N)
+    x[x.isnan()] = 0.5
+    x = x.to(cuda)
+    values, indices = topk_library(x, k)
+    kv, ki = topk(x, k)
+    assert torch.equal(indices, ki)
+    assert _same_bits(values, kv)
+
+
+@pytest.mark.parametrize("route", [{"pallas_topk": False},
+                                   {"fast_topk": True}])
+def test_graph_beam_library_route_equals_the_kernel(cuda, route):
+    from sat_tpu_torch.models.beam import beam_search_batched
+    from sat_tpu_torch.utils.graphs import GraphCache
+
+    dec = _small_decoder(cuda)
+    feats = torch.rand((16, 49, 64),
+                       generator=torch.Generator().manual_seed(3)).to(cuda)
+    cache = GraphCache()
+    kernel = beam_search_batched(dec, feats, 5, graphs=cache)
+    library = beam_search_batched(dec, feats, 5, graphs=cache, **route)
+    for name, a, b in zip(kernel._fields, kernel, library):
+        assert _same_bits(a, b), name
+
+
+def test_two_replicas_on_one_card_give_one_cards_tokens(cuda):
+    """build_caption_step over two replicas on the one card, at an odd
+    batch, through their graphs: the one-card step's tokens, lengths and
+    found flags; scores within 1e-4 (a replica's products run at half the
+    rows, which may take another cuBLAS algorithm)."""
+    from sat_tpu_torch.compat.jax_params import (decoder_from_jax,
+                                                 encoder_from_jax)
+    from sat_tpu_torch.engine.serving import build_caption_step
+    from sat_tpu_torch.models.decoder import DecoderConfig, init_decoder_params
+    from sat_tpu_torch.models.encoder import init_encoder_params
+
+    gen = torch.Generator().manual_seed(1)
+    cfg = DecoderConfig(vocab_size=300, encoder_dim=512, use_ado=True,
+                        use_attention=True)
+    dec = decoder_from_jax(init_decoder_params(cfg, gen), cfg, cuda)
+    enc = encoder_from_jax(init_encoder_params("vgg19", gen), "vgg19", cuda)
+    images = torch.randn((7, 64, 64, 3), generator=gen)
+    one = build_caption_step("vgg19", cfg, 5)
+    two = build_caption_step("vgg19", cfg, 5, mesh_data=2,
+                             devices=[cuda, cuda])
+    want = one(enc, dec, images)
+    for _ in range(2):              # captured, then replayed
+        got = two(enc, dec, images)
+        for k in ("tokens", "length", "found"):
+            assert torch.equal(got[k], want[k]), k
+        torch.testing.assert_close(got["score"], want["score"], rtol=0,
+                                   atol=1e-4)
+    assert all(c.captures >= 3 for c in two.graphs)

@@ -34,6 +34,8 @@ import sat_tpu_torch.evaluate  # noqa: F401
 import sat_tpu_torch.generate_caption  # noqa: F401
 import sat_tpu_torch.generate_json_data  # noqa: F401
 import sat_tpu_torch.generate_json_data_bert  # noqa: F401
+import sat_tpu_torch.parallel.distributed  # noqa: F401
+import sat_tpu_torch.parallel.mesh  # noqa: F401
 import sat_tpu_torch.serve  # noqa: F401
 import sat_tpu_torch.train_models  # noqa: F401
 import sat_tpu_torch.utils.tables  # noqa: F401
@@ -63,6 +65,10 @@ if native.available():
         assert np.array_equal(native_img, native.load_image(png, 32))
 out = build_caption_step("vgg19", dcfg, 3, device="cpu")(enc, dec, images)
 assert out["tokens"].shape == (2, 52), out["tokens"].shape
+mesh = build_caption_step("vgg19", dcfg, 3, device="cpu", mesh_data=2,
+                          devices=["cpu", "cpu"], pallas_topk=False)(
+    enc, dec, images[:1])
+assert mesh["tokens"].shape == (1, 52), mesh["tokens"].shape
 out = build_caption_step("vgg19", dcfg, 3, decode="sample", top_k=5,
                          device="cpu")(enc, dec, images,
                                        torch.Generator().manual_seed(0))

@@ -172,13 +172,26 @@ def test_bad_cached_request_is_answered_alone(pool, cached):
 @pytest.mark.parametrize("flag", [["--mesh-data", "0"], ["--fast-topk"],
                                   ["--mesh-data", "2"], ["--no-pallas-topk"]])
 def test_unported_server_flags_raise(ckpt, flag):
-    """--decode sample is ported now (test_sampling_flags_are_accepted);
-    its case here became sat_tpu's --mesh-data 0 (every device), which the
-    port does not have either."""
-    args = build_parser().parse_args(
-        ["--model", ckpt["model"], "--device", "cpu"] + flag)
-    with pytest.raises(NotImplementedError):
-        build_server(args)
+    """The flags that once raised are ported: --fast-topk and
+    --no-pallas-topk take the beam's library top-k route, --mesh-data 2
+    serves over two replicas (on the host with --device cpu), its buckets
+    multiples of 2, and --mesh-data 0 over every device (the host: one).
+    Each server's caption step answers three images as the default
+    server's does."""
+    base = ["--model", ckpt["model"], "--encoder-weights", ckpt["encoder"],
+            "--device", "cpu", "--beam-size", "3"]
+    plain, flagged = (build_server(build_parser().parse_args(base + extra))
+                      for extra in ([], flag))
+    images = _images(3)
+    want, got = plain._caption_fn(images), flagged._caption_fn(images)
+    for k in ("tokens", "length", "found"):
+        np.testing.assert_array_equal(to_np(got[k]), to_np(want[k]),
+                                      err_msg=k)
+    np.testing.assert_allclose(to_np(got["score"]), to_np(want["score"]),
+                               atol=1e-5)
+    quantum = 2 if flag == ["--mesh-data", "2"] else 1
+    assert [flagged._bucket(n) for n in (1, 3, 5)] == [
+        max(quantum, 1), 4, 8]
 
 
 @pytest.mark.parametrize("flag", [["--bert-vocab", "vocab.txt"]])

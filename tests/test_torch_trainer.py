@@ -192,7 +192,7 @@ UNPORTED = (NotImplementedError, "ROADMAP.md")
     pytest.param(["--bert"], (ValueError, "--bert-vocab"), id="--bert"),
     pytest.param(["--bert-vocab", "v.txt", "--bert"],
                  (FileNotFoundError, "v.txt"), id="--bert-vocab"),
-    pytest.param(["--mesh-data", "2"], UNPORTED, id="--mesh-data"),
+    pytest.param(DATA + ["--mesh-data", "0"], None, id="--mesh-data"),
     pytest.param(["--mesh-model", "2"], UNPORTED, id="--mesh-model"),
     pytest.param(["--bert-embeddings", "e.npy", "--bert", "--bert-vocab",
                   VOCAB_FILE], (FileNotFoundError, "e.npy"),
@@ -209,6 +209,8 @@ def test_unported_training_flags_raise(flags, error, tmp_path, data):
     path, which asks for --bert-vocab without it, and otherwise reads the
     vocabulary and then the table that the flags name, here files that
     are not there (tests/test_torch_bert.py trains with both).
+    --mesh-data 0 (every rank; a plain process is one) trains an epoch
+    (two ranks: tests/test_torch_parallel.py).
     --profile-dir and --debug-nans are ported: each trains an epoch of
     the synthetic dataset, the first writing its trace into the directory,
     the second stopping at the step whose loss is not finite (the first
@@ -230,8 +232,9 @@ def test_unported_training_flags_raise(flags, error, tmp_path, data):
     argv = ["--data", "nowhere", "--device", "cpu"] + flags
     if error is None:
         assert "bleu4" in main(argv)
-        traces = os.listdir(tmp_path / "prof")
-        assert len(traces) == 1 and traces[0].endswith(".pt.trace.json")
+        if "--profile-dir" in flags:
+            traces = os.listdir(tmp_path / "prof")
+            assert len(traces) == 1 and traces[0].endswith(".pt.trace.json")
         return
     with pytest.raises(error[0], match=error[1]):
         main(argv)
