@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (sat_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0] [--out DIR] [--phase parallel]
+    python3 chip_smoke.py [--seed 0] [--out DIR] [--phase parallel|export]
 
 Run from the root of a checkout. It builds the CUDA kernels from the
 sources in the checkout and drives the port's serving path at the flagship
@@ -59,6 +59,23 @@ failed check exits non-zero and no result line is printed:
                ms in turns with the f32 step, the bf16 encoder's ms and
                memory format, f32 and bf16 decodes captured apart in one
                GraphCache, the bf16 decode of 8 grids against the CPU
+  4b. export — AOT caption artifacts (engine/serving.py's
+               export_caption_artifact: torch.export, the kernels as the
+               operators sat::attention_fwd and sat::topk) at the main
+               path's width, B = 128, worst case: sat_tpu's defaults (the
+               library sort), pallas_topk=True, and fast_topk + bf16, each
+               exported here and run by a fresh process that imports only
+               the loader (engine/artifact.py; no model module), against
+               the live caption step on its route: tokens, lengths and
+               found bit for bit, score and alpha differences printed; its
+               profile's kernels equal to its wrappers' counts (51
+               attention_fwd or _bf16, 51 top-k only with pallas_topk);
+               a fourth artifact whose <eos> bias makes the live beam stop
+               early, while the artifact runs all 51 steps, the same
+               tokens; export seconds, bytes, load seconds, the artifact's
+               ms a batch against the live graphs' in turns; the eager
+               decode at B = 1 and 7 through the operators, beside their
+               host cost a call (time_op_dispatch.py)
   5. serve   — a checkpoint directory on disk, the port's build_server +
                CaptionServer on an ephemeral port (batches padded to
                power-of-two buckets), 16 concurrent requests and the
@@ -205,6 +222,7 @@ import sys
 import tempfile
 import threading
 import time
+import zipfile
 
 B, BEAM, VOCAB, SIZE, STEPS = 128, 5, 2633, 224, 51
 TRAIN_B, CAP_LEN, BANK_U, BANK_N = 64, 27, 512, 1024
@@ -1627,6 +1645,7 @@ def phase_sample(dcfg, dec_flat, enc_flat, images, wide) -> dict:
 
 
 PROFILE_PAD_S = 0.2   # the idle card's seconds on each side of a profiled run
+LEAD_IN = 64          # spin kernels queued just before a profiled run
 
 
 def profile_run(fn, top: int = 10, count=(), warmup: bool = False) -> dict:
@@ -1641,10 +1660,18 @@ def profile_run(fn, top: int = 10, count=(), warmup: bool = False) -> dict:
     whose timestamps fall outside that window, and on the H100 machines
     the first kernels of a run that starts at once have been dropped (1-9
     of a train step's or block's attention_fwd, none of its later
-    kernels). `device_lead_us` is how far the first device event's start
-    lies after the first host event's; a negative value is a clock offset
-    between the two. With `warmup`, one run of `fn` in a warm-up cycle of
-    the profiler comes first."""
+    kernels). The pads did not stop it: a later profile of a train step
+    missed every kernel of one decoder step, and one of a greedy replay
+    one attention_fwd of its 51. So LEAD_IN spin kernels
+    (`torch.cuda._sleep`, about 0.5 us each) are queued just before the
+    run, and the loss takes them instead: on an H100, the profiles of one
+    run of this script kept 14-32 of 32, fewer as the process aged, and no
+    run lost a kernel. They count in no row; `lead_in_seen` says how many
+    of them the profile kept. `device_lead_us` is how far the first
+    device event's start (a spin kernel's) lies after the first host
+    event's; a negative value is a clock offset between the two. With
+    `warmup`, one run of `fn` in a warm-up cycle of the profiler comes
+    first."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -1657,6 +1684,8 @@ def profile_run(fn, top: int = 10, count=(), warmup: bool = False) -> dict:
             torch.cuda.synchronize()
             prof.step()
         time.sleep(PROFILE_PAD_S)
+        for _ in range(LEAD_IN):
+            torch.cuda._sleep(1000)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1667,10 +1696,11 @@ def profile_run(fn, top: int = 10, count=(), warmup: bool = False) -> dict:
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
-    rows = sorted(((e.key, device_us(e), e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and device_us(e) > 0),
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    lead_in_seen = sum(e.count for e in device if "spin_kernel" in e.key)
+    rows = sorted(((e.key, device_us(e), e.count) for e in device
+                   if device_us(e) > 0 and "spin_kernel" not in e.key),
                   key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
     if not rows:
@@ -1691,7 +1721,7 @@ def profile_run(fn, top: int = 10, count=(), warmup: bool = False) -> dict:
               file=sys.stderr)
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / wall_us,
-            "device_lead_us": lead_us,
+            "device_lead_us": lead_us, "lead_in_seen": lead_in_seen,
             "kernel_calls": kernel_calls, "named_calls": named,
             "top": [{"name": k[:90], "ms": us / 1e3, "calls": n,
                      "share_of_busy": us / busy_us}
@@ -3342,6 +3372,215 @@ def phase_cli(root: str, ckpt_dir: str, enc_path: str, resnet) -> dict:
     return res
 
 
+# ---------------------------------------------------------------- export
+
+# The export phase's artifacts, each against the live caption step on the
+# same top-k route: sat_tpu's export defaults (the library sort), the
+# top-k operator, and the fast modes (fast top-k, bf16 decode).
+EXPORTS = (("f32", {"pallas_topk": False}),
+           ("f32_topk_kernel", {"pallas_topk": True}),
+           ("fast_bf16", {"fast_topk": True, "bf16": True}))
+EARLY_EXIT_BOOSTS = (2.0, 4.0, 8.0, 16.0, 32.0)   # added to <eos>'s bias
+EXPORT_TURNS = ("artifact", "live", "live", "artifact", "artifact", "live")
+EAGER_BATCHES = (1, 7)
+
+
+def max_abs_diff(a, b) -> float:
+    """The largest |a - b|, equal entries (infinities too) counting 0."""
+    import torch
+    a, b = a.float().cpu(), b.float().cpu()
+    return float(torch.where(a == b, 0.0, (a - b).abs()).max())
+
+
+def artifact_run(spec: dict) -> None:
+    """One artifact in a fresh process (`--artifact-run`), which imports
+    the loader (engine/artifact.py) and nothing of the model code: load
+    it, caption the images once (its kernels load at first launch), then
+    once more under the profiler with the launch counts zeroed, and write
+    the outputs (<out>.npz) and the seconds, counts and profile
+    (<out>.json)."""
+    import numpy as np
+    import torch
+    t0 = time.perf_counter()
+    torch.zeros((), device="cuda")          # the process's CUDA context
+    cuda_init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    from sat_tpu_torch.engine.artifact import load_caption_artifact
+    caption = load_caption_artifact(spec["path"])
+    load_s = time.perf_counter() - t0
+    images = np.load(spec["images"])
+    first_ms = host_ms(lambda: caption(images))
+    out = {}
+    reset_launches()
+    prof = profile_run(lambda: out.update(caption(images)))
+    host = read_launches()
+    modules = sorted(m for m in sys.modules if m.startswith("sat_tpu_torch"))
+    np.savez(spec["out"] + ".npz", **{k: v.cpu().numpy()
+                                      for k, v in out.items()})
+    with open(spec["out"] + ".json", "w") as f:
+        json.dump({"cuda_init_s": cuda_init_s, "load_s": load_s,
+                   "first_ms": first_ms,
+                   "host_launches": host, "profile": prof,
+                   "modules": modules}, f)
+
+
+def phase_export(dcfg, dec_flat, worst_flat, enc_flat, images) -> dict:
+    """AOT caption artifacts at the flagship's width (B = 128, 224 px, beam
+    5, worst case): each exported here (engine/serving.py), run by a fresh
+    process that imports only the loader (`artifact_run`), held bit for
+    bit to the live caption step on its top-k route (tokens, length,
+    found; the score and alpha differences printed), its profile's
+    kernels equal to its wrappers' counts; a fourth artifact of a decoder
+    whose <eos> bias is raised until the live beam stops early, while the
+    artifact runs all 51 steps. Then, in this process, each artifact
+    against the live graphs in turns, and the eager decode at B = 1 and 7
+    beside the operators' host cost a call (time_op_dispatch.py)."""
+    import numpy as np
+    import torch
+    from sat_tpu_torch.compat.jax_params import (decoder_from_jax,
+                                                 encoder_from_jax)
+    from sat_tpu_torch.engine.serving import (build_caption_step,
+                                              export_caption_artifact,
+                                              load_caption_artifact)
+    from sat_tpu_torch.models.beam import beam_search_batched
+    from sat_tpu_torch.models.encoder import encoder_forward
+    from time_op_dispatch import measure
+
+    enc = encoder_from_jax(enc_flat, "vgg19", "cuda")
+    worst = decoder_from_jax(worst_flat, dcfg, "cuda")
+    seeded = decoder_from_jax(dec_flat, dcfg, "cuda")
+    feats = encoder_forward(enc, "vgg19", images)
+
+    # the early-exit decoder: <eos> raised until every image's beams
+    # complete and the live (eager) beam stops before its 51 steps
+    early = None
+    for boost in EARLY_EXIT_BOOSTS:
+        flat = dict(dec_flat)
+        bias = flat["ado/f_out/b"].copy()
+        bias[STOP_IDS[0]] += boost
+        flat["ado/f_out/b"] = bias
+        dec = decoder_from_jax(flat, dcfg, "cuda")
+        reset_launches()
+        beam_search_batched(dec, feats, BEAM)
+        torch.cuda.synchronize()
+        steps = read_launches()["topk"]
+        if steps < STEPS:
+            early = {"boost": boost, "live_steps": steps, "decoder": dec}
+            break
+    check(early is not None, f"export: no <eos> boost of "
+                             f"{EARLY_EXIT_BOOSTS} stops the beam early")
+    plans = [(name, worst, kw) for name, kw in EXPORTS]
+    plans.append(("early_exit", early["decoder"], {"pallas_topk": False}))
+
+    res = {"phase": "export", "images": B, "beam": BEAM, "steps": STEPS,
+           "early_exit": {k: v for k, v in early.items() if k != "decoder"},
+           "artifacts": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        img_path = os.path.join(tmp, "images.npy")
+        np.save(img_path, images)
+        procs = []
+        for name, dec, kw in plans:
+            path = os.path.join(tmp, name + ".pt2")
+            t0 = time.perf_counter()
+            export_caption_artifact(path, "vgg19", dcfg, enc, dec, B, SIZE,
+                                    BEAM, device="cuda", **kw)
+            art = {"export_s": time.perf_counter() - t0,
+                   "bytes": os.path.getsize(path), "options": kw}
+            res["artifacts"][name] = art
+            # the fresh process starts while the next export traces
+            spec = {"path": path, "images": img_path,
+                    "out": os.path.join(tmp, name)}
+            procs.append((name, path, dec, kw, spec, subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--artifact-run", json.dumps(spec)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                cwd=REPO_DIR, env=cli_env())))
+        for name, _, _, _, _, proc in procs:
+            try:
+                _, err = proc.communicate(timeout=600)
+            finally:
+                proc.kill()
+            check(proc.returncode == 0, f"export {name}: the fresh process "
+                                        f"exit {proc.returncode}: "
+                                        f"{err[-2000:]}")
+        # every fresh process has ended: the timings below run alone
+        for name, path, dec, kw, spec, _ in procs:
+            art = res["artifacts"][name]
+            with zipfile.ZipFile(path) as z:
+                art["largest_entries"] = sorted(
+                    ((i.filename, i.file_size) for i in z.infolist()),
+                    key=lambda e: -e[1])[:4]
+            with open(spec["out"] + ".json") as f:
+                run = json.load(f)
+            with np.load(spec["out"] + ".npz") as z:
+                got = {k: torch.from_numpy(z[k]) for k in z.files}
+            art.update(cuda_init_s=run["cuda_init_s"], load_s=run["load_s"],
+                       first_ms=run["first_ms"],
+                       fresh_modules=run["modules"])
+            check(not [m for m in run["modules"] if ".models" in m],
+                  f"export {name}: the loading process imported model "
+                  f"code: {run['modules']}")
+            variant = "_bf16" if kw.get("bf16") else ""
+            want = counts(**{f"attention_fwd{variant}": STEPS,
+                             **({"topk": STEPS} if kw.get("pallas_topk")
+                                else {})})
+            device = run["profile"].get("kernel_calls")
+            check(run["host_launches"] == want and device == want,
+                  f"export {name}: a run's host launches "
+                  f"{run['host_launches']}, device {device}; expected "
+                  f"{want}")
+            art["launches"] = want
+            art["profile"] = {k: run["profile"].get(k) for k in (
+                "wall_ms", "device_busy_ms", "device_busy_share",
+                "device_lead_us", "top")}
+
+            # the live step on the same route: graphs for the timed
+            # artifacts, eager for the early exit (its steps counted)
+            live_step = build_caption_step("vgg19", dcfg, BEAM,
+                                           device="cuda",
+                                           graphs=name != "early_exit", **kw)
+            live = live_step(enc, dec, images)
+            for k in ("tokens", "length", "found"):
+                check(same_bits(live[k].cpu(), got[k]),
+                      f"export {name}: {k} differ from the live step's")
+            art["max_score_diff"] = max_abs_diff(live["score"], got["score"])
+            art["max_alpha_diff"] = max_abs_diff(live["alphas"],
+                                                 got["alphas"])
+            art["found"] = int(got["found"].sum())
+            if name == "early_exit":
+                check(art["found"] == B, "export early_exit: an image "
+                                         "completed no sentence")
+                continue
+            check(art["found"] == 0, f"export {name}: a beam completed "
+                                     f"although the stop logits are pinned")
+            t0 = time.perf_counter()
+            caption = load_caption_artifact(path)
+            art["load_s_here"] = time.perf_counter() - t0
+            caption(images)
+            torch.cuda.synchronize()
+            ms = {"artifact": [], "live": []}
+            for turn in EXPORT_TURNS:
+                ms[turn].append(host_ms(
+                    (lambda: caption(images)) if turn == "artifact"
+                    else (lambda: live_step(enc, dec, images))))
+            art["ms"] = ms
+            del caption
+
+    # the eager decode through the operators, and their host cost a call
+    eager = {}
+    for Bx in EAGER_BATCHES:
+        fx = feats[:Bx].contiguous()
+        beam_search_batched(seeded, fx, BEAM)
+        eager[Bx] = [host_ms(lambda: beam_search_batched(seeded, fx, BEAM))
+                     for _ in range(3)]
+    res["eager_decode_ms"] = eager
+    res["host_us_per_call"] = measure("cuda")
+    emit(res | {"artifacts": {n: {k: v for k, v in a.items()
+                                  if k != "profile"}
+                              for n, a in res["artifacts"].items()}})
+    return res
+
+
 # ------------------------------------------------------------------ BERT
 
 # sat_tpu_torch.constants: BERT_VOCAB_SIZE, BERT_HIDDEN_SIZE, the special
@@ -4467,10 +4706,14 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--out", type=str, default="chiprun_out")
-    parser.add_argument("--phase", choices=["parallel"], default=None,
-                        help="run only this phase (after device and build) "
-                             "on the entry phase's dataset; prints no result "
-                             "line")
+    parser.add_argument("--phase", choices=["parallel", "export"],
+                        default=None,
+                        help="run only this phase (after device and build; "
+                             "parallel on the entry phase's dataset); "
+                             "prints no result line")
+    # an artifact run of the export phase, started by the phase itself
+    parser.add_argument("--artifact-run", type=str, default=None,
+                        help=argparse.SUPPRESS)
     # a gloo rank of the parallel phase, started by the phase itself
     parser.add_argument("--parallel-rank", type=int, default=None,
                         help=argparse.SUPPRESS)
@@ -4479,6 +4722,21 @@ def main():
     args = parser.parse_args()
     if args.parallel_rank is not None:
         parallel_rank(args.parallel_rank, json.loads(args.parallel_spec))
+        return
+    if args.artifact_run is not None:
+        artifact_run(json.loads(args.artifact_run))
+        return
+    if args.phase == "export":
+        phase_device()
+        phase_build()
+        dcfg, dec_flat, worst_flat, enc_flat, images = make_weights(args.seed)
+        res = phase_export(dcfg, dec_flat, worst_flat, enc_flat, images)
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, "chip_smoke_export.json"),
+                  "w") as f:
+            json.dump(res, f, indent=1)
+        print("chip_smoke: phase export passed (--phase prints no result "
+              "line)", flush=True)
         return
     if args.phase == "parallel":
         phase_device()
@@ -4513,6 +4771,8 @@ def main():
     dcfg, dec_flat, worst_flat, enc_flat, images = make_weights(args.seed)
     main_res = phase_main(dcfg, dec_flat, worst_flat, enc_flat, images)
     lap("main")
+    export = phase_export(dcfg, dec_flat, worst_flat, enc_flat, images)
+    lap("export")
     serve = phase_serve(dcfg, dec_flat, enc_flat)
     lap("serve")
     encoders = phase_encoders(args.seed, images)
@@ -4602,7 +4862,8 @@ def main():
         json.dump({"device": dev, "build_seconds": build["seconds"],
                    "phase_seconds": seconds,
                    "build_log": build["log"], "kernels": kernels,
-                   "main": main_res, "serve": serve, "encoders": encoders,
+                   "main": main_res, "export": export, "serve": serve,
+                   "encoders": encoders,
                    "sample": sample, "bert": bert, "train": train,
                    "entry": entry, "data": data}, f,
                   indent=1)

@@ -1,6 +1,8 @@
-"""Reference PyTorch decoder checkpoints -> sat_tpu's flat decoder params.
+"""Reference PyTorch decoder checkpoints <-> sat_tpu's flat decoder params.
 
-Port of sat_tpu/compat/torch_decoder.py (`decoder_params_from_state_dict`).
+Port of sat_tpu/compat/torch_decoder.py (`decoder_params_from_state_dict`,
+and its inverse `state_dict_from_decoder_params`, which
+`python -m sat_tpu_torch.export_reference_pth` writes as a `.pth`).
 The reference releases decoder `state_dict()` files with this key schema,
 which the port's `Decoder` also has:
 
@@ -66,3 +68,30 @@ def decoder_params_from_state_dict(state_dict, params: dict,
             raise KeyError(
                 f"unexpected keys in state_dict: {sorted(unexpected)}")
     return new
+
+
+def state_dict_from_decoder_params(params: dict) -> dict:
+    """The inverse of `decoder_params_from_state_dict`: a flat decoder
+    archive (`/`-named, as in a per-epoch `.npz`) as a reference-schema
+    state_dict of float32 numpy arrays, in sat_tpu's key order: linears
+    back to torch's (out, in), the LSTM's gate blocks as they are, and
+    `f_h`/`f_z`/`f_out` only when the archive has the ado head."""
+    sd = {"embedding.weight": np.asarray(params["embedding"],
+                                         dtype=np.float32)}
+
+    def linear(tname, jname):
+        sd[f"{tname}.weight"] = np.ascontiguousarray(
+            np.asarray(params[f"{jname}/w"], dtype=np.float32).T)
+        sd[f"{tname}.bias"] = np.asarray(params[f"{jname}/b"],
+                                         dtype=np.float32)
+
+    for tname, jname in _LINEARS:
+        linear(tname, jname)
+    for tname, jname in _LSTM:
+        arr = np.asarray(params[f"lstm/{jname}"], dtype=np.float32)
+        sd[f"lstm.{tname}"] = (np.ascontiguousarray(arr.T)
+                               if tname.startswith("weight") else arr)
+    if any(k.startswith("ado/") for k in params):
+        for tname, jname in _ADO:
+            linear(tname, jname)
+    return sd

@@ -152,7 +152,6 @@ def unported_options(cfg: Config):
     the port does not have yet."""
     checks = [
         ("--mesh-model > 1", cfg.mesh_model > 1, "the vocab-sharded head"),
-        ("--wandb", cfg.wandb, "CLIs and tooling"),
     ]
     return [(flag, item) for flag, on, item in checks if on]
 

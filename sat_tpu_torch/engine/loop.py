@@ -78,8 +78,10 @@ in sat_tpu's row order, and each rank plots its own images, tagged
 dropout generator is seeded from (seed, rank). A train state written at one
 world size resumes at another: `batch_offset` counts global batches.
 
-W&B (`--wandb`) and the vocab-sharded head (`--mesh-model > 1`) are not
-ported; each raises, naming its ROADMAP.md item.
+The vocab-sharded head (`--mesh-model > 1`) is not ported; it raises,
+naming its ROADMAP.md item. `--wandb` logs through utils/logging.py's W&B
+backend on rank 0 (without `wandb` installed, sat_tpu's message and the
+JSONL log only).
 """
 
 from __future__ import annotations
@@ -190,8 +192,11 @@ class Trainer:
         self.rank = dist.rank()
         self.n_data = data_ranks(cfg.mesh_data)
         use_f32_math()
+        primary = dist.is_primary()
         self.logger = logger or MetricLogger(
-            cfg.log_jsonl if dist.is_primary() else None)
+            cfg.log_jsonl if primary else None,
+            use_wandb=cfg.wandb and primary,
+            wandb_config=cfg.reference_dict())
 
         # the word dict, or BERT's WordPiece vocabulary
         if cfg.bert:

@@ -31,14 +31,23 @@ noise for the whole padded batch from the one generator on `device`, and
 each slice decodes its rows of it: a batch whose size the mesh divides
 draws what the one-device step draws.
 
-sat_tpu's AOT export (`export_caption_artifact`, `load_caption_artifact`)
-is not ported (ROADMAP.md, Queue 1: CLIs and tooling).
+AOT export (sat_tpu's `build_caption_fn`, `export_caption_artifact`,
+`load_caption_artifact`): `build_caption_fn` is a module with the weights
+baked in, whose decode is models/beam.py's static form (every step, no
+host read, the loops as torch while_loops); `export_caption_artifact`
+traces it with torch.export at one batch shape and writes a `.pt2` file
+for one device (sat_tpu writes StableHLO). The attention middle is the
+operator `sat::attention_fwd` in every artifact, and the beam's top-k the
+library sort unless `pallas_topk=True` asks for `sat::topk`, as sat_tpu's
+export defaults to `lax.top_k`. `load_caption_artifact`
+(engine/artifact.py) needs torch and the operators, no model code.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import json
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -46,12 +55,15 @@ import torch
 
 from sat_tpu_torch import constants
 from sat_tpu_torch.device import resolve_device, use_f32_math
-from sat_tpu_torch.models.beam import (beam_search_batched, greedy_caption,
-                                      gumbel_noise_, sample_caption,
-                                      use_kernel_topk,
-                                      validate_sampling_params)
+from sat_tpu_torch.engine.artifact import (  # noqa: F401  (sat_tpu's name)
+    ARTIFACT_META, load_caption_artifact)
+from sat_tpu_torch.models.beam import (BeamResult, beam_search_batched,
+                                       beam_search_static, greedy_caption,
+                                       greedy_caption_static, gumbel_noise_,
+                                       sample_caption, use_kernel_topk,
+                                       validate_sampling_params)
 from sat_tpu_torch.models.decoder import DecoderConfig
-from sat_tpu_torch.models.encoder import encoder_forward
+from sat_tpu_torch.models.encoder import encoder_forward, encoder_grid
 from sat_tpu_torch.parallel.mesh import make_mesh, pad_batch, slice_bounds
 from sat_tpu_torch.utils.graphs import GraphCache
 
@@ -73,6 +85,12 @@ def pack_scan(dcfg: DecoderConfig, tokens: torch.Tensor,
                                  device=tokens.device),
             "found": lengths < max_steps,
             "alphas": torch.cat([ones, alphas], dim=1)}
+
+
+def beam_outputs(res: BeamResult) -> dict:
+    """A beam's result as the caption step's result dict."""
+    return {"tokens": res.tokens, "length": res.length, "score": res.score,
+            "found": res.found, "alphas": res.alphas}
 
 
 def build_caption_step(network: str, dcfg: DecoderConfig, beam_size: int,
@@ -116,12 +134,9 @@ def build_caption_step(network: str, dcfg: DecoderConfig, beam_size: int,
             return pack_scan(dcfg, *greedy_caption(decoder, feats,
                                                    with_alphas=True,
                                                    graphs=cache))
-        res = beam_search_batched(decoder, feats, beam_size, bf16=bf16,
-                                  graphs=cache, fast_topk=fast_topk,
-                                  pallas_topk=pallas_topk)
-        return {"tokens": res.tokens, "length": res.length,
-                "score": res.score, "found": res.found,
-                "alphas": res.alphas}
+        return beam_outputs(beam_search_batched(
+            decoder, feats, beam_size, bf16=bf16, graphs=cache,
+            fast_topk=fast_topk, pallas_topk=pallas_topk))
 
     if mesh is None:
         cache = GraphCache() if graphs and dev.type == "cuda" else None
@@ -152,6 +167,98 @@ def build_caption_step(network: str, dcfg: DecoderConfig, beam_size: int,
     caption.graphs = runner.graphs
     caption.mesh = mesh
     return caption
+
+
+SAMPLE_NOT_EXPORTABLE = (
+    "decode='sample' is not exportable as a single-input artifact (its "
+    "step takes (images, generator)); use beam or greedy for AOT export, or "
+    "serve sampling live via python -m sat_tpu_torch.serve --decode sample")
+
+
+class CaptionProgram(torch.nn.Module):
+    """images (B, S, S, 3) on the modules' device -> the result dict of
+    `build_caption_step`, with the encoder's and the decoder's weights
+    baked in: sat_tpu's `build_caption_fn`, the program that
+    `export_caption_artifact` traces. The decode is the static form of
+    models/beam.py (`beam_search_static`, `greedy_caption_static`): every
+    step runs, with no host read, so the program has one control flow for
+    every batch and gives the live step's results. The bf16 options are
+    the caption step's. Live serving takes `build_caption_step`."""
+
+    def __init__(self, network: str, dcfg: DecoderConfig,
+                 encoder: torch.nn.Module, decoder: torch.nn.Module,
+                 beam_size: int, fast_topk: bool = False, bf16: bool = False,
+                 decode: str = "beam", pallas_topk: bool | None = None):
+        super().__init__()
+        if decode == "sample":
+            raise ValueError(SAMPLE_NOT_EXPORTABLE)
+        if decode not in ("beam", "greedy"):
+            raise ValueError(f"unknown decode mode {decode!r}")
+        use_kernel_topk(fast_topk, pallas_topk)
+        self.encoder, self.decoder = encoder, decoder
+        self.network, self.dcfg, self.beam_size = network, dcfg, beam_size
+        self.fast_topk, self.bf16 = fast_topk, bf16
+        self.decode, self.pallas_topk = decode, pallas_topk
+
+    def forward(self, images: torch.Tensor) -> dict:
+        feats = encoder_grid(self.encoder, self.network, images,
+                             torch.bfloat16 if self.bf16 else None)
+        if self.decode == "greedy":
+            return pack_scan(self.dcfg, *greedy_caption_static(
+                self.decoder, feats, with_alphas=True))
+        return beam_outputs(beam_search_static(
+            self.decoder, feats, self.beam_size, fast_topk=self.fast_topk,
+            bf16=self.bf16, pallas_topk=self.pallas_topk))
+
+
+def build_caption_fn(network: str, dcfg: DecoderConfig,
+                     encoder: torch.nn.Module, decoder: torch.nn.Module,
+                     beam_size: int, fast_topk: bool = False,
+                     bf16: bool = False, decode: str = "beam",
+                     pallas_topk: bool | None = None) -> CaptionProgram:
+    """images -> result dict, the weights baked in (`CaptionProgram`): the
+    form for AOT export. `decode="sample"` raises sat_tpu's ValueError."""
+    return CaptionProgram(network, dcfg, encoder, decoder, beam_size,
+                          fast_topk, bf16, decode, pallas_topk)
+
+
+def export_caption_artifact(path: str, network: str, dcfg: DecoderConfig,
+                            encoder: torch.nn.Module,
+                            decoder: torch.nn.Module, batch_size: int,
+                            image_size: int, beam_size: int,
+                            fast_topk: bool = False, bf16: bool = False,
+                            decode: str = "beam", pallas_topk: bool = False,
+                            device="cuda") -> None:
+    """Write the caption program for `batch_size` images of `image_size`
+    pixels to `path`, a torch.export `.pt2` file that runs on `device`
+    (sat_tpu's `platforms`), where the modules must already be. The
+    defaults are sat_tpu's: `pallas_topk=False` exports the library top-k
+    (the beam's sort route), `pallas_topk=True` the operator `sat::topk`;
+    the attention middle is `sat::attention_fwd` either way. The program
+    is traced under torch.no_grad at f32 math (TF32 off), as the live step
+    runs. `decode="sample"` raises sat_tpu's ValueError."""
+    dev = resolve_device(device)
+    for name, module in (("encoder", encoder), ("decoder", decoder)):
+        where = {p.device for p in module.parameters()}
+        if any(d.type != dev.type or dev.index not in (None, d.index)
+               for d in where):
+            raise ValueError(f"the {name} is on {where}, not on {dev}: "
+                             f"move it to the export device first")
+    use_f32_math()
+    program = build_caption_fn(network, dcfg, encoder, decoder, beam_size,
+                               fast_topk=fast_topk, bf16=bf16, decode=decode,
+                               pallas_topk=pallas_topk)
+    images = torch.zeros((batch_size, image_size, image_size, 3),
+                         device=dev)
+    with torch.no_grad():
+        exported = torch.export.export(program, (images,))
+    exported.example_inputs = None     # not the batch of zeros in the file
+    meta = {"network": network, "batch_size": batch_size,
+            "image_size": image_size, "beam_size": beam_size,
+            "decode": decode, "fast_topk": fast_topk, "bf16": bf16,
+            "pallas_topk": pallas_topk, "device": str(dev)}
+    torch.export.save(exported, path,
+                      extra_files={ARTIFACT_META: json.dumps(meta)})
 
 
 def padded_noise(dcfg: DecoderConfig, rows: int, cards: int, device,

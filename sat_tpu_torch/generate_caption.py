@@ -18,9 +18,11 @@ same result. --decode sample draws from a generator seeded with
 and the card's and the CPU's generators differ. A BERT model's caption is
 sat_tpu's rendering, `tokenizer.decode(ids).split()` over the start
 token, the caption and its stop token, with the WordPiece vocabulary of
---bert-vocab (data/bert_vocab.py). --wandb-run and --wandb-model restore a
-model from W&B over the network, which the port does not do (ROADMAP.md,
-Queue 1: CLIs and tooling); they raise.
+--bert-vocab (data/bert_vocab.py). --wandb-run ENTITY/PROJECT/RUN_ID with
+--wandb-model NAME restores the model and its model_config.json from that
+W&B run into model/cache_wandb/RUN_ID/ (`wandb.restore`, as sat_tpu does)
+and loads them; `wandb` is imported only then, and without it that raises
+ModuleNotFoundError, as in sat_tpu.
 """
 
 from __future__ import annotations
@@ -34,6 +36,44 @@ from PIL import Image
 from sat_tpu_torch.models.beam import (BeamResult, beam_search_batched,
                                        extract_caption, greedy_caption,
                                        sample_caption)
+
+
+def restore_from_wandb(wandb_run: str, wandb_model: str) -> tuple[str, str]:
+    """(model path, model_config.json path) restored from the W&B run
+    `wandb_run` (entity/project/run_id) into model/cache_wandb/<run_id>/:
+    the file `wandb_model` and the model_config.json of its directory, by
+    `wandb.restore`, as sat_tpu's load_model does."""
+    import wandb    # only for --wandb-run/--wandb-model
+    run_id = wandb_run.split("/")[2]
+    config_name = wandb_model.split("/")[0] + "/model_config.json"
+    target = f"model/cache_wandb/{run_id}/"
+    model_path = wandb.restore(name=wandb_model, run_path=wandb_run,
+                               root=target).name
+    config_path = wandb.restore(name=config_name, run_path=wandb_run,
+                                root=target).name
+    return model_path, config_path
+
+
+def load_model(model_path: str | None = None,
+               model_config_path: str | None = None,
+               wandb_run: str | None = None, wandb_model: str | None = None,
+               encoder_weights: str | None = None, device="cuda",
+               bert_vocab: str | None = None):
+    """generate_caption.py's load_model: with both `wandb_run` and
+    `wandb_model` the model and its config come from W&B
+    (`restore_from_wandb`); then serve.load_model's (config, decoder
+    config, encoder, decoder, vocabulary) on `device`."""
+    from sat_tpu_torch.serve import load_model as load_checkpoint
+
+    if wandb_run is not None and wandb_model is not None:
+        model_path, model_config_path = restore_from_wandb(wandb_run,
+                                                           wandb_model)
+    if model_path is None:
+        raise ValueError("Model path and config path must be provided if "
+                         "not loading from wandb")
+    return load_checkpoint(model_path, model_config_path,
+                           encoder_weights=encoder_weights, device=device,
+                           bert_vocab=bert_vocab)
 
 
 def decode_single_image(dcfg, decoder, features, decode: str = "beam",
@@ -130,13 +170,16 @@ def build_parser() -> argparse.ArgumentParser:
                     "port)")
     parser.add_argument("--img-path", type=str, required=True,
                         help="path to image")
-    parser.add_argument("--model", type=str, required=True,
-                        help="decoder checkpoint (.npz or reference .pth)")
+    parser.add_argument("--model", type=str, default=None,
+                        help="decoder checkpoint (.npz or reference .pth); "
+                             "not needed with --wandb-run/--wandb-model")
     parser.add_argument("--model-config", type=str, default=None,
                         help="path to model_config.json (default: next to "
                              "--model)")
-    parser.add_argument("--wandb-run", type=str, default=None)
-    parser.add_argument("--wandb-model", type=str, default=None)
+    parser.add_argument("--wandb-run", type=str, default=None,
+                        help="W&B run path entity/project/run_id")
+    parser.add_argument("--wandb-model", type=str, default=None,
+                        help="the model's file name in that run")
     parser.add_argument("--beam-size", type=int, default=3)
     parser.add_argument("--decode", choices=["beam", "greedy", "sample"],
                         default="beam")
@@ -162,17 +205,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     from sat_tpu_torch.device import use_f32_math
-    from sat_tpu_torch.serve import load_model
 
     args = build_parser().parse_args(argv)
-    if args.wandb_run or args.wandb_model:
-        raise NotImplementedError(
-            "--wandb-run/--wandb-model are not ported yet (ROADMAP.md, "
-            "Queue 1: CLIs and tooling)")
     use_f32_math()
     cfg, dcfg, encoder, decoder, vocab = load_model(
-        args.model, args.model_config, encoder_weights=args.encoder_weights,
-        device=args.device, bert_vocab=args.bert_vocab)
+        args.model, args.model_config, args.wandb_run, args.wandb_model,
+        encoder_weights=args.encoder_weights, device=args.device,
+        bert_vocab=args.bert_vocab)
     return generate_caption_visualization(
         args.img_path, cfg, dcfg, encoder, decoder, vocab,
         beam_size=args.beam_size, out_path=args.out, decode=args.decode,

@@ -62,6 +62,14 @@ attention kernel's bf16 variant to read; h, c, the scores and the alphas
 stay f32, and the middle is f32 (ops/fused_attention.py). The dtype is
 part of the spec that keys a GraphCache: one process that serves f32 and
 bf16 captures their graphs apart.
+
+For AOT export (engine/serving.py), `beam_search_static` and
+`greedy_caption_static` are the same decodes as one program with no host
+read: the beam's start, every one of its max_steps steps and its rebuild,
+the steps and the rebuild's columns in torch while_loops, over the same
+step functions as the live loops (`_beam_step`, `_rebuild_step`,
+`_scan_step`), which take the loop's counter as an int or as a
+one-element tensor.
 """
 
 from __future__ import annotations
@@ -324,24 +332,74 @@ def _beam_rebuild(spec: _Spec, buf: dict) -> None:
     1. The alpha recorded at step t is indexed by the candidate's parent
     (the pre-expansion row). Positions beyond best_len hold the start
     token and zero alphas, as in the direct-history form."""
-    rows, best_len, found = buf["rows"], buf["best_len"], buf["found"]
-    tokens, alphas = buf["tokens"], buf["alphas"]
-    tokens.fill_(spec.start_token)
-    alphas.zero_()
-    alphas[:, 0] = 1.0
-    r = buf["best_rank"]
+    state = dict(buf)      # the walk's rank stays out of the buffers
+    _rebuild_start(spec, state)
     for t in range(spec.T - 1, 0, -1):
-        on = t <= best_len                                      # (B,)
-        tok = buf["words"][rows, t, r]
-        par = buf["parents"][rows, t, r]
-        tokens[:, t] = torch.where(on, tok, spec.start_token)
-        alphas[:, t] = torch.where(on[:, None],
-                                   buf["alpha_steps"][rows, t, par], 0.0)
-        r = torch.where(on, par, r)
+        _rebuild_step(spec, state, t)
+    _rebuild_finish(state)
+
+
+def _rebuild_start(spec: _Spec, buf: dict) -> None:
+    buf["tokens"].fill_(spec.start_token)
+    buf["alphas"].zero_()
+    buf["alphas"][:, 0] = 1.0
+    buf["rank"] = buf["best_rank"]
+
+
+def _rebuild_step(spec: _Spec, buf: dict, t) -> None:
+    """Column t of the winning paths, for an int t or a one-element index
+    tensor (a while_loop's counter, which may not index as a number: both
+    index beside buf["rows"]); buf["rank"] moves to the parents."""
+    rows, r = buf["rows"], buf["rank"]
+    on = t <= buf["best_len"]                                   # (B,)
+    tok = buf["words"][rows, t, r]
+    par = buf["parents"][rows, t, r]
+    buf["tokens"][rows, t] = torch.where(on, tok, spec.start_token)
+    buf["alphas"][rows, t] = torch.where(
+        on[:, None], buf["alpha_steps"][rows, t, par], 0.0)
+    buf["rank"] = torch.where(on, par, r)
+
+
+def _rebuild_finish(buf: dict) -> None:
     # Never-completed rows are all-zero in the direct-history form (its
     # running best never updates from the zeros init).
-    tokens.masked_fill_(~found[:, None], 0)
-    alphas.masked_fill_(~found[:, None, None], 0.0)
+    found = buf["found"]
+    buf["tokens"].masked_fill_(~found[:, None], 0)
+    buf["alphas"].masked_fill_(~found[:, None, None], 0.0)
+
+
+def _while(state: dict, names: tuple, cond, body) -> None:
+    """`while cond(state): body(state)` as one torch while_loop, which
+    torch.export keeps as one loop (a graph of one iteration, whatever the
+    count). The tensors of `state` named in `names` are the loop's carried
+    values: body updates them, in place or by rebinding, in clones (the
+    loop forbids mutating its inputs); the rest of `state` is read-only in
+    the loop. On return `state` holds the loop's results."""
+    from torch._higher_order_ops.while_loop import while_loop
+
+    def unpack(values):
+        inner = dict(state)
+        inner.update(zip(names, values))
+        return inner
+
+    def cond_fn(*values):
+        return cond(unpack(values))
+
+    def body_fn(*values):
+        inner = unpack([v.clone() for v in values])
+        body(inner)
+        return tuple(inner[k] for k in names)
+
+    state.update(zip(names, while_loop(cond_fn, body_fn,
+                                       tuple(state[k] for k in names))))
+
+
+# The buffers that a beam step writes: the step loop's carried values in
+# `beam_search_static`, and by `backtrack` its records.
+_STEP_STATE = ("h", "c", "step", "scores", "prev", "live", "live_count",
+               "best_score", "best_len", "found", "last_alpha0")
+_RECORDS = {True: ("words", "parents", "alpha_steps", "best_rank"),
+            False: ("sentences", "alph_hist", "best_tokens", "best_alphas")}
 
 
 @torch.inference_mode()
@@ -373,7 +431,6 @@ def beam_search_batched(dec: Decoder, features: torch.Tensor, beam_size: int,
     kernel_topk = use_kernel_topk(fast_topk, pallas_topk)
     if sync_every < 1:
         raise ValueError(f"sync_every must be >= 1, got {sync_every}")
-    cfg = dec.cfg
     B = features.shape[0]
     chunk = chunk * max(mesh_data, 1) if chunk else None
     if chunk and B > chunk:
@@ -385,10 +442,8 @@ def beam_search_batched(dec: Decoder, features: torch.Tensor, beam_size: int,
                  for s in range(0, B, chunk)]
         return BeamResult(*(torch.cat(f, dim=0) for f in zip(*parts)))
 
-    B, L, D = features.shape
-    spec = _Spec(B, beam_size, L, D, cfg.embedding_size,
-                 cfg.effective_vocab_size, max_steps, dedup, backtrack,
-                 cfg.start_token, bf16, not kernel_topk)
+    spec = _beam_spec(dec, features, beam_size, max_steps, dedup, backtrack,
+                      bf16, kernel_topk)
     cache = _graph_cache(graphs, features.device)
     if cache is None:
         buf = _beam_buffers(spec, features.device, features)
@@ -411,14 +466,66 @@ def beam_search_batched(dec: Decoder, features: torch.Tensor, beam_size: int,
         done += n
     if backtrack:
         run("rebuild", lambda b: _beam_rebuild(spec, b))
+    # copies: the buffers are the next decode's
+    return BeamResult(*(t.clone() for t in _beam_result(spec, buf)))
+
+
+def _beam_spec(dec: Decoder, features: torch.Tensor, beam_size: int,
+               max_steps: int, dedup: bool, backtrack: bool, bf16: bool,
+               kernel_topk: bool) -> _Spec:
+    B, L, D = features.shape
+    cfg = dec.cfg
+    return _Spec(B, beam_size, L, D, cfg.embedding_size,
+                 cfg.effective_vocab_size, max_steps, dedup, backtrack,
+                 cfg.start_token, bf16, not kernel_topk)
+
+
+def _beam_result(spec: _Spec, buf: dict) -> BeamResult:
+    """The result's tensors in the buffers, after the rebuild."""
+    if spec.backtrack:
         tokens, alphas = buf["tokens"], buf["alphas"]
     else:
         tokens, alphas = buf["best_tokens"], buf["best_alphas"]
-    # copies: the buffers are the next decode's
-    return BeamResult(tokens=tokens.clone(), length=buf["best_len"].clone(),
-                      alphas=alphas.clone(), score=buf["best_score"].clone(),
-                      found=buf["found"].clone(),
-                      fallback_alpha=buf["last_alpha0"].clone())
+    return BeamResult(tokens=tokens, length=buf["best_len"], alphas=alphas,
+                      score=buf["best_score"], found=buf["found"],
+                      fallback_alpha=buf["last_alpha0"])
+
+
+def beam_search_static(dec: Decoder, features: torch.Tensor, beam_size: int,
+                       max_steps: int = constants.BEAM_MAX_STEPS,
+                       dedup: bool = True, fast_topk: bool = False,
+                       bf16: bool = False, backtrack: bool = True,
+                       pallas_topk: bool | None = None) -> BeamResult:
+    """`beam_search_batched` as one program that torch.export can trace:
+    the start, all `max_steps` steps and the rebuild on fresh buffers, with
+    no host read of the exit test, no graph cache and no chunk loop. The
+    steps, and the rebuild's columns, run in a torch while_loop (`_while`),
+    so the program holds one step, not max_steps copies of it. Finished
+    images freeze in place, so running every step gives the tokens,
+    lengths, scores, found flags and alphas of the live decode, which stops
+    early. No inference mode: the caller sets the grad mode
+    (engine/serving.py exports under torch.no_grad)."""
+    kernel_topk = use_kernel_topk(fast_topk, pallas_topk)
+    spec = _beam_spec(dec, features, beam_size, max_steps, dedup, backtrack,
+                      bf16, kernel_topk)
+    buf = _beam_buffers(spec, features.device, features)
+    _beam_start(dec, spec, buf)
+    _while(buf, _STEP_STATE + _RECORDS[backtrack],
+           lambda b: b["step"] <= max_steps,
+           lambda b: _beam_step(dec, spec, b))
+    if backtrack:
+        _rebuild_start(spec, buf)
+        buf["t"] = torch.full((), spec.T - 1, dtype=torch.int64,
+                              device=features.device)
+
+        def rebuild_step(b):
+            _rebuild_step(spec, b, b["t"].view(1))
+            b["t"].sub_(1)
+
+        _while(buf, ("t", "rank", "tokens", "alphas"),
+               lambda b: b["t"] > 0, rebuild_step)
+        _rebuild_finish(buf)
+    return _beam_result(spec, buf)
 
 
 def validate_sampling_params(temperature: float, top_k: int,
@@ -500,28 +607,50 @@ def _scan_decode(dec: Decoder, max_steps: int, buf: dict,
     """All max_steps greedy steps of buf["features"] (or, given `knobs`,
     sampled steps: argmax(filter_logits(logits) + buf["noise"][t])), into
     buf["tokens"], buf["lengths"] and buf["alphas"]."""
-    features = buf["features"]
-    B = features.shape[0]
-    stop_a, stop_b = stop_ids(dec.cfg)
-    keys = precompute_attention_keys(dec.attention, features)
-    h, c = init_lstm_state(dec, features)
-    prev = torch.full((B,), dec.cfg.start_token, dtype=torch.int64,
-                      device=features.device)
-    done = torch.zeros((B,), dtype=torch.bool, device=features.device)
-    toks = buf["tokens"]
+    state = _scan_start(dec, buf)
     for t in range(max_steps):
-        emb = embed_tokens(dec, prev)
-        h, c, logits, alpha, _ = decode_step(dec, features, keys, h, c, emb)
-        if knobs is not None:
-            logits = filter_logits(logits, knobs) + buf["noise"][t]
-        nxt = torch.where(done, prev, logits.argmax(dim=1))
-        done = done | (nxt == stop_a) | (nxt == stop_b)
-        prev = nxt
-        toks[:, t] = nxt
-        buf["alphas"][:, t] = alpha
+        _scan_step(dec, state, t, knobs)
+    _scan_finish(dec, state, max_steps)
+
+
+def _scan_start(dec: Decoder, buf: dict) -> dict:
+    """The scan's state: buf's tensors, the attention keys, the LSTM state,
+    the previous tokens, the rows already stopped and the row indices."""
+    features = buf["features"]
+    B, dev = features.shape[0], features.device
+    h, c = init_lstm_state(dec, features)
+    return dict(buf, keys=precompute_attention_keys(dec.attention, features),
+                h=h, c=c,
+                prev=torch.full((B,), dec.cfg.start_token,
+                                dtype=torch.int64, device=dev),
+                done=torch.zeros((B,), dtype=torch.bool, device=dev),
+                rows=torch.arange(B, device=dev))
+
+
+def _scan_step(dec: Decoder, state: dict, t, knobs: Sampling | None) -> None:
+    """Step t of the scan (t as in `_rebuild_step`): column t of the
+    tokens and the alphas."""
+    stop_a, stop_b = stop_ids(dec.cfg)
+    emb = embed_tokens(dec, state["prev"])
+    h, c, logits, alpha, _ = decode_step(dec, state["features"],
+                                         state["keys"], state["h"],
+                                         state["c"], emb)
+    if knobs is not None:
+        logits = filter_logits(logits, knobs) + state["noise"][t]
+    nxt = torch.where(state["done"], state["prev"], logits.argmax(dim=1))
+    state["done"] = state["done"] | (nxt == stop_a) | (nxt == stop_b)
+    state.update(h=h, c=c, prev=nxt)
+    state["tokens"][state["rows"], t] = nxt
+    state["alphas"][state["rows"], t] = alpha
+
+
+def _scan_finish(dec: Decoder, state: dict, max_steps: int) -> None:
+    stop_a, stop_b = stop_ids(dec.cfg)
+    toks = state["tokens"]
     is_stop = (toks == stop_a) | (toks == stop_b)
-    buf["lengths"].copy_(torch.where(is_stop.any(dim=1),
-                                     is_stop.int().argmax(dim=1), max_steps))
+    state["lengths"].copy_(torch.where(is_stop.any(dim=1),
+                                       is_stop.int().argmax(dim=1),
+                                       max_steps))
 
 
 def _scan_caption(dec: Decoder, features: torch.Tensor, max_steps: int,
@@ -572,6 +701,30 @@ def greedy_caption(dec: Decoder, features: torch.Tensor,
     card, given a GraphCache (`graphs` as in beam_search_batched), as one
     CUDA graph."""
     return _scan_caption(dec, features, max_steps, with_alphas, graphs)
+
+
+def greedy_caption_static(dec: Decoder, features: torch.Tensor,
+                          max_steps: int = constants.BEAM_MAX_STEPS,
+                          with_alphas: bool = False):
+    """`greedy_caption` as one program that torch.export can trace: its
+    max_steps steps in a torch while_loop (`_while`) on fresh buffers,
+    with no graph cache and no inference mode (the caller sets the grad
+    mode)."""
+    B, L, D = features.shape
+    buf = _scan_buffers(B, L, D, dec.cfg.effective_vocab_size, max_steps,
+                        features.device, features)
+    state = _scan_start(dec, buf)
+    state["t"] = torch.zeros((), dtype=torch.int64, device=features.device)
+
+    def step(s):
+        _scan_step(dec, s, s["t"].view(1), None)
+        s["t"].add_(1)
+
+    _while(state, ("t", "h", "c", "prev", "done", "tokens", "alphas"),
+           lambda s: s["t"] < max_steps, step)
+    _scan_finish(dec, state, max_steps)
+    out = (state["tokens"], state["lengths"])
+    return out + (state["alphas"],) if with_alphas else out
 
 
 @torch.inference_mode()

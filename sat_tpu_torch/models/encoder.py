@@ -236,20 +236,28 @@ def _weights(enc: nn.Module, dtype) -> dict:
     statistics for a forward in `dtype`: the module's own in float32, else
     the encoder's one cast copy, made anew only when a tensor was replaced
     (`.to()`) or written in place (`load_state_dict`). In the copy, convs
-    are in `dtype` and batch norms in f32, rounded to `dtype`."""
+    are in `dtype` and batch norms in f32, rounded to `dtype`. Under
+    torch.export the casts are traced instead, into the program (the
+    tensors have no addresses to key a copy by)."""
     own = dict(enc.named_parameters()) | {
         k: v for k, v in enc.named_buffers() if v.is_floating_point()}
     if dtype == torch.float32:
         return own
-    key = (dtype, tuple((t.data_ptr(), t._version) for t in own.values()))
-    cached = getattr(enc, "_cast_weights", None)
-    if cached is None or cached[0] != key:
+
+    def cast():
         bn = {f"{name}.{part}" for name, m in enc.named_modules()
               if isinstance(m, nn.BatchNorm2d)
               for part in ("weight", "bias", "running_mean", "running_var")}
         with torch.no_grad():
-            cached = (key, {k: v.to(dtype).float() if k in bn
-                            else v.to(dtype) for k, v in own.items()})
+            return {k: v.to(dtype).float() if k in bn else v.to(dtype)
+                    for k, v in own.items()}
+
+    if torch.compiler.is_exporting():
+        return cast()
+    key = (dtype, tuple((t.data_ptr(), t._version) for t in own.values()))
+    cached = getattr(enc, "_cast_weights", None)
+    if cached is None or cached[0] != key:
+        cached = (key, cast())
         enc._cast_weights = cached
     return cached[1]
 
@@ -343,6 +351,13 @@ def encoder_forward(enc: nn.Module, network: str, images,
     convolution picks (on the card it varied with the batch size), so it is
     made contiguous here: the attention kernels take only contiguous
     features."""
+    return encoder_grid(enc, network, images, compute_dtype)
+
+
+def encoder_grid(enc: nn.Module, network: str, images,
+                 compute_dtype=None) -> torch.Tensor:
+    """`encoder_forward` without inference mode, for a program that
+    torch.export traces (engine/serving.py)."""
     if network not in _FORWARD:
         raise ValueError(f"unknown network {network!r}; use one of "
                          f"{NETWORKS}")

@@ -18,16 +18,23 @@ The kernel (csrc/attention_fwd.cu) replaces
 sat_tpu/ops/fused_attention.py::_attention_kernel. In sat_tpu the kernel
 was opt-in because XLA already fused the plain graph; eager PyTorch fuses
 nothing, so on the card the kernel is the default and the plain form writes
-the whole tanh tensor. `attention_fwd` runs the plain form for CPU tensors
-only; for CUDA tensors it launches the kernel or raises.
+the whole tanh tensor.
+
+Each wrapper (`attention_fwd`, `attention_bwd`) checks its inputs and calls
+its operator, `sat::attention_fwd` or `sat::attention_bwd`: the plain form
+is the CPU implementation, the kernel launch the CUDA one (which raises
+rather than fall back), and a fake implementation gives the shapes for
+tracing (torch.export). An operator cannot return None, so
+`sat::attention_bwd` returns an empty dfeats when it is not wanted and the
+wrapper returns None for it.
 
 Training differentiates the block at R = 1 through `FusedAttention`, the
 counterpart of sat_tpu's custom VJP (`fused_attention_trainable`): its
 forward is `attention_fwd` and saves only the inputs and alpha; its
 backward is `attention_bwd` (csrc/attention_bwd.cu, replacing
 `_attention_bwd_kernel`), which recomputes the tanh instead of reading a
-saved (B, L, E) tensor. `attention_bwd` too runs its plain form for CPU
-tensors only, so the CPU tests drive the same autograd wiring.
+saved (B, L, E) tensor. On CPU tensors both operators run their plain
+forms, so the CPU tests drive the same autograd wiring.
 
 Both kernels are memory-bound: each must read keys and features once (and
 the backward write dkeys), 51 MB at the training shape (B = 64, L = 196,
@@ -132,30 +139,42 @@ def attention_plain(keys, feats, u_h, v, b_v, rows_per_image: int = 1):
     return ctx.reshape(B * R, D), alpha.reshape(B * R, L)
 
 
+def _check_devices(name, tensors):
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name} inputs on several devices: {devices}")
+    dev = devices.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got {dev}")
+
+
 def attention_fwd(keys, feats, u_h, v, b_v, rows_per_image: int = 1):
     """keys (B, L, E), feats (B, L, D) both f32 or both bf16, u_h (B*R, E),
     v (E,), b_v (1,) f32 -> (ctx (B*R, D), alpha (B*R, L)) f32, as
-    `attention_plain`. A CUDA graph may capture it once its shape has
-    launched outside the capture (module note)."""
-    B, R, L, E, D = _shapes(keys, feats, u_h, v, b_v, rows_per_image)
-    tensors = (keys, feats, u_h, v, b_v)
-    bf16 = _grid_dtype("attention_fwd", keys, feats,
-                       (u_h, v, b_v)) == torch.bfloat16
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"attention_fwd inputs on several devices: {devices}")
-    dev = keys.device
-    if dev.type == "cpu":
-        return attention_plain(keys, feats, u_h, v, b_v, rows_per_image)
-    if dev.type != "cuda":
-        raise ValueError(f"attention_fwd runs on cuda or cpu tensors, "
-                         f"got {dev}")
-    if not all(t.is_contiguous() for t in tensors):
+    `attention_plain`, through the operator `sat::attention_fwd`. A CUDA
+    graph may capture it once its shape has launched outside the capture
+    (module note)."""
+    _shapes(keys, feats, u_h, v, b_v, rows_per_image)
+    _grid_dtype("attention_fwd", keys, feats, (u_h, v, b_v))
+    _check_devices("attention_fwd", (keys, feats, u_h, v, b_v))
+    return torch.ops.sat.attention_fwd(keys, feats, u_h, v, b_v,
+                                       rows_per_image)
+
+
+def attention_fwd_cuda(keys, feats, u_h, v, b_v, rows_per_image):
+    """`sat::attention_fwd` on CUDA tensors: one launch of the f32 or the
+    bf16 kernel, by the keys' dtype. The wrapper checked the shapes and
+    dtypes; this checks what the launch reads: layout and addresses."""
+    B, L, E = keys.shape
+    D, R = feats.shape[2], rows_per_image
+    if not all(t.is_contiguous() for t in (keys, feats, u_h, v, b_v)):
         raise ValueError("attention_fwd wants contiguous inputs")
     _check_layout("attention_fwd", keys, feats)
+    dev = keys.device
     ctx = torch.empty((B * R, D), dtype=torch.float32, device=dev)
     alpha = torch.empty((B * R, L), dtype=torch.float32, device=dev)
     lib = _kernels.library()
+    bf16 = keys.dtype == torch.bfloat16
     entry = (lib.sat_attention_fwd_bf16 if bf16
              else lib.sat_attention_fwd_f32)
     with torch.cuda.device(dev):
@@ -174,6 +193,13 @@ def attention_fwd(keys, feats, u_h, v, b_v, rows_per_image: int = 1):
 # host calls that launch the f32 and the bf16 kernel; not CPU, not replays
 attention_fwd.launches = 0
 attention_fwd.launches_bf16 = 0
+
+
+def attention_fwd_fake(keys, feats, u_h, v, b_v, rows_per_image):
+    """`sat::attention_fwd`'s shapes and dtypes, for tracing: no launch."""
+    rows = u_h.shape[0]
+    return (u_h.new_empty((rows, feats.shape[2]), dtype=torch.float32),
+            u_h.new_empty((rows, keys.shape[1]), dtype=torch.float32))
 
 
 def _bwd_check(keys, feats, u_h, v, alpha, dctx, dalpha):
@@ -216,36 +242,51 @@ def attention_bwd_plain(keys, feats, u_h, v, alpha, dctx, dalpha,
 
 def attention_bwd(keys, feats, u_h, v, alpha, dctx, dalpha,
                   want_dfeats: bool = True):
-    """As `attention_bwd_plain`; on CUDA tensors one kernel launch, with
-    dfeats neither computed nor written unless `want_dfeats`. A CUDA graph
-    may capture it once its shape has launched outside the capture (module
-    note)."""
-    B, L, E, D = _bwd_check(keys, feats, u_h, v, alpha, dctx, dalpha)
+    """As `attention_bwd_plain`, through the operator `sat::attention_bwd`;
+    on CUDA tensors one kernel launch, with dfeats neither computed nor
+    written unless `want_dfeats` (the operator then returns it empty). A
+    CUDA graph may capture it once its shape has launched outside the
+    capture (module note)."""
     tensors = (keys, feats, u_h, v, alpha, dctx, dalpha)
-    grid_dtype = _grid_dtype("attention_bwd", keys, feats,
-                             (u_h, v, alpha, dctx, dalpha))
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"attention_bwd inputs on several devices: {devices}")
-    dev = keys.device
-    if dev.type == "cpu":
-        return attention_bwd_plain(keys, feats, u_h, v, alpha, dctx, dalpha,
-                                   want_dfeats)
-    if dev.type != "cuda":
-        raise ValueError(f"attention_bwd runs on cuda or cpu tensors, "
-                         f"got {dev}")
+    _bwd_check(*tensors)
+    _grid_dtype("attention_bwd", keys, feats, tensors[2:])
+    _check_devices("attention_bwd", tensors)
+    dkeys, dfeats, du_h, dv, db_v = torch.ops.sat.attention_bwd(
+        *tensors, want_dfeats)
+    return dkeys, dfeats if want_dfeats else None, du_h, dv, db_v
+
+
+def attention_bwd_cpu(keys, feats, u_h, v, alpha, dctx, dalpha,
+                      want_dfeats):
+    """`sat::attention_bwd` on CPU tensors: the plain form, dfeats empty
+    unless wanted."""
+    dkeys, dfeats, du_h, dv, db_v = attention_bwd_plain(
+        keys, feats, u_h, v, alpha, dctx, dalpha, want_dfeats)
+    if dfeats is None:
+        dfeats = feats.new_empty((0,))
+    return dkeys, dfeats, du_h, dv, db_v
+
+
+def attention_bwd_cuda(keys, feats, u_h, v, alpha, dctx, dalpha,
+                       want_dfeats):
+    """`sat::attention_bwd` on CUDA tensors: one launch of the f32 or the
+    bf16 kernel, by the keys' dtype; checks as in `attention_fwd_cuda`."""
+    B, L, E = keys.shape
+    D = feats.shape[2]
+    tensors = (keys, feats, u_h, v, alpha, dctx, dalpha)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("attention_bwd wants contiguous inputs")
     _check_layout("attention_bwd", keys, feats)
+    dev = keys.device
     f32 = {"dtype": torch.float32, "device": dev}
-    grid = {"dtype": grid_dtype, "device": dev}
+    grid = {"dtype": keys.dtype, "device": dev}
     dkeys = torch.empty((B, L, E), **grid)
-    dfeats = torch.empty((B, L, D), **grid) if want_dfeats else None
+    dfeats = torch.empty((B, L, D) if want_dfeats else (0,), **grid)
     du_h = torch.empty((B, E), **f32)
     dv_part = torch.empty((B, E), **f32)      # one partial per image, summed
     dbv_part = torch.empty((B,), **f32)       # below in a fixed order
     lib = _kernels.library()
-    bf16 = grid_dtype == torch.bfloat16
+    bf16 = keys.dtype == torch.bfloat16
     entry = (lib.sat_attention_bwd_bf16 if bf16
              else lib.sat_attention_bwd_f32)
     with torch.cuda.device(dev):
@@ -266,6 +307,35 @@ def attention_bwd(keys, feats, u_h, v, alpha, dctx, dalpha,
 # host calls that launch the f32 and the bf16 kernel; not CPU, not replays
 attention_bwd.launches = 0
 attention_bwd.launches_bf16 = 0
+
+
+def attention_bwd_fake(keys, feats, u_h, v, alpha, dctx, dalpha,
+                       want_dfeats):
+    """`sat::attention_bwd`'s shapes and dtypes, for tracing: no launch."""
+    B, L, E = keys.shape
+    f32 = {"dtype": torch.float32}
+    return (keys.new_empty((B, L, E)),
+            feats.new_empty((B, L, feats.shape[2]) if want_dfeats else (0,)),
+            u_h.new_empty((B, E), **f32), v.new_empty((E,), **f32),
+            v.new_empty((1,), **f32))
+
+
+# the operators (ops/__init__.py: the namespace and its rules)
+_LIB = torch.library.Library("sat", "FRAGMENT")
+_LIB.define("attention_fwd(Tensor keys, Tensor feats, Tensor u_h, Tensor v, "
+            "Tensor b_v, int rows_per_image) -> (Tensor ctx, Tensor alpha)")
+_LIB.impl("attention_fwd", attention_plain, "CPU")
+_LIB.impl("attention_fwd", attention_fwd_cuda, "CUDA")
+torch.library.register_fake("sat::attention_fwd", attention_fwd_fake,
+                            lib=_LIB)
+_LIB.define("attention_bwd(Tensor keys, Tensor feats, Tensor u_h, Tensor v, "
+            "Tensor alpha, Tensor dctx, Tensor dalpha, bool want_dfeats) -> "
+            "(Tensor dkeys, Tensor dfeats, Tensor du_h, Tensor dv, "
+            "Tensor db_v)")
+_LIB.impl("attention_bwd", attention_bwd_cpu, "CPU")
+_LIB.impl("attention_bwd", attention_bwd_cuda, "CUDA")
+torch.library.register_fake("sat::attention_bwd", attention_bwd_fake,
+                            lib=_LIB)
 
 
 class FusedAttention(torch.autograd.Function):

@@ -12,8 +12,13 @@ form: that is a stable descending sort after NaN -> -inf.
 The kernel (csrc/topk.cu) replaces sat_tpu/ops/topk.py::_topk_kernel; its
 source note gives the bound and the design: for k <= 16 one pass over each
 row, split across a thread-block cluster of `cluster_size(B)` blocks, and
-for larger k one block per row and k rounds. `topk` runs the plain form for
-CPU tensors only; for a CUDA tensor it launches the kernel or raises.
+for larger k one block per row and k rounds.
+
+`topk` checks its input and calls the operator `sat::topk`, whose CPU
+implementation is the plain form and whose CUDA implementation
+(`topk_cuda`) launches the kernel or raises; its fake implementation gives
+the shapes for tracing (torch.export), so an exported program holds the
+operator and runs the kernel on the card.
 
 In a CUDA graph: the wrapper launches on the current stream and allocates
 through PyTorch, so a capture records it. The first launch of each shape
@@ -74,9 +79,10 @@ def cluster_size(rows: int) -> int:
 
 def topk(x: torch.Tensor, k: int):
     """Exact top-k of each row of x (B, N) f32: (values (B, k) f32,
-    indices (B, k) int64), the same values and indices as `topk_plain`.
-    A CUDA graph may capture it once its shape has launched outside the
-    capture (module note)."""
+    indices (B, k) int64), the same values and indices as `topk_plain`,
+    through the operator `sat::topk` (module note). A CUDA graph may
+    capture it once its shape has launched outside the capture (module
+    note)."""
     if x.dim() != 2:
         raise ValueError(f"topk wants (B, N), got shape {tuple(x.shape)}")
     B, N = x.shape
@@ -85,13 +91,17 @@ def topk(x: torch.Tensor, k: int):
                          f"N={N}, k={k}")
     if x.dtype != torch.float32:
         raise TypeError(f"topk is float32-only, got {x.dtype}")
-    if x.device.type == "cpu":
-        return topk_plain(x, k)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"topk runs on cuda or cpu tensors, got {x.device}")
+    return torch.ops.sat.topk(x, k)
+
+
+def topk_cuda(x: torch.Tensor, k: int):
+    """`sat::topk` on a CUDA tensor: one launch of the kernel, with
+    `cluster_size(B)` blocks a row."""
     if not x.is_contiguous():
         raise ValueError("topk wants a contiguous input")
-    return launch(x, k, cluster_size(B))
+    return launch(x, k, cluster_size(x.shape[0]))
 
 
 def launch(x: torch.Tensor, k: int, cluster: int):
@@ -112,3 +122,18 @@ def launch(x: torch.Tensor, k: int, cluster: int):
 
 
 topk.launches = 0   # host calls that launch; not CPU calls, not replays
+
+
+def topk_fake(x: torch.Tensor, k: int):
+    """`sat::topk`'s shapes and dtypes, for tracing (torch.export): no
+    launch."""
+    B = x.shape[0]
+    return x.new_empty((B, k)), x.new_empty((B, k), dtype=torch.int64)
+
+
+# the operator (ops/__init__.py: the namespace and its rules)
+_LIB = torch.library.Library("sat", "FRAGMENT")
+_LIB.define("topk(Tensor x, int k) -> (Tensor values, Tensor indices)")
+_LIB.impl("topk", topk_plain, "CPU")
+_LIB.impl("topk", topk_cuda, "CUDA")
+torch.library.register_fake("sat::topk", topk_fake, lib=_LIB)

@@ -1024,3 +1024,132 @@ def test_two_replicas_on_one_card_give_one_cards_tokens(cuda):
         torch.testing.assert_close(got["score"], want["score"], rtol=0,
                                    atol=1e-4)
     assert all(c.captures >= 3 for c in two.graphs)
+
+
+def _equal_bits(a, b) -> bool:
+    """Equal bit for bit, floats of 2 or 4 bytes as integer patterns."""
+    if a.is_floating_point():
+        ints = {2: torch.int16, 4: torch.int32}[a.element_size()]
+        a, b = a.view(ints), b.view(ints)
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_operators_give_the_direct_launches_bits(cuda, dtype):
+    """Each wrapper goes through its operator (`sat::topk`,
+    `sat::attention_fwd`, `sat::attention_bwd`) to the same launch code
+    that it called before the operators existed: the same bits as that
+    code called directly, one launch counted a call."""
+    from sat_tpu_torch.ops.fused_attention import (attention_bwd_cuda,
+                                                   attention_fwd_cuda)
+    from sat_tpu_torch.ops.topk import topk_cuda
+
+    x = _rows(7, 128, TOPK_N).to(cuda)
+    before = topk.launches
+    got = topk(x, 5)
+    assert topk.launches == before + 1
+    for a, b in zip(got, topk_cuda(x, 5)):
+        assert _equal_bits(a, b)
+    keys, feats, u_h, v, b_v = _fwd_inputs(3, 16, 5, 196, 512, 512, cuda)
+    keys, feats = keys.to(dtype), feats.to(dtype)
+    attr = "launches_bf16" if dtype == torch.bfloat16 else "launches"
+    before = getattr(attention_fwd, attr)
+    got = attention_fwd(keys, feats, u_h, v, b_v, 5)
+    assert getattr(attention_fwd, attr) == before + 1
+    for a, b in zip(got, attention_fwd_cuda(keys, feats, u_h, v, b_v, 5)):
+        assert _equal_bits(a, b)
+    keys, feats, u_h, v, _, alpha, dctx, dalpha = _bwd_inputs(
+        4, 8, 196, 512, 512, cuda)
+    keys, feats = keys.to(dtype), feats.to(dtype)
+    for want_dfeats in (True, False):
+        before = getattr(attention_bwd, attr)
+        got = attention_bwd(keys, feats, u_h, v, alpha, dctx, dalpha,
+                            want_dfeats)
+        assert getattr(attention_bwd, attr) == before + 1
+        direct = attention_bwd_cuda(keys, feats, u_h, v, alpha, dctx, dalpha,
+                                    want_dfeats)
+        assert (got[1] is None) == (not want_dfeats)
+        assert direct[1].numel() == (direct[0].numel() if want_dfeats
+                                     else 0)
+        for a, b in zip(got, direct):
+            if a is not None:
+                assert _equal_bits(a, b)
+
+
+def test_graph_replay_through_the_operators(cuda):
+    """A CUDA graph captured through the operators replays their kernels:
+    on new inputs copied into its buffers, its outputs are the direct
+    launches' bits, and replays launch nothing from the host."""
+    from sat_tpu_torch.ops.fused_attention import attention_fwd_cuda
+    from sat_tpu_torch.ops.topk import topk_cuda
+    from sat_tpu_torch.utils.graphs import capture
+
+    args = _fwd_inputs(5, 16, 5, 196, 512, 512, cuda)
+    buf = {"x": _rows(8, 16, TOPK_N).to(cuda), "fwd": args}
+
+    def run(b):
+        b["topk"] = topk(b["x"], 5)
+        b["attn"] = attention_fwd(*b["fwd"], 5)
+
+    graph = capture(run, buf)
+    for seed in (9, 10):
+        buf["x"].copy_(_rows(seed, 16, TOPK_N).to(cuda))
+        for dst, src in zip(buf["fwd"], _fwd_inputs(seed, 16, 5, 196, 512,
+                                                    512, cuda)):
+            dst.copy_(src)
+        before = (topk.launches, attention_fwd.launches)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert (topk.launches, attention_fwd.launches) == before
+        for a, b in zip(buf["topk"], topk_cuda(buf["x"], 5)):
+            assert _equal_bits(a, b)
+        for a, b in zip(buf["attn"], attention_fwd_cuda(*buf["fwd"], 5)):
+            assert _equal_bits(a, b)
+
+
+@pytest.mark.parametrize("options", [{}, {"pallas_topk": True},
+                                     {"fast_topk": True, "bf16": True},
+                                     {"decode": "greedy"}],
+                         ids=["default", "topk-kernel", "fast-bf16",
+                              "greedy"])
+def test_artifact_on_the_card_equals_the_live_step(cuda, options, tmp_path):
+    """An artifact exported on the card and loaded back gives the live
+    step's results on its route, bit for bit, through the kernels."""
+    from sat_tpu_torch.compat.jax_params import (decoder_from_jax,
+                                                 encoder_from_jax)
+    from sat_tpu_torch.engine.serving import (build_caption_step,
+                                              export_caption_artifact,
+                                              load_caption_artifact)
+    from sat_tpu_torch.models.decoder import DecoderConfig, init_decoder_params
+    from sat_tpu_torch.models.encoder import init_encoder_params
+
+    gen = torch.Generator().manual_seed(2)
+    cfg = DecoderConfig(vocab_size=300, encoder_dim=512, use_ado=True,
+                        use_attention=True)
+    flat = init_decoder_params(cfg, gen)
+    flat["ado/f_out/b"] = flat["ado/f_out/b"].copy()
+    flat["ado/f_out/b"][1] += 2.0       # some beams complete
+    dec = decoder_from_jax(flat, cfg, cuda)
+    enc = encoder_from_jax(init_encoder_params("vgg19", gen), "vgg19", cuda)
+    images = torch.randn((7, 64, 64, 3), generator=gen)
+    path = str(tmp_path / "caption.pt2")
+    export_caption_artifact(path, "vgg19", cfg, enc, dec, 7, 64, 5,
+                            **options)
+    live = build_caption_step("vgg19", cfg, 5, **options,
+                              **({} if "pallas_topk" in options
+                                 else {"pallas_topk": False}))(
+        enc, dec, images)
+    before = (topk.launches, attention_fwd.launches,
+              attention_fwd.launches_bf16)
+    got = load_caption_artifact(path)(images)
+    torch.cuda.synchronize()
+    steps = (got["tokens"].shape[1] - 1)
+    kernels = (topk.launches - before[0],
+               attention_fwd.launches - before[1],
+               attention_fwd.launches_bf16 - before[2])
+    bf16 = options.get("bf16", False)
+    assert kernels == (steps if options.get("pallas_topk") else 0,
+                       0 if bf16 else steps, steps if bf16 else 0)
+    for k in live:
+        assert _equal_bits(live[k], got[k]), k

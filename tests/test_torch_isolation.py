@@ -1,7 +1,11 @@
 """The port stands alone: it imports neither jax nor sat_tpu, nor the
 packages that only sat_tpu uses and the card's machine lacks (nltk,
 matplotlib, orbax, wandb, skimage, transformers), and its entry points
-refuse to run on the CPU unless asked to."""
+refuse to run on the CPU unless asked to. The one exception is wandb,
+which the port imports as sat_tpu does, lazily, inside its two W&B
+branches (`WANDB_BRANCHES`: the logger's backend and generate_caption's
+restore), and only when asked for: a run without --wandb never imports
+it."""
 
 import ast
 import os
@@ -17,6 +21,9 @@ from tests.test_torch_common import to_np  # noqa: F401  (one torch thread)
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "sat_tpu", "nltk", "matplotlib", "orbax",
              "wandb", "skimage", "transformers"}
+# (file, function) of the only imports of wandb in the port
+WANDB_BRANCHES = {("sat_tpu_torch/utils/logging.py", "__init__"),
+                  ("sat_tpu_torch/generate_caption.py", "restore_from_wandb")}
 
 # The CPU slice at toy size, in a fresh interpreter: tests/conftest.py has
 # already imported jax into this one.
@@ -31,11 +38,13 @@ import sat_tpu_torch.data.bert_prep  # noqa: F401
 import sat_tpu_torch.data.bert_vocab  # noqa: F401
 import sat_tpu_torch.data.vocab  # noqa: F401
 import sat_tpu_torch.evaluate  # noqa: F401
+import sat_tpu_torch.export_reference_pth  # noqa: F401
 import sat_tpu_torch.generate_caption  # noqa: F401
 import sat_tpu_torch.generate_json_data  # noqa: F401
 import sat_tpu_torch.generate_json_data_bert  # noqa: F401
 import sat_tpu_torch.parallel.distributed  # noqa: F401
 import sat_tpu_torch.parallel.mesh  # noqa: F401
+import sat_tpu_torch.port_torchvision  # noqa: F401
 import sat_tpu_torch.serve  # noqa: F401
 import sat_tpu_torch.train_models  # noqa: F401
 import sat_tpu_torch.utils.tables  # noqa: F401
@@ -91,7 +100,7 @@ out = build_caption_step("vgg19", dcfg, 3, decode="greedy", device="cpu")(
 assert out["tokens"].shape == (2, 52) and out["tokens"][0, 0] == 101
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "sat_tpu",
-                                    "transformers"))
+                                    "transformers", "wandb"))
 assert not bad, bad
 print("ISOLATED")
 """
@@ -228,21 +237,80 @@ def _strings(tree):
 
 def _port_files():
     files = sorted((REPO / "sat_tpu_torch").rglob("*.py"))
-    return files + [REPO / "chip_smoke.py", REPO / "time_train_step.py"]
+    return files + [REPO / "chip_smoke.py", REPO / "time_train_step.py",
+                    REPO / "time_op_dispatch.py", REPO / "profile_loss.py"]
+
+
+def _imports(tree):
+    """(node, root package names, enclosing function name or None) of
+    every absolute import in a module."""
+    def walk(node, func):
+        for child in ast.iter_child_nodes(node):
+            inner = (child.name if isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef)) else func)
+            if isinstance(child, ast.Import):
+                yield child, [a.name.split(".")[0] for a in child.names], func
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                yield child, [(child.module or "").split(".")[0]], func
+            yield from walk(child, inner)
+    yield from walk(tree, None)
 
 
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_sat_tpu_imports(path):
+    """No forbidden import, but wandb's inside its two W&B branches."""
     tree = ast.parse(path.read_text(), filename=str(path))
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            roots = [a.name.split(".")[0] for a in node.names]
-        elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            roots = [(node.module or "").split(".")[0]]
-        else:
-            continue
-        assert not FORBIDDEN & set(roots), f"{path}:{node.lineno} {roots}"
+    rel = str(path.relative_to(REPO))
+    for node, roots, func in _imports(tree):
+        allowed = {"wandb"} if (rel, func) in WANDB_BRANCHES else set()
+        assert not (FORBIDDEN - allowed) & set(roots), \
+            f"{path}:{node.lineno} {roots}"
+
+
+def test_wandb_branches_import_it(tmp_path):
+    """The two W&B branches do import wandb (the rule above names real
+    code), and a training run without --wandb never tries to import it,
+    while one with --wandb does (and trains on without it)."""
+    for rel, func in WANDB_BRANCHES:
+        tree = ast.parse((REPO / rel).read_text())
+        assert any(f == func and "wandb" in roots
+                   for _, roots, f in _imports(tree)), (rel, func)
+
+    import importlib.abc
+    from sat_tpu.data import generate_json_data
+    from tests._synth import build_synth_dataset
+
+    from sat_tpu_torch.train import main
+
+    data = str(tmp_path / "data")
+    build_synth_dataset(data, n_train=4, n_val=2, n_test=2, caps_per_img=2,
+                        image_size=32)
+    generate_json_data(f"{data}/dataset.json", data, 2, 1, 10)
+    tried = []
+
+    class Record(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] == "wandb":
+                tried.append(name)
+                raise ImportError(f"{name} is not importable here")
+
+    saved = sys.modules.pop("wandb", None)
+    sys.meta_path.insert(0, Record())
+    try:
+        for run, flags in (("plain", []), ("wandb", ["--wandb"])):
+            res = main(["--data", data, "--checkpoint-dir",
+                        str(tmp_path / run), "--image-size", "32",
+                        "--batch-size", "4", "--epochs", "1", "--tf",
+                        "--attention", "--cache-features", "--device", "cpu",
+                        *flags])
+            assert "bleu4" in res
+            assert tried == ([] if run == "plain" else ["wandb"]), run
+    finally:
+        sys.meta_path[:] = [f for f in sys.meta_path
+                            if not isinstance(f, Record)]
+        if saved is not None:
+            sys.modules["wandb"] = saved
 
 
 def test_entry_points_default_to_cuda():

@@ -14,6 +14,7 @@ exactly."""
 
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -197,13 +198,14 @@ UNPORTED = (NotImplementedError, "ROADMAP.md")
     pytest.param(["--bert-embeddings", "e.npy", "--bert", "--bert-vocab",
                   VOCAB_FILE], (FileNotFoundError, "e.npy"),
                  id="--bert-embeddings"),
-    pytest.param(["--wandb"], UNPORTED, id="--wandb"),
+    pytest.param(DATA + ["--wandb"], None, id="--wandb"),
     pytest.param(DATA + ["--profile-dir", PROFILE_DIR], None,
                  id="--profile-dir"),
     pytest.param(DATA + ["--debug-nans", "--lr", "1e37"],
                  (FloatingPointError, "at epoch 1, step 1"),
                  id="--debug-nans")])
-def test_unported_training_flags_raise(flags, error, tmp_path, data):
+def test_unported_training_flags_raise(flags, error, tmp_path, data,
+                                       capsys):
     """The options still unported raise NotImplementedError naming
     ROADMAP.md. The BERT flags are ported: each case reaches the BERT
     path, which asks for --bert-vocab without it, and otherwise reads the
@@ -215,7 +217,9 @@ def test_unported_training_flags_raise(flags, error, tmp_path, data):
     the synthetic dataset, the first writing its trace into the directory,
     the second stopping at the step whose loss is not finite (the first
     update at lr 1e37 leaves parameters of about 1e37;
-    tests/test_torch_tooling.py has both per batch and blocked)."""
+    tests/test_torch_tooling.py has both per batch and blocked).
+    --wandb is ported: without wandb installed it prints sat_tpu's message
+    and trains an epoch (tests/test_torch_wandb.py: the W&B calls)."""
     from tests._synth import write_synthetic_bert_vocab
 
     from sat_tpu_torch.train import main
@@ -231,7 +235,12 @@ def test_unported_training_flags_raise(flags, error, tmp_path, data):
                    for f in flags[1:]]]
     argv = ["--data", "nowhere", "--device", "cpu"] + flags
     if error is None:
-        assert "bleu4" in main(argv)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setitem(sys.modules, "wandb", None)     # not installed
+            assert "bleu4" in main(argv)
+        if "--wandb" in flags:
+            assert ("wandb requested but not installed; continuing without "
+                    "it") in capsys.readouterr().out
         if "--profile-dir" in flags:
             traces = os.listdir(tmp_path / "prof")
             assert len(traces) == 1 and traces[0].endswith(".pt.trace.json")
