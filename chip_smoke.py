@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (sat_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0] [--out DIR] [--phase parallel|export]
+    python3 chip_smoke.py [--seed 0] [--out DIR]
+                          [--phase parallel|export|tensor_parallel]
 
 Run from the root of a checkout. It builds the CUDA kernels from the
 sources in the checkout and drives the port's serving path at the flagship
@@ -37,7 +38,9 @@ failed check exits non-zero and no result line is printed:
                (128, 152,610) rows at each cluster size, with ties on both
                sides of every split; the sampler's (128, 30,522) at k = 10
                and 50; the forward at E = 768, f32 and bf16, also on a
-               ragged last tile; the backward at E = 768)
+               ragged last tile; the backward at E = 768; top-k over a
+               model rank's (128, 76,305) rows of the vocab-sharded BERT
+               beam)
   4. main    — the worst case (stop-token logits pinned to -1e9, so every
                beam runs all 51 steps) through a new build_caption_step,
                whose first batch captures the beam's CUDA graphs (the
@@ -182,6 +185,32 @@ failed check exits non-zero and no result line is printed:
                their graphs, the same tokens bit for bit, decode ms three
                times each in turns (the kernels phase times the sort route
                beside torch.topk at each top-k row's shape: `sort_ms`)
+  7e. tensor_parallel — the vocab-sharded head (--mesh-model 2) at
+               bert-att's full width (VGG19 grid 196 x 512, E = 768, V =
+               30,522, a bank of 512 grids, B = 64): (a) two gloo ranks
+               on the card at data 1 x model 2 against one process on the
+               same 8 batches, dropout 0: each step's loss, acc1, acc5 and
+               caption length, the parameters and Adam moments joined over
+               the group, a K = 8 block (eager under gloo) equal to the
+               ranks' steps, the evaluation's argmax tokens and BLEU at
+               the start weights, the train state written after 4 steps
+               and resumed by this process, a B = 128 beam-5 worst-case
+               batch decoded by the group (tokens, lengths and completion
+               equal to one card's; top-k at each rank's (128, 76,305)
+               rows, held to its plain form, 51 launches a rank); (b) four
+               gloo ranks at 2 x 2 with the bank sharded over the data
+               ranks against the same process, one step of data rank 0
+               profiled (its attention launches at 32 rows equal to the
+               host's count, the kernels at those rows held to their plain
+               forms), at dropout 0.5 the four ranks' replicated parameters
+               bit-equal; (c) NCCL at world size 1 through the grid's code
+               (a one-way sharded bank): the block's graph captured and bit
+               for bit a plain process's; (d) a fresh `train --mesh-model
+               2` at the flagship's V = 2,633, refused with the
+               divisibility message; each rank's bytes of its vocabulary
+               shards and its bank (the ranks `chip_smoke.py --tp-rank R
+               --tp-spec JSON` processes; nothing here measures a speed-up
+               across cards)
   8. data    — the data layer from raw files at the flagship's width: a
                Karpathy split of 512 train, 128 val and 16 test images of
                640 x 480 and 500 x 375 (half JPEG, half PNG, four
@@ -3284,6 +3313,555 @@ def phase_parallel(root: str, enc_path: str, dcfg, worst_flat, enc_flat,
                                                      "nccl_block_profile")})
     return res
 
+# The tensor_parallel phase: sat_tpu's bert-att run (VGG19 grid, E = 768,
+# V = 30,522) with the vocabulary split over TP_M model ranks
+TP_M = 2
+TP_DEVICE = "cuda:0"       # every gloo rank's card
+TP_LR = PARITY_LR
+TP_VAL = 4                 # evaluation batches of TRAIN_B rows
+TP_RESUME_AT = 4           # the per-batch run's train state, written here
+TP_TOKEN_SLACK = 2         # of the evaluation's 6,656 argmax tokens
+
+
+def tp_inputs(seed: int, dropout: float = 0.0):
+    """The phase's decoder config (dropout `dropout`), weights, bank of
+    BANK_U grids (CPU), BERT captions, K_BLOCK training batches and TP_VAL
+    evaluation batches of TRAIN_B rows, from the seed: every process of
+    the phase makes the same."""
+    import torch
+    from sat_tpu_torch.models.decoder import DecoderConfig, init_decoder_params
+    gen = torch.Generator().manual_seed(seed + 13)
+    dcfg = DecoderConfig(vocab_size=BERT_V, encoder_dim=D, use_tf=True,
+                         use_ado=True, use_bert=True, use_attention=True,
+                         dropout_rate=dropout)
+    table = (torch.randn((BERT_V, BERT_E), generator=gen) * 0.02).numpy()
+    flat = init_decoder_params(dcfg, gen, bert_embeddings=table)
+    bank = torch.rand((BANK_U, L, D), generator=gen)
+    caps = make_bert_captions(gen, BANK_N)
+    batches = [(torch.randint(0, BANK_U, (TRAIN_B,), generator=gen),
+                torch.randint(0, BANK_N, (TRAIN_B,), generator=gen))
+               for _ in range(K_BLOCK + TP_VAL)]
+    return dcfg, flat, bank, caps, batches[:K_BLOCK], batches[K_BLOCK:]
+
+
+def tp_beam_weights(flat: dict, boost: float | None = None) -> dict:
+    """The beam's weights: the stop set's logits pinned to -1e9 (the worst
+    case: every beam runs all STEPS steps), or with `boost` added to
+    [PAD]'s bias (seeded: beams complete, at different steps)."""
+    out = dict(flat)
+    bias = out["ado/f_out/b"].copy()
+    if boost is None:
+        bias[list(BERT_STOP_IDS)] = -1e9
+    else:
+        bias[BERT_PAD] += boost
+    out["ado/f_out/b"] = bias
+    return out
+
+
+def tp_state(state) -> dict:
+    """A train state's parameters and Adam moments on the host, by name
+    (whole arrays, joined over the model group: every rank of the group
+    calls it)."""
+    from sat_tpu_torch.compat.jax_params import whole_state_dict
+    from sat_tpu_torch.engine.checkpoint import whole_optimizer_state
+    dec = state.decoder
+    out = {f"param/{k}": v.cpu() for k, v in whole_state_dict(dec).items()}
+    names = [n for n, p in dec.named_parameters() if p.requires_grad]
+    opt = whole_optimizer_state(state.optimizer, dec)["state"]
+    for i, st in opt.items():
+        for k in ("exp_avg", "exp_avg_sq"):
+            out[f"{k}/{names[i]}"] = st[k].cpu()
+    return out
+
+
+def tp_diffs(a: dict, b: dict, skip=("attention.v.bias",)) -> dict:
+    """Per tensor of two `tp_state`s: (max abs diff, elements beyond 3e-4,
+    size), parameters and moments both; `skip` the score bias's (its
+    gradient is zero but for rounding)."""
+    out = {}
+    for k, x in a.items():
+        if not any(k.endswith(s) for s in skip):
+            d = (x.double() - b[k].double()).abs()
+            out[k] = (d.max().item(), int((d > 3e-4).sum()), d.numel())
+    return out
+
+
+def tp_bleu(tokens, caps) -> dict:
+    """BLEU-1..4 of argmax token rows against each row's caption, ids as
+    words (engine/evaluate.py's BLEU)."""
+    from sat_tpu_torch.engine.evaluate import compute_bleu
+    hyps = [[str(t) for t in row] for row in tokens.tolist()]
+    refs = [[[str(t) for t in row[1:]]] for row in caps.tolist()]
+    return compute_bleu(refs, hyps)
+
+
+def bwd_check(name: str, gen, Bx: int, Lx: int, Dx: int, Ex: int) -> dict:
+    """attention_bwd at (Bx, Lx, Ex, Dx), R = 1, without dfeats (the bank
+    step's call) against its plain form: dkeys and du_h within 1e-5, dv
+    and db_v within 1e-4 of their size (attention_bwd_row's bounds)."""
+    import torch
+    from sat_tpu_torch.ops.fused_attention import (attention_bwd,
+                                                   attention_bwd_plain,
+                                                   attention_plain)
+    keys, feats, u_h, v, b_v, _ = fwd_inputs(gen, Bx, 1, Lx, Dx, Ex)
+    dctx = torch.randn((Bx, Dx), generator=gen).cuda()
+    dalpha = torch.randn((Bx, Lx), generator=gen).cuda()
+    _, alpha = attention_plain(keys, feats, u_h, v, b_v)
+    args = (keys, feats, u_h, v, alpha, dctx, dalpha)
+    got = attention_bwd(*args, want_dfeats=False)
+    ref = attention_bwd_plain(*args, want_dfeats=False)
+    torch.cuda.synchronize()
+    g = torch.bmm(feats, dctx[:, :, None])[:, :, 0] + dalpha
+    de_max = (alpha * (g - (alpha * g).sum(1, keepdim=True))).abs().max()
+    errs = {k: (got[i] - ref[i]).abs().max().item()
+            for i, k in ((0, "dkeys"), (2, "du_h"), (3, "dv"), (4, "db_v"))}
+    check(errs["dkeys"] <= 1e-5 and errs["du_h"] <= 1e-5
+          and errs["dv"] <= 1e-4 * ref[3].abs().max().item()
+          and errs["db_v"] <= 1e-4 * de_max.item(),
+          f"{name}: errors {errs} beyond their bounds")
+    return errs
+
+
+def tp_rank(rank: int, spec: dict) -> None:
+    """One gloo rank of the tensor_parallel phase on cuda:0, at data
+    spec["n_data"] x model TP_M. Grid (a), 1 x 2: K_BLOCK per-batch bank
+    steps (the train state written after TP_RESUME_AT of them), one
+    K_BLOCK block from the same start, the evaluation batches, the
+    worst-case beam at B = 128 (top-k at each rank's (128, 5 x V/2)).
+    Grid (b), 2 x 2: the K_BLOCK steps with the bank sharded over the data
+    ranks (each data rank's rows of every batch; attention at its rows,
+    held to the plain forms and profiled), then two steps at dropout 0.5.
+    Prints one JSON line; rank 0 writes the whole states."""
+    import dataclasses
+
+    import torch
+    from sat_tpu_torch.compat.jax_params import (decoder_from_jax,
+                                                 whole_state_dict)
+    from sat_tpu_torch.device import use_f32_math
+    from sat_tpu_torch.engine import checkpoint as ckpt
+    from sat_tpu_torch.engine.loop import dropout_seed
+    from sat_tpu_torch.models.beam import beam_search_batched
+    from sat_tpu_torch.ops.topk import topk, topk_plain
+    from sat_tpu_torch.parallel import distributed as dist
+    from sat_tpu_torch.parallel.mesh import VOCAB_SHARDED_TORCH
+    from sat_tpu_torch.parallel.train_step import (init_train_state,
+                                                   make_bank_eval_step,
+                                                   make_bank_train_block,
+                                                   make_bank_train_step)
+    from sat_tpu_torch.parallel.vocab import VocabShard
+
+    n_data, out_dir = spec["n_data"], spec["dir"]
+    dist.initialize(TP_DEVICE, backend="gloo", init_method=spec["init"],
+                    rank=rank, world_size=n_data * TP_M, local_rank=rank,
+                    local_world_size=n_data * TP_M)
+    dist.setup_grid(TP_M)
+    use_f32_math()
+    i, j = dist.data_index(), dist.model_index()
+    shard = VocabShard(j, TP_M, dist.model_group(), BERT_V)
+    dcfg, flat, bank, caps, batches, val = tp_inputs(spec["seed"])
+    rows = TRAIN_B // n_data
+    own = slice(i * rows, (i + 1) * rows)
+    if n_data > 1:                  # this data rank's rows of each bank
+        bank, caps = bank.chunk(n_data)[i], caps.chunk(n_data)[i]
+    bank, caps = bank.cuda(), caps.cuda()
+    batches = [(a[own].cuda(), b[own].cuda()) for a, b in batches]
+    sharded = n_data > 1
+    out = {"rank": rank, "cell": [i, j], "device": str(bank.device),
+           "backend": dist.backend()}
+
+    def fresh(cfg=dcfg):
+        return init_train_state(decoder_from_jax(
+            flat, cfg, TP_DEVICE, trainable=True, vocab_shard=shard))
+
+    state = fresh()
+    if not sharded:
+        # the evaluation batches, at the start weights
+        ev = make_bank_eval_step(dcfg, 1.0, distributed=True)
+        toks = [ev(state.decoder, bank, caps, a.cuda(), b.cuda(),
+                   n_rows=TRAIN_B)[1].cpu() for a, b in val]
+        if rank == 0:
+            torch.save(torch.cat(toks), os.path.join(out_dir,
+                                                     "tp_eval_tokens.pt"))
+    sd = state.decoder.state_dict()
+    out["bytes"] = {
+        "sharded_params": sum(sd[k].nbytes for k in VOCAB_SHARDED_TORCH),
+        "bank": bank.nbytes + caps.nbytes}
+    step = make_bank_train_step(dcfg, 1.0, distributed=True,
+                                sharded_bank=sharded)
+    metrics = []
+    reset_launches()
+    t0 = time.perf_counter()
+    for s, (ii, ri) in enumerate(batches):
+        if sharded and s == 1 and rank == 0:   # one step profiled
+            host = read_launches()
+            prof = profile_run(lambda: step(state, bank, caps, ii, ri,
+                                            TP_LR, None, n_rows=TRAIN_B))
+            step_host = {k: read_launches()[k] - host[k] for k in host}
+            out["profile_kernel_calls"] = prof["kernel_calls"]
+            out["profile_host_launches"] = step_host
+            check(all(prof["kernel_calls"][k] == step_host[k]
+                      for k in ("attention_fwd", "attention_bwd"))
+                  and step_host["attention_bwd"] == T,
+                  f"tensor_parallel: rank {rank}'s profiled step ran "
+                  f"{prof['kernel_calls']} on the device, {step_host} from "
+                  f"the host")
+            m = None
+        else:
+            state, m = step(state, bank, caps, ii, ri, TP_LR, None,
+                            n_rows=TRAIN_B)
+        metrics.append(None if m is None else
+                       {k: float(v) for k, v in m.items()})
+        if not sharded and s + 1 == TP_RESUME_AT:
+            tree = {"decoder": whole_state_dict(state.decoder),
+                    "optimizer": ckpt.whole_optimizer_state(
+                        state.optimizer, state.decoder),
+                    "step": state.step, "epoch": 1,
+                    "batch_offset": TP_RESUME_AT, "dropout_generator": None}
+            if rank == 0:
+                ckpt.save_train_state(out_dir, state.step, tree)
+    torch.cuda.synchronize()
+    out["steps_seconds"] = time.perf_counter() - t0
+    out["step_launches"] = read_launches()
+    out["metrics"] = metrics
+    final = tp_state(state)
+    if rank == 0:
+        torch.save(final, os.path.join(out_dir, f"tp_{n_data}x{TP_M}.pt"))
+
+    gen = torch.Generator().manual_seed(spec["seed"] + 17 + rank)
+    if sharded:
+        # the kernels at a data rank's rows, against their plain forms
+        _, out["attention_fwd_errors"] = fwd_check(
+            "tensor_parallel attention_fwd", gen, rows, 1, L, D, BERT_E,
+            False)
+        out["attention_bwd_errors"] = bwd_check(
+            "tensor_parallel attention_bwd", gen, rows, L, D, BERT_E)
+        # dropout 0.5: one mask a model group
+        cfg = dataclasses.replace(dcfg, dropout_rate=0.5)
+        state = fresh(cfg)
+        dgen = torch.Generator(device=TP_DEVICE).manual_seed(
+            dropout_seed(spec["seed"], i))
+        drop = make_bank_train_step(cfg, 1.0, distributed=True,
+                                    sharded_bank=True)
+        for ii, ri in batches[:2]:
+            state, _ = drop(state, bank, caps, ii, ri, TP_LR, dgen,
+                            n_rows=TRAIN_B)
+        torch.save({k: v.cpu() for k, v in state.decoder.state_dict().items()
+                    if k not in VOCAB_SHARDED_TORCH},
+                   os.path.join(out_dir, f"tp_dropout_{rank}.pt"))
+    else:
+        # the block from the same start: K_BLOCK eager steps under gloo
+        block_state = fresh()
+        block = make_bank_train_block(dcfg, 1.0, distributed=True)
+        block_state, _ = block(block_state, bank, caps,
+                               torch.stack([a for a, _ in batches]),
+                               torch.stack([b for _, b in batches]), TP_LR,
+                               None, n_rows=TRAIN_B)
+        got = tp_state(block_state)
+        out["block_equal"] = (not block.captured and all(
+            torch.equal(got[k], final[k]) for k in final))
+        # the worst-case beam of the group, each rank's top-k at its rows
+        x, _ = bert_topk_inputs(gen, BERT_V // TP_M)
+        check(all(torch.equal(a, b) for a, b in zip(topk(x, BEAM),
+                                                    topk_plain(x, BEAM))),
+              f"tensor_parallel: rank {rank}'s top-k at {tuple(x.shape)} "
+              f"differs from its plain form")
+        del x
+        feats = torch.load(os.path.join(out_dir, "tp_feats.pt")).cuda()
+        for name, boost in (("worst", None), ("seeded", spec["boost"])):
+            dec = decoder_from_jax(tp_beam_weights(flat, boost), dcfg,
+                                   TP_DEVICE, vocab_shard=shard)
+            reset_launches()
+            t0 = time.perf_counter()
+            res = beam_search_batched(dec, feats, BEAM)
+            torch.cuda.synchronize()
+            out[f"beam_{name}_seconds"] = time.perf_counter() - t0
+            out[f"beam_{name}_launches"] = read_launches()
+            if rank == 0:
+                torch.save({k: v.cpu() for k, v in res._asdict().items()},
+                           os.path.join(out_dir, f"tp_beam_{name}.pt"))
+    dist.shutdown()
+    print(json.dumps(out), flush=True)
+
+
+def phase_tensor_parallel(seed: int, enc_flat, images) -> dict:
+    """The vocab-sharded head (--mesh-model 2) at bert-att's full width on
+    the one card: (a) two gloo ranks at 1 x 2 against one process on the
+    same K_BLOCK batches of TRAIN_B rows (per batch and one block, dropout
+    0: losses, metrics, parameters and Adam moments joined over the
+    group; the evaluation tokens and their BLEU; the train state written
+    after TP_RESUME_AT steps, resumed by this process; the worst-case beam
+    at B = 128 against one card's); (b) four gloo ranks at 2 x 2 with the
+    bank sharded over the data ranks against the same process, and at
+    dropout 0.5 the replicated parameters of all four ranks bit-equal; (c)
+    NCCL at world size 1 through the grid's code (the bank's sharded
+    gather one-way), the block's graph captured and bit for bit a plain
+    process's block; (d) `train --mesh-model 2` at the flagship's V =
+    2,633, refused at start-up by a fresh process. Every rank's bytes of
+    the vocabulary shards and of its bank. Nothing here measures a
+    speed-up across cards: the machine has one."""
+    import torch
+    from sat_tpu_torch.compat.jax_params import (decoder_from_jax,
+                                                 encoder_from_jax)
+    from sat_tpu_torch.engine import checkpoint as ckpt
+    from sat_tpu_torch.models.beam import beam_search_batched
+    from sat_tpu_torch.models.encoder import encoder_forward
+    from sat_tpu_torch.parallel import distributed as dist
+    from sat_tpu_torch.parallel.train_step import (init_train_state,
+                                                   make_bank_eval_step,
+                                                   make_bank_train_block,
+                                                   make_bank_train_step,
+                                                   place_optimizer_state)
+
+    res = {"phase": "tensor_parallel", "grid": f"model {TP_M}",
+           "shape": f"bert-att: L = {L}, D = {D}, E = {BERT_E}, V = "
+                    f"{BERT_V}, bank {BANK_U} grids, B = {TRAIN_B}"}
+    t_phase = time.perf_counter()
+    dcfg, flat, bank, caps, batches, val = tp_inputs(seed)
+    bank_gpu, caps_gpu = bank.cuda(), caps.cuda()
+    batches_gpu = [(a.cuda(), b.cuda()) for a, b in batches]
+    with tempfile.TemporaryDirectory() as tmp:
+        # one card's beam input and result (worst case), then the ranks
+        enc = encoder_from_jax(enc_flat, "vgg19", "cuda")
+        feats = encoder_forward(enc, "vgg19", images[:B]).clone()
+        del enc
+        torch.save(feats.cpu(), os.path.join(tmp, "tp_feats.pt"))
+        boost = pad_boost(decoder_from_jax(flat, dcfg, "cuda"), feats[:32])
+        procs = []
+        for n_data in (1, 2):
+            spec = {"n_data": n_data, "dir": tmp, "seed": seed,
+                    "boost": boost,
+                    "init": "file://" + os.path.join(tmp, f"rdv{n_data}")}
+            procs += [subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--tp-rank",
+                 str(r), "--tp-spec", json.dumps(spec)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                cwd=REPO_DIR, env=cli_env()) for r in range(n_data * TP_M)]
+        # (d) while the ranks run: a fresh train process at V = 2,633
+        vocab_dir = os.path.join(tmp, "vocab2633")
+        os.makedirs(vocab_dir)
+        with open(os.path.join(vocab_dir, "word_dict.json"), "w") as f:
+            json.dump({f"w{k}": k for k in range(VOCAB)}, f)
+        refused = subprocess.run(
+            [sys.executable, "-m", "sat_tpu_torch.train", "--data",
+             vocab_dir, "--mesh-model", str(TP_M), "--tf", "--ado",
+             "--attention"], capture_output=True, text=True, timeout=300,
+            cwd=REPO_DIR, env=cli_env())
+        message = (f"the vocabulary ({VOCAB} words) is not divisible by "
+                   f"--mesh-model {TP_M}")
+        check(refused.returncode != 0 and message in refused.stderr,
+              f"tensor_parallel: train --mesh-model {TP_M} at V = {VOCAB} "
+              f"exit {refused.returncode}: {refused.stderr[-1000:]}")
+        res["refusal"] = message
+
+        # one process on the same batches
+        one_beam = {name: beam_search_batched(decoder_from_jax(
+            tp_beam_weights(flat, b), dcfg, "cuda"), feats, BEAM)
+            for name, b in (("worst", None), ("seeded", boost))}
+        state = init_train_state(decoder_from_jax(flat, dcfg, "cuda",
+                                                  trainable=True))
+        ev = make_bank_eval_step(dcfg, 1.0)
+        one_tokens = torch.cat([ev(state.decoder, bank_gpu, caps_gpu,
+                                   a.cuda(), b.cuda())[1].cpu()
+                                for a, b in val])
+        step = make_bank_train_step(dcfg, 1.0)
+        one_metrics = []
+        for ii, ri in batches_gpu:
+            state, m = step(state, bank_gpu, caps_gpu, ii, ri, TP_LR, None)
+            one_metrics.append({k: float(v) for k, v in m.items()})
+        one = tp_state(state)
+        del state
+
+        # (c) NCCL at world size 1 through the grid's code
+        env = dict(MASTER_ADDR="localhost", MASTER_PORT=str(free_port()),
+                   RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                   LOCAL_WORLD_SIZE="1")
+        blk_img = torch.stack([a for a, _ in batches_gpu])
+        blk_row = torch.stack([b for _, b in batches_gpu])
+        plain = init_train_state(decoder_from_jax(flat, dcfg, "cuda",
+                                                  trainable=True))
+        plain, _ = make_bank_train_block(dcfg, 1.0)(
+            plain, bank_gpu, caps_gpu, blk_img, blk_row, TP_LR, None)
+        plain = tp_state(plain)
+        os.environ.update(env)
+        try:
+            check(dist.initialize("cuda") == torch.device("cuda", 0)
+                  and dist.backend() == "nccl",
+                  "tensor_parallel: no NCCL group")
+            dist.setup_grid(1)
+            nccl = init_train_state(decoder_from_jax(flat, dcfg, "cuda",
+                                                     trainable=True))
+            block = make_bank_train_block(dcfg, 1.0, distributed=True,
+                                          sharded_bank=True)
+            nccl, _ = block(nccl, bank_gpu, caps_gpu, blk_img, blk_row,
+                            TP_LR, None, n_rows=TRAIN_B)
+            check(block.captured and block.graphs.captures == 1,
+                  "tensor_parallel: the NCCL block was not captured")
+            nccl = tp_state(nccl)
+        finally:
+            dist.shutdown()
+            for k in env:
+                os.environ.pop(k, None)
+        res["nccl_world1_max_abs_diff"] = max(
+            d for d, _, _ in tp_diffs(nccl, plain, skip=()).values())
+        check(res["nccl_world1_max_abs_diff"] == 0,
+              "tensor_parallel: the NCCL block with the one-way bank differs "
+              "from a plain process's block")
+        del nccl, plain
+
+        ranks = []
+        try:
+            for proc in procs:
+                stdout, stderr = proc.communicate(timeout=400)
+                check(proc.returncode == 0,
+                      f"tensor_parallel: rank exit {proc.returncode}: "
+                      f"{stderr[-2000:]}")
+                ranks.append(json.loads(stdout.strip().splitlines()[-1]))
+        finally:
+            for proc in procs:      # a failed rank leaves its peers waiting
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        res["ranks_seconds"] = time.perf_counter() - t_phase
+        a_ranks, b_ranks = ranks[:TP_M], ranks[TP_M:]
+
+        # (a) 1 x 2 against one process
+        for r in a_ranks:
+            for got, want in zip(r["metrics"], one_metrics):
+                check(abs(got["loss"] - want["loss"]) <= 1e-5 * abs(
+                    want["loss"]) and got["caption_length"]
+                      == want["caption_length"]
+                      and abs(got["acc1"] - want["acc1"]) <= 1e-4
+                      and abs(got["acc5"] - want["acc5"]) <= 1e-4,
+                      f"tensor_parallel: rank {r['rank']}'s step {got} vs "
+                      f"one process {want}")
+            check(r["block_equal"], f"tensor_parallel: rank {r['rank']}'s "
+                                    f"block differs from its steps")
+            check(r["step_launches"] == counts(attention_fwd=K_BLOCK * 2 * T,
+                                               attention_bwd=K_BLOCK * T),
+                  f"tensor_parallel: rank {r['rank']}'s step launches "
+                  f"{r['step_launches']}")
+            check(r["beam_worst_launches"] == counts(topk=STEPS,
+                                                     attention_fwd=STEPS),
+                  f"tensor_parallel: rank {r['rank']}'s worst-case beam "
+                  f"launches {r['beam_worst_launches']}, expected {STEPS} "
+                  f"of top-k and attention_fwd")
+        diffs = tp_diffs(torch.load(os.path.join(tmp, f"tp_1x{TP_M}.pt")),
+                         one)
+        res["a"] = {
+            "params_max_abs_diff": max(d for k, (d, _, _) in diffs.items()
+                                       if k.startswith("param/")),
+            "moments_max_abs_diff": max(d for k, (d, _, _) in diffs.items()
+                                        if not k.startswith("param/")),
+            "elements_beyond_3e-4": sum(n for _, n, _ in diffs.values()),
+            "losses": [m["loss"] for m in a_ranks[0]["metrics"]],
+            "one_process_losses": [m["loss"] for m in one_metrics]}
+        check(params_close(diffs, K_BLOCK, TP_LR),
+              f"tensor_parallel: 1 x {TP_M} ends elsewhere than one process: "
+              f"{ {k: v for k, v in diffs.items() if v[1]} }")
+        # the evaluation at the start weights: the argmax over the group
+        # against one process's (TP_TOKEN_SLACK positions may take the
+        # other side of a near-tie: the heads' products, cut in two, may
+        # round differently)
+        tokens = torch.load(os.path.join(tmp, "tp_eval_tokens.pt"))
+        val_caps = torch.cat([caps[b] for _, b in val])
+        res["a"]["bleu"] = tp_bleu(tokens, val_caps)
+        res["a"]["one_process_bleu"] = tp_bleu(one_tokens, val_caps)
+        res["a"]["eval_tokens_differing"] = int((tokens != one_tokens).sum())
+        check(res["a"]["eval_tokens_differing"] <= TP_TOKEN_SLACK
+              and all(abs(res["a"]["bleu"][k] - v) <= 1e-3
+                      for k, v in res["a"]["one_process_bleu"].items()),
+              f"tensor_parallel: the evaluation's tokens ("
+              f"{res['a']['eval_tokens_differing']} differ) or BLEU "
+              f"{res['a']['bleu']} differ from one process's "
+              f"{res['a']['one_process_bleu']}")
+        # the train state of the group, resumed by one process
+        step_n = ckpt.latest_train_state_step(tmp)
+        check(step_n == TP_RESUME_AT, f"tensor_parallel: train state at "
+                                      f"step {step_n}")
+        tree = ckpt.restore_train_state(tmp, step_n, "cuda")
+        state = init_train_state(decoder_from_jax(flat, dcfg, "cuda",
+                                                  trainable=True))
+        state.decoder.load_state_dict(tree["decoder"])
+        state.optimizer.load_state_dict(tree["optimizer"])
+        place_optimizer_state(state.optimizer)
+        state.step = int(tree["step"])
+        for ii, ri in batches_gpu[TP_RESUME_AT:]:
+            state, _ = step(state, bank_gpu, caps_gpu, ii, ri, TP_LR, None)
+        diffs = tp_diffs(tp_state(state), one)
+        res["a"]["resumed_max_abs_diff"] = max(
+            d for d, _, _ in diffs.values())
+        check(params_close(diffs, K_BLOCK, TP_LR),
+              f"tensor_parallel: the group's state resumed by one process "
+              f"ends elsewhere: {({k: v for k, v in diffs.items() if v[1]})}")
+        del state
+        # the beams of the group against one card's: worst case (no beam
+        # completes, so the tokens are all zero) and seeded
+        res["a"]["beam"] = {}
+        for name, want in one_beam.items():
+            beam = torch.load(os.path.join(tmp, f"tp_beam_{name}.pt"))
+            for k in ("tokens", "length", "found"):
+                check(torch.equal(beam[k], getattr(want, k).cpu()),
+                      f"tensor_parallel: the group's {name} beam {k} differ "
+                      f"from one card's")
+            found = beam["found"]
+            res["a"]["beam"][name] = {
+                "found": int(found.sum()),
+                "score_max_abs_diff": (beam["score"] - want.score.cpu())[
+                    found].abs().max().item() if found.any() else None,
+                "alphas_max_abs_diff": (beam["alphas"] - want.alphas.cpu())
+                .abs().max().item(),
+                "seconds": [r[f"beam_{name}_seconds"] for r in a_ranks],
+                "launches": [r[f"beam_{name}_launches"] for r in a_ranks]}
+        check(res["a"]["beam"]["seeded"]["found"] > 0,
+              "tensor_parallel: no seeded beam completed")
+        res["a"]["beam"]["pad_boost"] = boost
+
+        # (b) 2 x 2, the bank sharded, against the same process
+        diffs = tp_diffs(torch.load(os.path.join(tmp, f"tp_2x{TP_M}.pt")),
+                         one)
+        res["b"] = {
+            "params_max_abs_diff": max(d for k, (d, _, _) in diffs.items()
+                                       if k.startswith("param/")),
+            "moments_max_abs_diff": max(d for k, (d, _, _) in diffs.items()
+                                        if not k.startswith("param/")),
+            "elements_beyond_3e-4": sum(n for _, n, _ in diffs.values()),
+            "profiles": [{k: r[k] for k in ("cell", "profile_kernel_calls",
+                                             "profile_host_launches")}
+                         for r in b_ranks if "profile_kernel_calls" in r],
+            "attention_errors": [{k: r[k] for k in (
+                "attention_fwd_errors", "attention_bwd_errors")}
+                for r in b_ranks]}
+        check(params_close(diffs, K_BLOCK, TP_LR),
+              f"tensor_parallel: 2 x {TP_M} ends elsewhere than one process: "
+              f"{ {k: v for k, v in diffs.items() if v[1]} }")
+        for r in b_ranks:
+            check(all(got is None or abs(got["loss"] - want["loss"])
+                      <= 1e-5 * abs(want["loss"])
+                      for got, want in zip(r["metrics"], one_metrics)),
+                  f"tensor_parallel: rank {r['rank']}'s (2 x 2) losses")
+        drop = [torch.load(os.path.join(tmp, f"tp_dropout_{r}.pt"))
+                for r in range(2 * TP_M)]
+        res["b"]["dropout_replicated_equal"] = all(
+            torch.equal(d[k], drop[0][k]) for d in drop[1:] for k in drop[0])
+        check(res["b"]["dropout_replicated_equal"],
+              "tensor_parallel: at dropout 0.5 the ranks' replicated "
+              "parameters differ")
+    whole_params = sum(v.nbytes for k, v in one.items()
+                       if k.startswith("param/") and any(
+                           k.endswith(s) for s in (
+                               "embedding.weight", "deep_output.weight",
+                               "deep_output.bias", "f_out.weight",
+                               "f_out.bias")))
+    res["bytes"] = {"whole_sharded_params": whole_params,
+                    "whole_bank": bank.nbytes + caps.nbytes,
+                    "ranks": [{"cell": r["cell"], **r["bytes"]}
+                              for r in ranks]}
+    res["rank_seconds"] = [r["steps_seconds"] for r in ranks]
+    res["seconds"] = time.perf_counter() - t_phase
+    emit({k: v for k, v in res.items() if k != "b"})
+    return res
+
+
 def phase_cli(root: str, ckpt_dir: str, enc_path: str, resnet) -> dict:
     """The CLIs as fresh processes, on the entry phase's dataset and
     model: generate_caption on a ResNet152 model (beam, its PNG; sample
@@ -3591,8 +4169,8 @@ BERT_UNK = 100
 BERT_STOP_IDS = (1, 0)
 
 
-def bert_topk_inputs(gen):
-    """The BERT beam's candidate block, (B, 5 x 30,522): random rows with
+def bert_topk_inputs(gen, vocab: int = BERT_V):
+    """The BERT beam's candidate block, (B, 5 x vocab): random rows with
     step 1's layout in 8 of them (row 0 live only), and adversarial rows:
     equal maxima on both sides of each split point of the rows between the
     blocks of a cluster of 2 (rows 8-23) and of 4 (rows 24-39), and at the
@@ -3600,9 +4178,9 @@ def bert_topk_inputs(gen):
     A row is 610,440 bytes, 8 mod 16, so its start alternates between 0
     and 8 mod 16 and its head between 0 and 2 scalars."""
     import torch
-    n = BEAM * BERT_V
+    n = BEAM * vocab
     x = torch.randn((B, n), generator=gen)
-    x[:8, BERT_V:] = float("-inf")
+    x[:8, vocab:] = float("-inf")
     adv = torch.randn((B, n), generator=gen)
     adv[0] = torch.randint(0, 3, (n,), generator=gen).float()
     adv[1] = float("-inf")
@@ -3622,15 +4200,17 @@ def bert_topk_inputs(gen):
     return x.cuda(), adv.cuda()
 
 
-def bert_topk_row(peaks, hz, gen) -> dict:
-    """Top-k at the BERT beam's rows, (128, 152,610), k = 5, bit for bit
-    against its plain form on random and adversarial rows at the wrapper's
-    cluster size and at each of 1, 2 and 4; two launches alike; times warm
-    and cold beside the bound, the plain form's and torch.topk's."""
+def bert_topk_row(peaks, hz, gen, vocab: int = BERT_V,
+                  name: str = "topk_bert") -> dict:
+    """Top-k at the BERT beam's rows, (128, 152,610), k = 5 (or at a model
+    rank's (128, 5 x vocab)), bit for bit against its plain form on random
+    and adversarial rows at the wrapper's cluster size and at each of 1, 2
+    and 4; two launches alike; times warm and cold beside the bound, the
+    plain form's and torch.topk's."""
     import torch
     from sat_tpu_torch.ops.topk import (cluster_size, launch, topk,
                                         topk_library, topk_plain)
-    x, adv = bert_topk_inputs(gen)
+    x, adv = bert_topk_inputs(gen, vocab)
     checks = []
     for label, inp in (("random", x), ("adversarial", adv)):
         pv, pi = topk_plain(inp, BEAM)
@@ -3639,18 +4219,18 @@ def bert_topk_row(peaks, hz, gen) -> dict:
                       else launch(inp, BEAM, c))
             torch.cuda.synchronize()
             check(torch.equal(ki, pi) and same_bits(kv, pv),
-                  f"topk_bert: differs from its plain form on {label} rows "
+                  f"{name}: differs from its plain form on {label} rows "
                   f"at cluster {c}")
             checks.append(f"{label}, cluster {c}")
     check(all(map(same_bits, topk(x, BEAM), topk(x, BEAM))),
-          "topk_bert: two launches differ")
+          f"{name}: two launches differ")
     n = x.numel()
     t_bytes = (4 * n + B * BEAM * (4 + 8)) / peaks["bytes_s"]
     t_ops = n / peaks["f32_s"]
-    row = {"name": "topk_bert", "route": "cuda",
+    row = {"name": name, "route": "cuda",
            "source": "sat_tpu_torch/ops/csrc/topk.cu",
            "replaces": "sat_tpu/ops/topk.py:41",
-           "shape": f"x ({B}, {BEAM * BERT_V}) f32, k={BEAM}",
+           "shape": f"x ({B}, {BEAM * vocab}) f32, k={BEAM}",
            "max_abs_err": 0.0, "checks": checks + ["two launches"],
            "cluster": cluster_size(B),
            "ms": time_ms(lambda: topk(x, BEAM), hz),
@@ -3674,7 +4254,9 @@ def bert_kernel_rows(peaks, sfu_s, issue_s, tanh_instr, hz, gen) -> list:
     on a grid of L = 199 whose last block ends in a ragged tile in both
     types (f32 tiles of 2 key rows, bf16 of 5); the backward at (64, 196,
     768, 512), f32 and bf16."""
-    rows = [bert_topk_row(peaks, hz, gen)]
+    rows = [bert_topk_row(peaks, hz, gen),
+            bert_topk_row(peaks, hz, gen, vocab=BERT_V // TP_M,
+                          name="topk_tp")]
     rows += [sample_topk_row(k, peaks, hz, gen, vocab=BERT_V,
                              name=f"topk_bert_k{k}") for k in SAMPLE_KS]
     for bf16 in (False, True):
@@ -4706,7 +5288,8 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--out", type=str, default="chiprun_out")
-    parser.add_argument("--phase", choices=["parallel", "export"],
+    parser.add_argument("--phase", choices=["parallel", "export",
+                                            "tensor_parallel"],
                         default=None,
                         help="run only this phase (after device and build; "
                              "parallel on the entry phase's dataset); "
@@ -4719,9 +5302,29 @@ def main():
                         help=argparse.SUPPRESS)
     parser.add_argument("--parallel-spec", type=str, default=None,
                         help=argparse.SUPPRESS)
+    # a gloo rank of the tensor_parallel phase, started by the phase itself
+    parser.add_argument("--tp-rank", type=int, default=None,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--tp-spec", type=str, default=None,
+                        help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.parallel_rank is not None:
         parallel_rank(args.parallel_rank, json.loads(args.parallel_spec))
+        return
+    if args.tp_rank is not None:
+        tp_rank(args.tp_rank, json.loads(args.tp_spec))
+        return
+    if args.phase == "tensor_parallel":
+        phase_device()
+        phase_build()
+        _, _, _, enc_flat, images = make_weights(args.seed)
+        res = phase_tensor_parallel(args.seed, enc_flat, images)
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, "chip_smoke_tensor_parallel.json"),
+                  "w") as f:
+            json.dump(res, f, indent=1)
+        print("chip_smoke: phase tensor_parallel passed (--phase prints no "
+              "result line)", flush=True)
         return
     if args.artifact_run is not None:
         artifact_run(json.loads(args.artifact_run))
@@ -4787,6 +5390,8 @@ def main():
     entry = phase_entry(enc_flat, wide, args.seed,
                         (dcfg, worst_flat, enc_flat, images))
     lap("entry_cli_bert_cli_parallel")
+    tensor_parallel = phase_tensor_parallel(args.seed, enc_flat, images)
+    lap("tensor_parallel")
     data = phase_data(enc_flat, args.seed)
     lap("data")
     emit({"phase_seconds": seconds})
@@ -4826,7 +5431,12 @@ def main():
                                counts(), "topk") for k in SAMPLE_KS}}
     for row in kernels:
         name = row["name"]
-        if name in bert_paths:
+        if name == "topk_tp":
+            # model rank 0's beam in the tensor_parallel phase (eager: its
+            # host count is its device count)
+            row["launches"] = row["host_launches"] = tensor_parallel["a"][
+                "beam"]["worst"]["launches"][0]["topk"]
+        elif name in bert_paths:
             device, host, kname = bert_paths[name]
             row["launches"], row["host_launches"] = device[kname], host[kname]
         elif name in wide_paths:
@@ -4865,7 +5475,8 @@ def main():
                    "main": main_res, "export": export, "serve": serve,
                    "encoders": encoders,
                    "sample": sample, "bert": bert, "train": train,
-                   "entry": entry, "data": data}, f,
+                   "entry": entry, "tensor_parallel": tensor_parallel,
+                   "data": data}, f,
                   indent=1)
     emit(summary)
     print(dev["card"], flush=True)

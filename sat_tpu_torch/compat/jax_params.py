@@ -19,6 +19,14 @@ loaded strictly into the port's modules. The modules come back in eval
 mode on the requested device, frozen unless a trainer asks for a trainable
 decoder. `decoder_to_jax` and `encoder_to_jax` are the inverses: the flat
 archive names and layout that sat_tpu's loaders read.
+
+Under the vocab-sharded head (`--mesh-model M`), `shard_params` cuts the
+whole arrays into model rank j's pieces (parallel/mesh.py's
+`VOCAB_SHARDED`: the embedding's rows, the heads' columns and biases) and
+`join_params` puts the M ranks' pieces back together; `decoder_from_jax`
+given a `VocabShard` builds the rank's decoder from the whole arrays, and
+`whole_state_dict` gathers a sharded decoder's state_dict over its model
+group (a collective: every rank of the group calls it).
 """
 
 from __future__ import annotations
@@ -29,6 +37,8 @@ import torch
 from sat_tpu_torch.device import resolve_device
 from sat_tpu_torch.models.decoder import Decoder, DecoderConfig
 from sat_tpu_torch.models.encoder import build_encoder, encoder_layout
+from sat_tpu_torch.parallel import vocab as vp
+from sat_tpu_torch.parallel.mesh import VOCAB_SHARDED, VOCAB_SHARDED_TORCH
 
 # torch state_dict prefix -> sat_tpu tree prefix, for (w, b) linears
 _DECODER_LINEARS = {
@@ -111,16 +121,60 @@ def _load(module: torch.nn.Module, sd: dict, device,
     return module.eval().to(resolve_device(device))
 
 
+def shard_params(flat: dict, cfg: DecoderConfig, model_index: int,
+                 n_model: int) -> dict:
+    """Model rank `model_index`'s pieces of sat_tpu's whole decoder arrays
+    over `n_model` ranks: the vocabulary-sharded arrays cut into n_model
+    equal slices along their vocabulary dim, the rest as they are."""
+    out = dict(flat)
+    for name, axis in VOCAB_SHARDED.items():
+        if name in flat:
+            out[name] = np.split(np.asarray(flat[name]), n_model,
+                                 axis=axis)[model_index]
+    return out
+
+
+def join_params(pieces: list[dict]) -> dict:
+    """The whole arrays from the model ranks' pieces (in rank order): the
+    inverse of `shard_params`."""
+    out = dict(pieces[0])
+    for name, axis in VOCAB_SHARDED.items():
+        if name in out:
+            out[name] = np.concatenate([p[name] for p in pieces], axis=axis)
+    return out
+
+
 def decoder_from_jax(flat: dict, cfg: DecoderConfig, device="cuda",
-                     trainable: bool = False) -> Decoder:
-    return _load(Decoder(cfg), decoder_state_dict(flat, cfg), device,
-                 trainable)
+                     trainable: bool = False, vocab_shard=None) -> Decoder:
+    """The decoder of sat_tpu's whole arrays; given a
+    parallel.vocab.VocabShard, that rank's piece of it."""
+    if vocab_shard is not None:
+        flat = shard_params(flat, cfg, vocab_shard.index, vocab_shard.count)
+    return _load(Decoder(cfg, vocab_shard), decoder_state_dict(flat, cfg),
+                 device, trainable)
 
 
-def decoder_to_jax(dec: Decoder) -> dict[str, np.ndarray]:
+def join_shards(t: torch.Tensor, shard) -> torch.Tensor:
+    """The model group's dim-0 shards of `t`, joined in rank order."""
+    return vp.model_gather(t, shard).flatten(0, 1)
+
+
+def whole_state_dict(dec: Decoder) -> dict:
+    """`dec.state_dict()`, its vocabulary shards joined over the model
+    group when it has one (module note)."""
+    sd = dec.state_dict()
+    if dec.vocab_shard is None:
+        return sd
+    return {k: join_shards(v, dec.vocab_shard)
+            if k in VOCAB_SHARDED_TORCH else v for k, v in sd.items()}
+
+
+def decoder_to_jax(dec: Decoder, state_dict=None) -> dict[str, np.ndarray]:
     """The decoder's weights as sat_tpu's flat archive: `/`-joined names,
-    (in, out) linears, float32 numpy arrays on the host."""
-    sd = {k: v.detach().cpu().numpy() for k, v in dec.state_dict().items()}
+    (in, out) linears, float32 numpy arrays on the host; from
+    `state_dict` (e.g. `whole_state_dict(dec)`) when given."""
+    sd = {k: v.detach().cpu().numpy() for k, v in (
+        dec.state_dict() if state_dict is None else state_dict).items()}
     linears = dict(_DECODER_LINEARS)
     if dec.cfg.use_ado:
         linears.update(_ADO_LINEARS)

@@ -149,10 +149,10 @@ class Config:
 
 def unported_options(cfg: Config):
     """[(option, ROADMAP.md Queue 1 item)] for each set option whose path
-    the port does not have yet."""
-    checks = [
-        ("--mesh-model > 1", cfg.mesh_model > 1, "the vocab-sharded head"),
-    ]
+    the port does not have yet: none since `--mesh-model` (the
+    vocab-sharded head) was ported; the Trainer still refuses any listed
+    here."""
+    checks = []
     return [(flag, item) for flag, on, item in checks if on]
 
 
@@ -200,11 +200,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         help="use attention (default: False)")
     # --- framework extensions ---
     parser.add_argument("--mesh-data", type=int, default=0,
-                        help="data-parallel axis size: 0 (every rank) or "
-                             "the WORLD_SIZE of a torchrun launch")
+                        help="data-parallel axis size: 0 (WORLD_SIZE // "
+                             "--mesh-model) or that count")
     parser.add_argument("--mesh-model", type=int, default=1,
-                        help="model-parallel axis size (the vocab-sharded "
-                             "head; not ported above 1)")
+                        help="model-parallel axis size: the ranks that "
+                             "split the vocabulary of the embedding and the "
+                             "output heads (must divide it)")
     parser.add_argument("--bf16-encoder", action="store_true", default=False,
                         help="run encoder convolutions in bfloat16")
     parser.add_argument("--checkpoint-dir", type=str, default="model",

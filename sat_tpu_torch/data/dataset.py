@@ -22,10 +22,11 @@ per-image path; `native_rows` counts the rows the native tier decoded.
 Data parallel (parallel/distributed.py): node h of H takes the stripe
 `order[h::H]` of each epoch's permutation, as sat_tpu's host h does, so
 the union of the nodes' batch b is the global batch b. Within a node,
-each batch is padded to a multiple of the node's ranks by repeating its
-last row, and local rank r takes the r-th contiguous slice of the padded
-batch, as device r of sat_tpu's mesh does (`local_index`,
-`local_count`). `row_mask(b)` marks a slice's real rows and
+each batch is padded to a multiple of the node's data ranks by repeating
+its last row, and the node's data rank r takes the r-th contiguous slice
+of the padded batch, as row r of sat_tpu's mesh does (`local_index`,
+`local_count`; the trainer passes the data index within the node, so the
+M ranks of a model group read the same rows). `row_mask(b)` marks a slice's real rows and
 `global_rows(b)` counts the global batch's: both follow from the schedule
 alone.
 """

@@ -29,6 +29,13 @@ after `parallel.train_step.place_optimizer_state`. Its own directory lets
 sat_tpu's `orbax/` share one `--checkpoint-dir`. The port does not read Orbax states, and it has no
 older layout of its own, so sat_tpu's `train_state_has_key` probe has no
 counterpart.
+
+Under the vocab-sharded head the files hold whole arrays, as sat_tpu's
+do: the trainer joins the shards of the parameters and of Adam's moments
+over the model group before rank 0 writes (`whole_optimizer_state`,
+`compat.jax_params.whole_state_dict`), and `slice_train_state` cuts a
+rank's pieces out of a restored tree, so a state written at one grid shape
+resumes at another.
 """
 
 from __future__ import annotations
@@ -40,8 +47,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from sat_tpu_torch.compat.jax_params import decoder_to_jax
+from sat_tpu_torch.compat.jax_params import decoder_to_jax, join_shards
 from sat_tpu_torch.compat.torch_decoder import decoder_params_from_state_dict
+from sat_tpu_torch.parallel.mesh import VOCAB_SHARDED_TORCH
 
 
 def tree_load_npz(path: str, template: dict, strict: bool = True) -> dict:
@@ -95,12 +103,13 @@ def tree_save_npz(path: str, flat: dict) -> None:
 
 
 def save_decoder_checkpoint(checkpoint_dir: str, network: str, epoch: int,
-                            decoder) -> str:
+                            decoder, state_dict=None) -> str:
     """`<checkpoint_dir>/model_{network}_{epoch}.npz` from the port's
-    decoder module, in sat_tpu's names and layout."""
+    decoder module (or its whole `state_dict`, when given), in sat_tpu's
+    names and layout."""
     os.makedirs(checkpoint_dir, exist_ok=True)
     path = os.path.join(checkpoint_dir, f"model_{network}_{epoch}.npz")
-    tree_save_npz(path, decoder_to_jax(decoder))
+    tree_save_npz(path, decoder_to_jax(decoder, state_dict))
     return path
 
 
@@ -168,6 +177,51 @@ def optimizer_file_state(optimizer: torch.optim.Optimizer) -> dict:
     groups = [dict(g, lr=float(g["lr"]), capturable=False)
               for g in sd["param_groups"]]
     return {"state": state, "param_groups": groups}
+
+
+def _sharded_slots(decoder) -> list[int]:
+    """The optimizer's indices of the decoder's vocabulary-sharded
+    parameters (make_optimizer's order: the trainable parameters)."""
+    names = [n for n, p in decoder.named_parameters() if p.requires_grad]
+    return [i for i, n in enumerate(names) if n in VOCAB_SHARDED_TORCH]
+
+
+_MOMENTS = ("exp_avg", "exp_avg_sq")
+
+
+def whole_optimizer_state(optimizer: torch.optim.Optimizer,
+                          decoder) -> dict:
+    """`optimizer_file_state`, with the moments of a sharded decoder's
+    vocabulary shards joined over its model group (every rank of the group
+    calls it)."""
+    sd = optimizer_file_state(optimizer)
+    shard = decoder.vocab_shard
+    if shard is not None:
+        for i in _sharded_slots(decoder):
+            for k in _MOMENTS:
+                if k in sd["state"].get(i, {}):
+                    sd["state"][i][k] = join_shards(sd["state"][i][k], shard)
+    return sd
+
+
+def slice_train_state(tree: dict, decoder) -> dict:
+    """This rank's pieces of a restored tree's whole arrays, for a decoder
+    with a vocab shard (the tree as it is without one)."""
+    shard = decoder.vocab_shard
+    if shard is None:
+        return tree
+
+    def cut(t):
+        return t.narrow(0, shard.offset, shard.rows).clone()
+
+    tree["decoder"] = {k: cut(v) if k in VOCAB_SHARDED_TORCH else v
+                       for k, v in tree["decoder"].items()}
+    state = tree["optimizer"]["state"]
+    for i in _sharded_slots(decoder):
+        for k in _MOMENTS:
+            if k in state.get(i, {}):
+                state[i][k] = cut(state[i][k])
+    return tree
 
 
 def restore_train_state(checkpoint_dir: str, step: int,

@@ -58,30 +58,42 @@ computes a finite flag on the device (inside the captured graph of a K-step
 block), which the one-behind read of the step's metrics checks; without
 the option the steps compute no flag.
 
-Data parallel: under `torchrun` (parallel/distributed.py) each rank is one
-card of sat_tpu's data axis, and one node of ranks is one sat_tpu process.
-`--mesh-data` must be 0 (every rank) or WORLD_SIZE. The loaders give node h
-the stripe `order[h::H]` and each rank its slice of the node's padded batch
-(data/dataset.py), so the global batches, their padding and their row order
-are sat_tpu's with `--mesh-data N` and `--batch-size B` per process. The
-steps sum gradients and metrics over the ranks (parallel/train_step.py);
-each rank holds the whole feature bank (sat_tpu shards it over the data
-axis: ROADMAP.md, Queue 1). The multi-host branches of sat_tpu's loop
-follow: rank 0 alone writes the feature cache (atomically), the decoder
-archives, model_config.json and its sidecar, the train state and the
-metric log, and the other ranks wait for it; the preemption flag is OR'd
-over the ranks every PREEMPT_SYNC_EVERY batches and on the last (every
-max(1, PREEMPT_SYNC_EVERY // K) blocks), so every rank stops at one
-boundary; evaluation gathers every rank's tokens and captions before BLEU,
-in sat_tpu's row order, and each rank plots its own images, tagged
-`p{rank}_b...`. The parameters start from rank 0's, and each rank's
-dropout generator is seeded from (seed, rank). A train state written at one
-world size resumes at another: `batch_offset` counts global batches.
+Data and model parallel: under `torchrun` (parallel/distributed.py) the
+ranks form sat_tpu's (data, model) grid, `--mesh-data N` by `--mesh-model
+M` with N x M = WORLD_SIZE (`--mesh-data` 0 means WORLD_SIZE // M), rank r
+at cell (r // M, r % M); one node of ranks is one sat_tpu process. The
+loaders give node h the stripe `order[h::H]` and each data rank its slice
+of the node's padded batch (data/dataset.py; the M ranks of a model group
+read the same rows), so the global batches, their padding and their row
+order are sat_tpu's with `--batch-size B` per process. With M > 1 the
+vocabulary (which M must divide) splits over each model group: the
+embedding's rows and the heads' columns (models/decoder.py,
+parallel/vocab.py). The steps sum gradients and metrics over the data
+group (parallel/train_step.py), and the feature bank is sharded over it:
+data rank i holds rows [i U'/N, (i+1) U'/N) of each split's bank, padded to
+U' (sat_tpu's `_pad_rows`), and its model peers the same rows; the
+`--feature-bank-hbm-gb` test stays on the whole bank's bytes, as
+sat_tpu's. The multi-host branches of sat_tpu's loop follow: rank 0 alone
+writes the feature cache (atomically), the decoder archives,
+model_config.json and its sidecar, the train state and the metric log,
+and the other ranks wait for it; before it writes, the model group joins
+the vocabulary shards of the parameters and of Adam's moments, so every
+file holds whole arrays; the preemption flag is OR'd over the ranks every
+PREEMPT_SYNC_EVERY batches and on the last (every max(1,
+PREEMPT_SYNC_EVERY // K) blocks), so every rank stops at one boundary;
+evaluation gathers the data group's tokens and captions before BLEU, in
+sat_tpu's row order (a model group's ranks hold the same rows: sat_tpu's
+`concat_unique_shards`), and the model rank 0 of each data rank plots its
+own images, tagged `p{data index}_b...`. Every rank draws the whole
+parameter set from the seed and keeps its pieces; then the replicated
+parameters come from rank 0 and each vocabulary shard from its data
+group's first rank. Each rank's dropout generator is seeded from (seed,
+data index), so a model group draws one mask. A train state written at
+one grid shape resumes at another: `batch_offset` counts global batches,
+and the file's whole arrays are cut to the new shards.
 
-The vocab-sharded head (`--mesh-model > 1`) is not ported; it raises,
-naming its ROADMAP.md item. `--wandb` logs through utils/logging.py's W&B
-backend on rank 0 (without `wandb` installed, sat_tpu's message and the
-JSONL log only).
+`--wandb` logs through utils/logging.py's W&B backend on rank 0 (without
+`wandb` installed, sat_tpu's message and the JSONL log only).
 """
 
 from __future__ import annotations
@@ -100,7 +112,9 @@ import torch
 import torch.distributed
 
 from sat_tpu_torch import constants
-from sat_tpu_torch.compat.jax_params import decoder_from_jax, encoder_from_jax
+from sat_tpu_torch.compat.jax_params import (decoder_from_jax,
+                                             encoder_from_jax,
+                                             whole_state_dict)
 from sat_tpu_torch.config import Config, unported_options
 from sat_tpu_torch.data.bert_vocab import load_bert_vocab
 from sat_tpu_torch.data.dataset import BatchLoader, CacheBudget, CaptionDataset
@@ -111,7 +125,10 @@ from sat_tpu_torch.engine.evaluate import caption_decoder, compute_bleu
 from sat_tpu_torch.models.decoder import DecoderConfig, init_decoder_params
 from sat_tpu_torch.models.encoder import encoder_forward, init_encoder_params
 from sat_tpu_torch.parallel import distributed as dist
-from sat_tpu_torch.parallel.mesh import validate_host_divisibility
+from sat_tpu_torch.parallel.mesh import (VOCAB_SHARDED_TORCH,
+                                         check_vocab_divisible,
+                                         validate_host_divisibility)
+from sat_tpu_torch.parallel.vocab import VocabShard
 from sat_tpu_torch.parallel.train_step import (init_train_state,
                                                make_bank_eval_block,
                                                make_bank_eval_step,
@@ -145,36 +162,44 @@ class TrainingPreempted(Exception):
     state is saved; `fit` ends the run. Rerun with --resume."""
 
 
-def dropout_seed(seed: int, rank: int, step: int = 0) -> int:
-    """The seed of rank `rank`'s dropout generator at a fresh start
-    (step 0): `seed` itself on rank 0, so that a one-rank run draws what a
-    plain process does, else one drawn from the pair. A resumed rank
-    other than 0, whose generator the train state does not hold, takes
-    the seed of (seed, rank, step)."""
-    if rank == 0 and step == 0:
+def dropout_seed(seed: int, data_index: int, step: int = 0) -> int:
+    """The seed of the dropout generator of the ranks of data index
+    `data_index` at a fresh start (step 0): `seed` itself for data index
+    0, so that a one-rank run draws what a plain process does, else one
+    drawn from the pair. A resumed data index other than 0, whose
+    generator the train state does not hold, takes the seed of (seed,
+    data index, step). The ranks of a model group share a data index, and
+    so their masks."""
+    if data_index == 0 and step == 0:
         return seed
-    seq = np.random.SeedSequence([seed % 2 ** 64, rank, step])
+    seq = np.random.SeedSequence([seed % 2 ** 64, data_index, step])
     return int(seq.generate_state(1, np.uint64)[0] >> 1)
 
 
-def data_ranks(mesh_data: int) -> int:
-    """The ranks of the data axis: every rank for `--mesh-data` 0, else
-    exactly WORLD_SIZE; any other value is refused at start-up with the
+def data_ranks(mesh_data: int, mesh_model: int = 1) -> int:
+    """The ranks of the data axis: WORLD_SIZE // mesh_model for
+    `--mesh-data` 0, else `mesh_data`, whose grid must use exactly
+    WORLD_SIZE ranks; any other grid is refused at start-up with the
     counts spelled out, as sat_tpu's make_mesh and
     validate_host_divisibility refuse theirs."""
-    world = dist.world_size()
-    if mesh_data > world:
+    world, m = dist.world_size(), max(mesh_model, 1)
+    n = mesh_data if mesh_data > 0 else world // m
+    if n * m > world or n == 0:
+        n = max(n, 1)
         raise ValueError(
-            f"mesh data={mesh_data} x model=1 needs {mesh_data} devices, "
+            f"mesh data={n} x model={m} needs {n * m} devices, "
             f"but only {world} rank(s) run (WORLD_SIZE={world}); reduce "
-            f"--mesh-data or launch with torchrun --nproc_per_node "
-            f"{mesh_data}")
-    if 0 < mesh_data < world:
+            f"--mesh-data/--mesh-model or launch with torchrun "
+            f"--nproc_per_node {n * m}")
+    if n * m < world:
         raise ValueError(
-            f"--mesh-data {mesh_data} would leave {world - mesh_data} of "
-            f"the {world} ranks idle: pass 0 (every rank) or {world}")
-    validate_host_divisibility(world, dist.node_count())
-    return world
+            f"mesh data={n} x model={m} would leave {world - n * m} of "
+            f"the {world} ranks idle: pass --mesh-data 0 or "
+            f"{world // m}, with a --mesh-model that divides {world}"
+            if mesh_data > 0 else
+            f"--mesh-model {m} does not divide the {world} ranks")
+    validate_host_divisibility(n, dist.node_count())
+    return n
 
 
 class Trainer:
@@ -190,15 +215,10 @@ class Trainer:
         self.device = dist.initialize(device)
         self.distributed = torch.distributed.is_initialized()
         self.rank = dist.rank()
-        self.n_data = data_ranks(cfg.mesh_data)
         use_f32_math()
-        primary = dist.is_primary()
-        self.logger = logger or MetricLogger(
-            cfg.log_jsonl if primary else None,
-            use_wandb=cfg.wandb and primary,
-            wandb_config=cfg.reference_dict())
 
-        # the word dict, or BERT's WordPiece vocabulary
+        # the word dict, or BERT's WordPiece vocabulary; the model axis
+        # must divide it
         if cfg.bert:
             self.vocab = load_bert_vocab(cfg.bert_vocab)
             vocabulary_size = constants.BERT_VOCAB_SIZE
@@ -206,6 +226,18 @@ class Trainer:
             with open(os.path.join(cfg.data, "word_dict.json")) as f:
                 self.vocab = json.load(f)
             vocabulary_size = len(self.vocab)
+        check_vocab_divisible(vocabulary_size, cfg.mesh_model)
+        self.n_data = data_ranks(cfg.mesh_data, cfg.mesh_model)
+        self.n_model = max(cfg.mesh_model, 1)
+        if self.distributed:
+            dist.setup_grid(self.n_model)
+        self.data_index, self.model_index = (dist.data_index(),
+                                             dist.model_index())
+        primary = dist.is_primary()
+        self.logger = logger or MetricLogger(
+            cfg.log_jsonl if primary else None,
+            use_wandb=cfg.wandb and primary,
+            wandb_config=cfg.reference_dict())
         self._decode_row = caption_decoder(self.vocab)
         self.dcfg = DecoderConfig(
             vocab_size=vocabulary_size, encoder_dim=cfg.encoder_dim,
@@ -234,17 +266,21 @@ class Trainer:
             dec_flat = ckpt.load_decoder_checkpoint(cfg.model, dec_flat,
                                                     strict=False)
         self.encoder = encoder_from_jax(enc_flat, cfg.network, self.device)
+        shard = (VocabShard(self.model_index, self.n_model,
+                            dist.model_group(), vocabulary_size)
+                 if self.n_model > 1 else None)
         self.state = init_train_state(decoder_from_jax(
-            dec_flat, self.dcfg, self.device, trainable=True))
+            dec_flat, self.dcfg, self.device, trainable=True,
+            vocab_shard=shard))
         self.dropout_gen = torch.Generator(device=self.device).manual_seed(
-            dropout_seed(cfg.seed, self.rank))
+            dropout_seed(cfg.seed, self.data_index))
         self.start_epoch = 1
         self._resume_batch_offset = 0
         self._preempt_requested = False
         if cfg.resume:
             self._resume()
         if self.distributed:
-            dist.broadcast_module(self.state.decoder)
+            dist.broadcast_module(self.state.decoder, VOCAB_SHARDED_TORCH)
 
         # ---- data
         t0 = time.time()
@@ -261,8 +297,9 @@ class Trainer:
                                  seed=cfg.seed,
                                  shard_index=dist.node_index(),
                                  shard_count=dist.node_count(),
-                                 local_index=dist.local_rank(),
-                                 local_count=dist.local_world_size(),
+                                 local_index=dist.local_rank() // self.n_model,
+                                 local_count=(dist.local_world_size()
+                                              // self.n_model),
                                  with_indices=True, load_images=load_images)
             loader.split = split
             return loader
@@ -295,15 +332,18 @@ class Trainer:
                 for loader in loaders:
                     split = loader.split
                     self.bank[split] = {
-                        "feats": torch.as_tensor(self.features[split]).to(
-                            bank_dtype).to(self.device),
-                        "caps": torch.as_tensor(loader.dataset.captions,
-                                                device=self.device),
+                        "feats": self._bank_shard(torch.as_tensor(
+                            self.features[split]).to(bank_dtype)),
+                        "caps": self._bank_shard(torch.as_tensor(
+                            loader.dataset.captions)),
                         "rows": torch.as_tensor(self.row_map[split],
                                                 dtype=torch.long)}
                 bank_bytes = sum(b["feats"].nbytes for b in self.bank.values())
-                print(f"Feature bank resident in device memory "
-                      f"({bank_bytes / (1 << 20):.0f} MB total, "
+                kind = (f"sharded {self.n_data}-way, "
+                        f"{bank_bytes / (1 << 20):.0f} MB a rank"
+                        if self.n_data > 1 else "replicated")
+                print(f"Feature bank resident in device memory ({kind}, "
+                      f"{total_bytes / (1 << 20):.0f} MB total, "
                       f"{cfg.bank_dtype})")
                 self.features = {s: None for s in self.features}
             else:
@@ -314,18 +354,19 @@ class Trainer:
         self.train_block = self.eval_block = None
         shared = dict(distributed=self.distributed)
         if self.use_bank:
+            banked = dict(shared, sharded_bank=self.n_data > 1)
             self.train_step = make_bank_train_step(
                 self.dcfg, cfg.alpha_c, rep_penalty_beta=cfg.rep_penalty_beta,
-                debug_nans=cfg.debug_nans, **shared)
+                debug_nans=cfg.debug_nans, **banked)
             self.eval_step = make_bank_eval_step(self.dcfg, cfg.alpha_c,
-                                                 **shared)
+                                                 **banked)
             if cfg.steps_per_dispatch > 1:
                 self.train_block = make_bank_train_block(
                     self.dcfg, cfg.alpha_c,
                     rep_penalty_beta=cfg.rep_penalty_beta,
-                    debug_nans=cfg.debug_nans, **shared)
+                    debug_nans=cfg.debug_nans, **banked)
                 self.eval_block = make_bank_eval_block(self.dcfg,
-                                                       cfg.alpha_c, **shared)
+                                                       cfg.alpha_c, **banked)
         else:
             if cfg.steps_per_dispatch > 1:
                 print("--steps-per-dispatch needs the device feature bank "
@@ -361,17 +402,19 @@ class Trainer:
         if step is None:
             return
         print(f"Resuming from checkpoint step {step}")
-        tree = ckpt.restore_train_state(cfg.checkpoint_dir, step, self.device)
+        tree = ckpt.slice_train_state(
+            ckpt.restore_train_state(cfg.checkpoint_dir, step, self.device),
+            self.state.decoder)
         self.state.decoder.load_state_dict(tree["decoder"])
         self.state.optimizer.load_state_dict(tree["optimizer"])
         place_optimizer_state(self.state.optimizer)
         self.state.step = int(tree["step"])
-        if self.rank == 0:
+        if self.data_index == 0:
             ckpt.set_generator_state(self.dropout_gen,
                                      tree["dropout_generator"])
         else:
-            self.dropout_gen.manual_seed(dropout_seed(cfg.seed, self.rank,
-                                                      self.state.step))
+            self.dropout_gen.manual_seed(dropout_seed(
+                cfg.seed, self.data_index, self.state.step))
         offset = int(tree["batch_offset"])
         if offset > 0:
             self.start_epoch = int(tree["epoch"])
@@ -382,6 +425,18 @@ class Trainer:
             self.start_epoch = int(tree["epoch"]) + 1
 
     # ------------------------------------------------------------- features
+
+    def _bank_shard(self, rows: torch.Tensor) -> torch.Tensor:
+        """This data rank's slice of a bank array, on the device: the rows
+        zero-padded to a multiple of the data axis (sat_tpu's
+        `_pad_rows`; the padding is never indexed), then cut in n_data
+        equal slices. The whole array with one data rank."""
+        n = self.n_data
+        if n > 1:
+            pad = (-rows.shape[0]) % n
+            rows = torch.cat([rows, rows.new_zeros((pad,) + rows.shape[1:])])
+            rows = rows.chunk(n)[self.data_index]
+        return rows.to(self.device)
 
     def _feature_cache_key(self, split, unique_paths) -> str:
         """sat_tpu's disk-cache key of a split's features: the encoder,
@@ -700,7 +755,7 @@ class Trainer:
                           torch.as_tensor(captions).long(),
                           torch.as_tensor(all_captions).reshape(n, -1).long(),
                           torch.as_tensor(mask).long()[:, None]], dim=1)
-        rows = dist.gather(rows).cpu()
+        rows = dist.gather(rows, group=dist.data_group()).cpu()
         rows = rows[rows[:, -1] == 1, :-1]
         toks, caps, alls = rows.split(
             [cols[0], cols[1], rows.shape[1] - sum(cols)], dim=1)
@@ -748,7 +803,8 @@ class Trainer:
                                      " ".join(batch_captions[-1]),
                                      " ".join(batch_hypotheses[-1])])
 
-            if mode != EvalMode.TEST or viz_count >= MAX_ATTENTION_PLOTS:
+            if (mode != EvalMode.TEST or viz_count >= MAX_ATTENTION_PLOTS
+                    or self.model_index != 0):
                 return
             # this rank's own real rows, without a collective: the ranks'
             # budgets part ways here
@@ -766,8 +822,8 @@ class Trainer:
                     print(f"No caption for image {img_idx}, skipping "
                           f"attention visualization")
                     break
-                tag = (f"p{self.rank}_b{batch_idx}_i{img_idx}"
-                       if dist.world_size() > 1
+                tag = (f"p{self.data_index}_b{batch_idx}_i{img_idx}"
+                       if self.n_data > 1
                        else f"b{batch_idx}_i{img_idx}")
                 png = os.path.join(viz_dir, f"{tag}.png")
                 save_attention_plot(
@@ -905,14 +961,15 @@ class Trainer:
     def save_epoch(self, epoch: int) -> str:
         """The epoch's decoder `.npz`, `model_config.json` (with its
         `sat_config.json` sidecar) and the train state, in
-        --checkpoint-dir; rank 0 writes them."""
+        --checkpoint-dir; rank 0 writes them, of whole arrays."""
         cfg = self.cfg
         path = os.path.join(cfg.checkpoint_dir,
                             f"model_{cfg.network}_{epoch}.npz")
+        whole = whole_state_dict(self.state.decoder)
         if dist.is_primary():
             path = ckpt.save_decoder_checkpoint(cfg.checkpoint_dir,
                                                 cfg.network, epoch,
-                                                self.state.decoder)
+                                                self.state.decoder, whole)
             self.logger.save_file(path)
             config_path = os.path.join(cfg.checkpoint_dir,
                                        "model_config.json")
@@ -923,9 +980,12 @@ class Trainer:
 
     def train_state_tree(self, epoch: int, batch_offset: int) -> dict:
         """What `--resume` needs: `batch_offset` batches of `epoch` are
-        trained, 0 meaning the whole epoch."""
-        return {"decoder": self.state.decoder.state_dict(),
-                "optimizer": ckpt.optimizer_file_state(self.state.optimizer),
+        trained, 0 meaning the whole epoch. The arrays are whole: under
+        the model axis every rank of the group must call it."""
+        dec = self.state.decoder
+        return {"decoder": whole_state_dict(dec),
+                "optimizer": ckpt.whole_optimizer_state(self.state.optimizer,
+                                                        dec),
                 "step": self.state.step, "epoch": epoch,
                 "batch_offset": batch_offset,
                 "dropout_generator": ckpt.generator_state(self.dropout_gen)}
@@ -934,9 +994,10 @@ class Trainer:
         """Rank 0 writes the state and, with --keep-checkpoints N, prunes
         the older ones after the new one is on disk; no rank goes on before
         it has."""
+        tree = self.train_state_tree(epoch, batch_offset)
         if dist.is_primary():
             ckpt.save_train_state(self.cfg.checkpoint_dir, self.state.step,
-                                  self.train_state_tree(epoch, batch_offset))
+                                  tree)
             ckpt.prune_train_states(self.cfg.checkpoint_dir,
                                     self.cfg.keep_checkpoints)
         dist.barrier()

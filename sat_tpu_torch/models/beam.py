@@ -63,6 +63,19 @@ stay f32, and the middle is f32 (ops/fused_attention.py). The dtype is
 part of the spec that keys a GraphCache: one process that serves f32 and
 bf16 captures their graphs apart.
 
+Under a model group (a decoder with a `VocabShard`, parallel/vocab.py:
+sat_tpu's beam with its heads sharded on the `model` axis), each rank's
+logits are (B, K, V/M) and its top-k (kernel or library route) runs on its
+(B, K*V/M) candidates; a local flat index j is parent j // (V/M) and word
+r*V/M + j % (V/M), monotone in the global flat index parent*V + word
+within a shard, so the route's tie order carries over. The group's M*K
+candidates of each image are merged by value descending, then global flat
+index ascending (`parallel.vocab.merge_top_k`: lax.top_k's order), and the
+chosen words' embeddings come through the vocab-parallel lookup. Every
+rank then holds the same beams. Under gloo the loop runs eagerly (its
+collectives cannot be captured). Greedy and sample decode, and the
+static decodes, refuse a model group (ROADMAP.md, Queue 1).
+
 For AOT export (engine/serving.py), `beam_search_static` and
 `greedy_caption_static` are the same decodes as one program with no host
 read: the beam's start, every one of its max_steps steps and its rebuild,
@@ -84,6 +97,8 @@ from sat_tpu_torch.models.attention import precompute_attention_keys
 from sat_tpu_torch.models.decoder import (Decoder, decode_step, embed_tokens,
                                           init_lstm_state)
 from sat_tpu_torch.ops.topk import topk, topk_library
+from sat_tpu_torch.parallel import distributed as dist
+from sat_tpu_torch.parallel import vocab as vp
 from sat_tpu_torch.utils.graphs import GraphCache
 
 # Beam steps between two host reads of the exit test. On the H100 at
@@ -148,9 +163,21 @@ def use_kernel_topk(fast_topk: bool, pallas_topk: bool | None) -> bool:
     return pallas_topk
 
 
-def _graph_cache(graphs: GraphCache | None, device: torch.device):
-    """The GraphCache to run in, or None to run eagerly."""
+def _graph_cache(graphs: GraphCache | None, device: torch.device,
+                 dec: Decoder | None = None):
+    """The GraphCache to run in, or None to run eagerly: on the CPU, and
+    for a decoder whose model group a graph cannot hold (gloo)."""
+    if dec is not None and dec.vocab_shard is not None and \
+            not dist.capturable():
+        return None
     return graphs if device.type == "cuda" else None
+
+
+def _whole_vocab_only(dec: Decoder, what: str) -> None:
+    if dec.vocab_shard is not None:
+        raise NotImplementedError(
+            f"{what} under a model group (--mesh-model > 1) is not ported "
+            f"(ROADMAP.md, Queue 1); the beam is")
 
 
 def _beam_buffers(spec: _Spec, device, features=None) -> dict:
@@ -252,15 +279,22 @@ def _beam_step(dec: Decoder, spec: _Spec, buf: dict) -> None:
     h2, c2, logits, alpha, _ = decode_step(dec, buf["grid"], buf["keys"],
                                            buf["h"], buf["c"], emb,
                                            K if spec.dedup else 1)
-    logits = logits.view(B, K, V)
+    logits = logits.view(B, K, -1)        # (B, K, V), or V/M under a shard
+    Vl = logits.shape[-1]
     alpha_bk = alpha.view(B, K, L)
 
     cand = (buf["scores"][..., None] + logits).masked_fill(
         ~buf["live"][..., None], neg_inf)
     select = topk_library if spec.library_topk else topk
-    values, flat_idx = select(cand.reshape(B, K * V), K)  # (B, K)
-    parent = flat_idx // V
-    word = flat_idx % V
+    values, flat_idx = select(cand.reshape(B, K * Vl), K)  # (B, K)
+    parent = flat_idx // Vl
+    word = flat_idx % Vl
+    shard = dec.vocab_shard
+    if shard is not None:
+        values, flat_idx = vp.merge_top_k(
+            values, parent * V + word + shard.offset, K, shard)
+        parent = flat_idx // V
+        word = flat_idx % V
     valid = ranks[None, :] < live_count[:, None]
     at = step.view(1)                       # this step's column
 
@@ -444,7 +478,7 @@ def beam_search_batched(dec: Decoder, features: torch.Tensor, beam_size: int,
 
     spec = _beam_spec(dec, features, beam_size, max_steps, dedup, backtrack,
                       bf16, kernel_topk)
-    cache = _graph_cache(graphs, features.device)
+    cache = _graph_cache(graphs, features.device, dec)
     if cache is None:
         buf = _beam_buffers(spec, features.device, features)
 
@@ -506,6 +540,7 @@ def beam_search_static(dec: Decoder, features: torch.Tensor, beam_size: int,
     early. No inference mode: the caller sets the grad mode
     (engine/serving.py exports under torch.no_grad)."""
     kernel_topk = use_kernel_topk(fast_topk, pallas_topk)
+    _whole_vocab_only(dec, "the static beam")
     spec = _beam_spec(dec, features, beam_size, max_steps, dedup, backtrack,
                       bf16, kernel_topk)
     buf = _beam_buffers(spec, features.device, features)
@@ -660,6 +695,7 @@ def _scan_caption(dec: Decoder, features: torch.Tensor, max_steps: int,
     B, L, D = features.shape
     V = dec.cfg.effective_vocab_size
     sample = knobs is not None
+    _whole_vocab_only(dec, "sample decode" if sample else "greedy decode")
     cache = _graph_cache(graphs, features.device)
     if cache is None:
         buf = _scan_buffers(B, L, D, V, max_steps, features.device, features,
@@ -710,6 +746,7 @@ def greedy_caption_static(dec: Decoder, features: torch.Tensor,
     max_steps steps in a torch while_loop (`_while`) on fresh buffers,
     with no graph cache and no inference mode (the caller sets the grad
     mode)."""
+    _whole_vocab_only(dec, "greedy decode")
     B, L, D = features.shape
     buf = _scan_buffers(B, L, D, dec.cfg.effective_vocab_size, max_steps,
                         features.device, features)

@@ -20,6 +20,16 @@ bf16 (models/attention.py). With `use_bert` the input table is BERT's
 (30522, 768) word embeddings, frozen: its weight never requires a
 gradient, so no optimizer sees it (sat_tpu stops its gradient), and
 E = 768 is the width of the attention, the LSTM and both heads.
+
+A decoder built with a `VocabShard` (sat_tpu's `--mesh-model M`:
+parallel/vocab.py) holds V/M rows of `embedding` and V/M outputs of
+`deep_output` and `f_out`, and its logits are the rank's (..., V/M): the
+lookup sums the group's partial rows, the head's input passes through
+`copy_to_model` (its gradient summed over the group), and the
+autoregressive unroll feeds back the argmax over the whole vocabulary.
+Everything else is replicated and computed alike on every rank of the
+group; under remat the recomputed steps repeat their collectives in the
+same order on every rank.
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ from sat_tpu_torch.models.attention import (Attention,
                                            precompute_attention_keys,
                                            soft_attention)
 from sat_tpu_torch.ops.lstm import lstm_cell
+from sat_tpu_torch.parallel import vocab as vp
 
 
 @dataclass(frozen=True)
@@ -71,10 +82,14 @@ class DecoderConfig:
 
 
 class Decoder(nn.Module):
-    def __init__(self, cfg: DecoderConfig):
+    def __init__(self, cfg: DecoderConfig,
+                 vocab_shard: vp.VocabShard | None = None):
         super().__init__()
         E, D, V = cfg.embedding_size, cfg.encoder_dim, cfg.effective_vocab_size
         self.cfg = cfg
+        self.vocab_shard = vocab_shard
+        if vocab_shard is not None:
+            V = vocab_shard.rows
         self.embedding = nn.Embedding(V, E)
         self.init_h = nn.Linear(D, E)
         self.init_c = nn.Linear(D, E)
@@ -146,7 +161,25 @@ def init_decoder_params(cfg: DecoderConfig, generator: torch.Generator,
 
 
 def embed_tokens(dec: Decoder, ids: torch.Tensor) -> torch.Tensor:
+    if dec.vocab_shard is not None:
+        return vp.embed(dec.embedding.weight, ids, dec.vocab_shard)
     return dec.embedding(ids)
+
+
+def head_input(dec: Decoder, x: torch.Tensor) -> torch.Tensor:
+    """What a head's vocabulary shard reads: `x`, whose gradient is summed
+    over the model group."""
+    if dec.vocab_shard is not None:
+        return vp.copy_to_model(x, dec.vocab_shard)
+    return x
+
+
+def token_argmax(dec: Decoder, logits: torch.Tensor) -> torch.Tensor:
+    """The argmax of logits over the last dim, the whole vocabulary's
+    under a vocab shard."""
+    if dec.vocab_shard is not None:
+        return vp.argmax(logits, dec.vocab_shard)
+    return logits.argmax(dim=-1)
 
 
 def init_lstm_state(dec: Decoder, features: torch.Tensor):
@@ -164,7 +197,7 @@ def _advanced_deep_output(dec: Decoder, h: torch.Tensor, context: torch.Tensor,
     verbatim."""
     h_t = F.relu(dec.f_h(h))
     z_t = F.relu(dec.f_z(context))
-    return F.relu(dec.f_out(h_t + z_t + token_emb))
+    return F.relu(dec.f_out(head_input(dec, h_t + z_t + token_emb)))
 
 
 def _dropout_keep(shape, rate: float, generator, device):
@@ -210,7 +243,7 @@ def _recur(dec: Decoder, features, keys, h, c, token_emb, rows_per_image=1):
 def _head(dec: Decoder, h, context, token_emb):
     if dec.cfg.use_ado:
         return _advanced_deep_output(dec, h, context, token_emb)
-    return dec.deep_output(h)
+    return dec.deep_output(head_input(dec, h))
 
 
 def decode_step(dec: Decoder, features: torch.Tensor, keys: torch.Tensor,
@@ -225,7 +258,8 @@ def decode_step(dec: Decoder, features: torch.Tensor, keys: torch.Tensor,
     which reads each image's grid once for all its beams). `dropout_keep`
     (a bool mask of h's shape, or None) drops h before the output head at
     `dropout_rate`, as sat_tpu does in training.
-    Returns (h', c', logits (B*R, V), alpha (B*R, L), context (B*R, D)).
+    Returns (h', c', logits (B*R, V), alpha (B*R, L), context (B*R, D));
+    under a vocab shard the logits are the rank's (B*R, V/M).
     """
     h, c, alpha, context = _recur(dec, features, keys, h, c, token_emb,
                                   rows_per_image)
@@ -237,7 +271,7 @@ def decode_step(dec: Decoder, features: torch.Tensor, keys: torch.Tensor,
 def _ar_step(dec, features, keys, h, c, prev_emb, keep, rate):
     h, c, logits, alpha, _ = decode_step(dec, features, keys, h, c, prev_emb,
                                          dropout_keep=keep, dropout_rate=rate)
-    return h, c, embed_tokens(dec, logits.argmax(dim=1)), logits, alpha
+    return h, c, embed_tokens(dec, token_argmax(dec, logits)), logits, alpha
 
 
 def decoder_forward(dec: Decoder, cfg: DecoderConfig, features: torch.Tensor,
@@ -258,7 +292,8 @@ def decoder_forward(dec: Decoder, cfg: DecoderConfig, features: torch.Tensor,
     gradient that reaches the keys through the cast is bf16, as under
     JAX's astype.
 
-    Returns (preds (B, T, V), alphas (B, T, L)).
+    Returns (preds (B, T, V), alphas (B, T, L)); under a vocab shard the
+    preds are the rank's (B, T, V/M).
     """
     B = features.shape[0]
     T = captions.shape[1] - 1

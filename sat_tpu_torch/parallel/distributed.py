@@ -19,12 +19,22 @@ that fails to initialize raises, and nothing carries on over gloo. A rank
 takes the card of its LOCAL_RANK unless its device names one
 (`cuda:0`).
 
+The grid (`setup_grid`, sat_tpu's (data, model) mesh): with
+`--mesh-model M`, rank r is cell (r // M, r % M) (parallel/mesh.py). Its
+data group is the ranks of its model index (they sum gradients and
+metrics, and share the feature bank), its model group the M ranks of its
+data index (they split the vocabulary: parallel/vocab.py). Every rank
+creates every group, in the same order. With M = 1 the data group is the
+world and there is no model group, so a data-parallel run makes the calls
+it made before the grid.
+
 The collectives below are what the training loop needs besides the
-step's SUM all-reduce (parallel/train_step.py), each on every rank in the
-same order: the OR of a host flag (preemption), a gather of equal slices
-along one axis, built on the all-reduce (gloo carries only `all_reduce`
-and `broadcast` for CUDA tensors), a barrier and the broadcast of a
-module's parameters from rank 0.
+step's SUM all-reduce (parallel/train_step.py), each on every rank of its
+group in the same order: the OR of a host flag (preemption), a gather of
+equal slices along one axis, built on the all-reduce (gloo carries only
+`all_reduce` and `broadcast` for CUDA tensors), a barrier and the
+broadcast of a module's parameters (replicated ones from rank 0, vocabulary
+shards within their data group).
 """
 
 from __future__ import annotations
@@ -35,11 +45,14 @@ import torch
 import torch.distributed as dist
 
 from sat_tpu_torch.device import resolve_device
+from sat_tpu_torch.parallel.mesh import grid_cell
 
 _TORCHRUN = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
 
-# What initialize() learned: the rank's device and its node's layout.
-_state = {"device": None, "local_rank": 0, "local_world_size": 1}
+# What initialize() learned: the rank's device and its node's layout; and
+# setup_grid(): the model axis's size and this rank's two groups.
+_state = {"device": None, "local_rank": 0, "local_world_size": 1,
+          "n_model": 1, "data_group": None, "model_group": None}
 
 
 def launched() -> bool:
@@ -88,7 +101,32 @@ def shutdown() -> None:
     """Leave the process group (after the last collective)."""
     if dist.is_initialized():
         dist.destroy_process_group()
-    _state.update(device=None, local_rank=0, local_world_size=1)
+    _state.update(device=None, local_rank=0, local_world_size=1, n_model=1,
+                  data_group=None, model_group=None)
+
+
+def setup_grid(n_model: int) -> None:
+    """Make the data and model groups of an (N, n_model) grid over the
+    ranks (module note); n_model must divide WORLD_SIZE and
+    LOCAL_WORLD_SIZE (a model group lives on one node). A no-op with
+    n_model = 1, or when the grid is already this one."""
+    if n_model == _state["n_model"]:
+        return
+    world = world_size()
+    if world % n_model or local_world_size() % n_model:
+        raise ValueError(
+            f"--mesh-model {n_model} does not divide the {world} ranks "
+            f"({local_world_size()} a node) into model groups of "
+            f"{n_model} ranks on one node")
+    cells = [grid_cell(r, n_model) for r in range(world)]
+    data_groups = [dist.new_group([r for r, c in enumerate(cells)
+                                   if c[1] == j]) for j in range(n_model)]
+    model_groups = [dist.new_group([r for r, c in enumerate(cells)
+                                    if c[0] == i])
+                    for i in range(world // n_model)]
+    i, j = cells[rank()]
+    _state.update(n_model=n_model, data_group=data_groups[j],
+                  model_group=model_groups[i])
 
 
 def rank() -> int:
@@ -122,6 +160,38 @@ def is_primary() -> bool:
     return rank() == 0
 
 
+def n_model() -> int:
+    """Ranks of a model group (--mesh-model); 1 without a grid."""
+    return _state["n_model"] if dist.is_initialized() else 1
+
+
+def n_data() -> int:
+    """Ranks of a data group: the data axis."""
+    return world_size() // n_model()
+
+
+def data_index() -> int:
+    """This rank's row of the grid: its slice of every global batch."""
+    return grid_cell(rank(), n_model())[0]
+
+
+def model_index() -> int:
+    """This rank's column of the grid: its vocabulary shard."""
+    return grid_cell(rank(), n_model())[1]
+
+
+def data_group():
+    """The ranks that share this rank's model index; None (the world)
+    without a model axis."""
+    return _state["data_group"]
+
+
+def model_group():
+    """The ranks that share this rank's data index; None without a model
+    axis."""
+    return _state["model_group"]
+
+
 def backend() -> str | None:
     return dist.get_backend() if dist.is_initialized() else None
 
@@ -138,38 +208,44 @@ def _flag_device() -> torch.device:
     return _state["device"] if capturable() else torch.device("cpu")
 
 
-def any_flag(flag: bool) -> bool:
-    """The OR of a host flag over the ranks."""
+def any_flag(flag: bool, group=None) -> bool:
+    """The OR of a host flag over the ranks of `group` (None: all)."""
     t = torch.tensor([int(bool(flag))], dtype=torch.int32,
                      device=_flag_device())
-    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
     return bool(t.item())
 
 
-def barrier() -> None:
-    """Return once every rank has called it."""
+def barrier(group=None) -> None:
+    """Return once every rank of `group` (None: all) has called it."""
     if dist.is_initialized():
-        any_flag(False)
+        any_flag(False, group)
 
 
-def gather(x, dim: int = 0) -> torch.Tensor:
-    """Every rank's `x` (a tensor, or a numpy array taken to the rank's
-    device), each of the same shape, concatenated along `dim` in rank
-    order: a zero buffer with this rank's slice in place, summed over the
-    ranks."""
+def gather(x, dim: int = 0, group=None) -> torch.Tensor:
+    """Every rank's `x` in `group` (None: all; a tensor, or a numpy array
+    taken to the rank's device), each of the same shape, concatenated
+    along `dim` in group-rank order: a zero buffer with this rank's slice
+    in place, summed over the group. The sum turns a -0.0 into +0.0."""
     x = torch.as_tensor(x)
     if capturable():
         x = x.to(_state["device"])
     n = x.shape[dim]
     shape = list(x.shape)
-    shape[dim] = n * world_size()
+    shape[dim] = n * dist.get_world_size(group)
     out = x.new_zeros(shape)
-    out.narrow(dim, rank() * n, n).copy_(x)
-    dist.all_reduce(out)
+    out.narrow(dim, dist.get_rank(group) * n, n).copy_(x)
+    dist.all_reduce(out, group=group)
     return out
 
 
-def broadcast_module(module: torch.nn.Module) -> None:
-    """Rank 0's parameters and buffers into every rank's `module`."""
-    for t in list(module.parameters()) + list(module.buffers()):
-        dist.broadcast(t.data, src=0)
+def broadcast_module(module: torch.nn.Module, sharded=()) -> None:
+    """Rank 0's parameters and buffers into every rank's `module`; the
+    tensors named in `sharded` (vocabulary shards) from the first rank of
+    this rank's data group, which holds the same shard."""
+    for name, t in list(module.named_parameters()) + list(
+            module.named_buffers()):
+        if name in sharded and n_model() > 1:
+            dist.broadcast(t.data, src=model_index(), group=data_group())
+        else:
+            dist.broadcast(t.data, src=0)

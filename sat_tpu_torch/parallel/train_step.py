@@ -23,6 +23,17 @@ K-step blocks (`make_bank_train_block`, `make_bank_eval_block`) run K
 steps in one dispatch: on the card, K replays of one captured step
 (utils/graphs.py), as sat_tpu runs them in one `lax.scan`.
 
+Under the grid (parallel/distributed.py): the gradients and the metric
+numerators are summed over the data group, replicated parameters and
+vocabulary shards alike (every model rank holds the whole loss, and the
+replicated layers' whole gradient: parallel/vocab.py). With
+`sharded_bank`, data rank i holds rows [i U'/N, (i+1) U'/N) of each bank
+(padded to U' by the trainer), and a step's rows come from their owners:
+the data group's indices gathered, each rank's own rows filled into a zero
+buffer of the group's rows and summed over the group (`bank_rows`,
+`bank_caps`; the sum turns a -0.0 into +0.0). Under NCCL these collectives
+are captured in a block's graph with the rest of the step.
+
 bf16: a feature bank stored in bf16 (`--bank-dtype bfloat16`) is read
 through `bank_rows`, which widens the gathered rows to f32 inside the step
 (and inside a captured block), so the decoder computes in f32 from
@@ -46,9 +57,10 @@ import torch.distributed
 
 from sat_tpu_torch import constants
 from sat_tpu_torch.models.decoder import (Decoder, DecoderConfig,
-                                          decoder_forward)
+                                          decoder_forward, token_argmax)
 from sat_tpu_torch.models.encoder import encoder_forward
 from sat_tpu_torch.parallel import distributed as dist
+from sat_tpu_torch.parallel import vocab as vp
 from sat_tpu_torch.utils.graphs import GraphCache
 from sat_tpu_torch.utils.metrics import (attention_regularization,
                                          calculate_caption_lengths,
@@ -127,6 +139,7 @@ def _loss_and_metrics(dcfg: DecoderConfig, alpha_c: float, decoder: Decoder,
     of the global batch's, and the metrics are the numerators that
     `_reduce` sums over the ranks."""
     captions = captions.long()
+    shard = decoder.vocab_shard
     preds, alphas = decoder_forward(decoder, dcfg, features, captions,
                                     generator=generator, train=train)
     targets = captions[:, 1:]
@@ -134,16 +147,20 @@ def _loss_and_metrics(dcfg: DecoderConfig, alpha_c: float, decoder: Decoder,
     # means, the same numbers, so that one rank computes a plain step's bits
     share = (None if row_mask is None and n_rows == captions.shape[0]
              else n_rows)
-    loss = (reference_packed_cross_entropy(preds, targets, row_mask, share)
+    loss = (reference_packed_cross_entropy(preds, targets, row_mask, share,
+                                           shard)
             + attention_regularization(alphas, alpha_c, row_mask, share))
     pad_id, skip_ids = special_ids(dcfg.use_bert)
     if rep_penalty_beta:
         loss = loss + repetition_penalty(preds, (pad_id, dcfg.start_token),
-                                         rep_penalty_beta, row_mask, share)
+                                         rep_penalty_beta, row_mask, share,
+                                         shard)
     with torch.no_grad():
         if n_rows is not None:
-            hits1, tokens = top_k_hits(preds, targets, 1, pad_id, row_mask)
-            hits5, _ = top_k_hits(preds, targets, 5, pad_id, row_mask)
+            hits1, tokens = top_k_hits(preds, targets, 1, pad_id, row_mask,
+                                       shard)
+            hits5, _ = top_k_hits(preds, targets, 5, pad_id, row_mask,
+                                  shard)
             sums = torch.stack([
                 loss.detach(), hits1.float(), hits5.float(), tokens.float(),
                 calculate_caption_lengths(captions, skip_ids,
@@ -152,9 +169,9 @@ def _loss_and_metrics(dcfg: DecoderConfig, alpha_c: float, decoder: Decoder,
         metrics = {
             "loss": loss.detach(),
             "acc1": sequence_accuracy(preds, targets, 1, ignore_index=pad_id,
-                                      row_mask=row_mask),
+                                      row_mask=row_mask, shard=shard),
             "acc5": sequence_accuracy(preds, targets, 5, ignore_index=pad_id,
-                                      row_mask=row_mask),
+                                      row_mask=row_mask, shard=shard),
             "caption_length": calculate_caption_lengths(captions, skip_ids,
                                                         row_mask),
         }
@@ -162,20 +179,24 @@ def _loss_and_metrics(dcfg: DecoderConfig, alpha_c: float, decoder: Decoder,
 
 
 def _finite(loss, decoder: Decoder):
-    """One device bool: the loss and every trainable parameter finite."""
+    """One device bool: the loss and every trainable parameter finite (on
+    every rank of a model group, whose shards differ)."""
     with torch.no_grad():
-        return torch.stack([torch.isfinite(loss).all()] + [
+        ok = torch.stack([torch.isfinite(loss).all()] + [
             torch.isfinite(p).all() for p in decoder.parameters()
             if p.requires_grad]).all()
+        if decoder.vocab_shard is not None:
+            ok = vp.model_gather(ok.int(), decoder.vocab_shard).min() == 1
+        return ok
 
 
 def _reduce(sums, grads=()) -> dict:
-    """One SUM all-reduce over the ranks of the gradients (in place) and
-    of a step's metric numerators (`_loss_and_metrics`' "sums"); returns
-    the global batch's metrics."""
+    """One SUM all-reduce over the data group of the gradients (in place)
+    and of a step's metric numerators (`_loss_and_metrics`' "sums");
+    returns the global batch's metrics."""
     grads = list(grads)
     flat = torch.cat([g.reshape(-1) for g in grads] + [sums])
-    torch.distributed.all_reduce(flat)
+    torch.distributed.all_reduce(flat, group=dist.data_group())
     at = 0
     for g in grads:
         g.copy_(flat[at:at + g.numel()].view_as(g))
@@ -215,10 +236,33 @@ def _features(enc, network: str, imgs, from_features: bool, device,
                            torch.bfloat16 if bf16_encoder else None).clone()
 
 
-def bank_rows(feat_bank, img_idx):
+def _sharded_rows(bank, idx, dtype):
+    """Rows `idx` (global row numbers) of a bank sharded over the data
+    group, in `dtype` (module note)."""
+    group, n = dist.data_group(), bank.shape[0]
+    local = dist.gather(idx, group=group) - dist.data_index() * n
+    own = (local >= 0) & (local < n)
+    rows = bank[torch.where(own, local, 0)].to(dtype)
+    rows = torch.where(own.view((-1,) + (1,) * (rows.dim() - 1)), rows, 0)
+    torch.distributed.all_reduce(rows, group=group)
+    B = idx.shape[0]
+    return rows[dist.data_index() * B:(dist.data_index() + 1) * B]
+
+
+def bank_rows(feat_bank, img_idx, sharded: bool = False):
     """The bank's rows `img_idx` in f32: a bf16 bank is widened right
-    after the gather (a no-op for an f32 bank)."""
+    after the gather (a no-op for an f32 bank); from the owners of a
+    sharded bank (module note)."""
+    if sharded:
+        return _sharded_rows(feat_bank, img_idx, torch.float32)
     return feat_bank[img_idx].float()
+
+
+def bank_caps(caps_bank, row_idx, sharded: bool = False):
+    """The caption bank's rows `row_idx`, sharded or whole."""
+    if sharded:
+        return _sharded_rows(caps_bank, row_idx, caps_bank.dtype)
+    return caps_bank[row_idx]
 
 
 def _device(state_or_decoder) -> torch.device:
@@ -265,23 +309,25 @@ def make_train_step(dcfg: DecoderConfig, network: str, alpha_c: float,
 
 
 def _bank_step(dcfg, alpha_c, rep_penalty_beta, debug_nans, distributed,
-               state: TrainState, feat_bank, caps_bank, img_idx, row_idx,
-               generator, row_mask, n_rows):
+               sharded_bank, state: TrainState, feat_bank, caps_bank,
+               img_idx, row_idx, generator, row_mask, n_rows):
     """One bank train step at the optimizer's lr: its metrics."""
     loss, (metrics, _, _) = _loss_and_metrics(
-        dcfg, alpha_c, state.decoder, bank_rows(feat_bank, img_idx),
-        caps_bank[row_idx], generator, True, row_mask, rep_penalty_beta,
-        n_rows if distributed else None)
+        dcfg, alpha_c, state.decoder,
+        bank_rows(feat_bank, img_idx, sharded_bank),
+        bank_caps(caps_bank, row_idx, sharded_bank), generator, True,
+        row_mask, rep_penalty_beta, n_rows if distributed else None)
     return _train_metrics(state, loss, metrics, distributed, debug_nans)
 
 
 def make_bank_train_step(dcfg: DecoderConfig, alpha_c: float,
                          rep_penalty_beta: float = 0.0,
                          debug_nans: bool = False,
-                         distributed: bool = False):
+                         distributed: bool = False,
+                         sharded_bank: bool = False):
     """Feature-bank step: the frozen encoder's grids of every unique image
     live in device memory, f32 or bf16, and a step gathers its rows by
-    index.
+    index (from their owners with `sharded_bank`: module note).
     `step(state, feat_bank (U, L, D), caps_bank (N, T), img_idx (B,),
     row_idx (B,), lr, generator, row_mask=None, n_rows=None) -> (state,
     metrics)`."""
@@ -290,9 +336,9 @@ def make_bank_train_step(dcfg: DecoderConfig, alpha_c: float,
                 lr, generator, row_mask=None, n_rows=None):
         set_lr(state.optimizer, lr)
         return state, _bank_step(dcfg, alpha_c, rep_penalty_beta, debug_nans,
-                                 distributed, state, feat_bank, caps_bank,
-                                 img_idx, row_idx, generator, row_mask,
-                                 n_rows)
+                                 distributed, sharded_bank, state, feat_bank,
+                                 caps_bank, img_idx, row_idx, generator,
+                                 row_mask, n_rows)
 
     return step_fn
 
@@ -307,18 +353,20 @@ def _eval(dcfg, alpha_c, decoder, features, captions, row_mask,
             row_mask, n_rows=n_rows)
         if n_rows is not None:
             metrics = _reduce(metrics["sums"])
-        return metrics, preds.argmax(dim=2).int(), alphas
+        return metrics, token_argmax(decoder, preds).int(), alphas
 
 
 def make_bank_eval_step(dcfg: DecoderConfig, alpha_c: float,
-                        distributed: bool = False):
+                        distributed: bool = False,
+                        sharded_bank: bool = False):
     """`eval(decoder, feat_bank, caps_bank, img_idx, row_idx, row_mask=None,
     n_rows=None) -> (metrics, pred_tokens (B, T), alphas (B, T, L))`."""
 
     def eval_fn(decoder, feat_bank, caps_bank, img_idx, row_idx,
                 row_mask=None, n_rows=None):
-        return _eval(dcfg, alpha_c, decoder, bank_rows(feat_bank, img_idx),
-                     caps_bank[row_idx], row_mask,
+        return _eval(dcfg, alpha_c, decoder,
+                     bank_rows(feat_bank, img_idx, sharded_bank),
+                     bank_caps(caps_bank, row_idx, sharded_bank), row_mask,
                      n_rows if distributed else None)
 
     return eval_fn
@@ -396,7 +444,8 @@ def _eager_block(feat_bank, distributed: bool) -> bool:
 def make_bank_train_block(dcfg: DecoderConfig, alpha_c: float,
                           rep_penalty_beta: float = 0.0,
                           debug_nans: bool = False,
-                          distributed: bool = False):
+                          distributed: bool = False,
+                          sharded_bank: bool = False):
     """K optimizer steps in one dispatch, the port of sat_tpu's `lax.scan`
     block: `block(state, feat_bank (U, L, D), caps_bank (N, T), img_idx
     (K, B), row_idx (K, B), lr, generator, row_mask (K, B) or None,
@@ -426,8 +475,8 @@ def make_bank_train_block(dcfg: DecoderConfig, alpha_c: float,
 
         def step(ii, ri, mask):
             return _bank_step(dcfg, alpha_c, rep_penalty_beta, debug_nans,
-                              distributed, state, feat_bank, caps_bank, ii,
-                              ri, generator, mask, n_rows)
+                              distributed, sharded_bank, state, feat_bank,
+                              caps_bank, ii, ri, generator, mask, n_rows)
 
         block_fn.captured = not _eager_block(feat_bank, distributed)
         if not block_fn.captured:
@@ -458,7 +507,8 @@ def make_bank_train_block(dcfg: DecoderConfig, alpha_c: float,
 
 
 def make_bank_eval_block(dcfg: DecoderConfig, alpha_c: float,
-                         distributed: bool = False):
+                         distributed: bool = False,
+                         sharded_bank: bool = False):
     """K eval batches in one dispatch: `block(decoder, feat_bank, caps_bank,
     img_idx (K, B), row_idx (K, B), row_mask (K, B) or None, n_rows=None)
     -> (metrics, tokens (K, B, T-1))`, each metric stacked to (K,), all on
@@ -476,8 +526,9 @@ def make_bank_eval_block(dcfg: DecoderConfig, alpha_c: float,
 
         def step(ii, ri, mask):
             metrics, tokens, _ = _eval(dcfg, alpha_c, decoder,
-                                       bank_rows(feat_bank, ii),
-                                       caps_bank[ri], mask, n)
+                                       bank_rows(feat_bank, ii, sharded_bank),
+                                       bank_caps(caps_bank, ri, sharded_bank),
+                                       mask, n)
             return metrics, tokens
 
         if _eager_block(feat_bank, distributed):

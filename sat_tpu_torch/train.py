@@ -8,13 +8,16 @@ where every kernel runs its plain PyTorch form. The run computes in float32
 (`device.use_f32_math`: no TF32). A flag whose path is not
 ported yet raises NotImplementedError naming its ROADMAP.md item.
 
-Data parallel, one rank per card (engine/loop.py):
+Data and model parallel, one rank per card (engine/loop.py):
 
-    torchrun --nproc_per_node N -m sat_tpu_torch.train --mesh-data N ...
+    torchrun --nproc_per_node N*M -m sat_tpu_torch.train --mesh-data N \
+        --mesh-model M ...
 
 trains on the global batches that sat_tpu's one process forms with
-`--mesh-data N` and the same `--batch-size`; NCCL carries the gradients
-between cards, gloo between CPU ranks (`--device cpu`). `main`
+`--mesh-data N` and the same `--batch-size`, with the vocabulary of the
+embedding and the two heads split over M ranks (M must divide it); NCCL
+carries the collectives between cards, gloo between CPU ranks (`--device
+cpu`). `main`
 returns what `Trainer.fit` does: the last evaluation's metrics, or
 `{"preempted": True, "epoch": e}` after a SIGTERM or SIGUSR1 (rerun with
 --resume to continue).

@@ -18,6 +18,12 @@ rows of the whole global batch, of which this rank holds some. A loss term
 given it divides its masked sum by the global count instead of its own, so
 that the ranks' terms sum to the global batch's mean; `top_k_hits` gives an
 accuracy's numerator and denominator apart, for the same reason.
+
+`shard` (a parallel.vocab.VocabShard) is for the vocab-sharded head: preds
+hold the rank's columns of the vocabulary, and the terms that read across
+it (the cross-entropy's normalizer and target logit, top-k membership,
+the argmax of the repetition penalty) reduce over the model group, so that
+every rank of the group computes the whole vocabulary's numbers.
 """
 
 from __future__ import annotations
@@ -25,10 +31,15 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from sat_tpu_torch.parallel import vocab as vp
 
-def _in_top_k(preds: torch.Tensor, targets: torch.Tensor, k: int):
+
+def _in_top_k(preds: torch.Tensor, targets: torch.Tensor, k: int,
+              shard=None):
     """(...,) bool: targets (...) among the k first of preds (..., V) in
     lax.top_k's order."""
+    if shard is not None:
+        return vp.in_top_k(preds, targets, k, shard)
     t = targets.long()[..., None]
     tv = preds.gather(-1, t)
     idx = torch.arange(preds.shape[-1], device=preds.device)
@@ -45,11 +56,12 @@ def legacy_accuracy(preds: torch.Tensor, targets: torch.Tensor,
 
 
 def top_k_hits(preds: torch.Tensor, targets: torch.Tensor, k: int,
-               ignore_index: int = 0, row_mask: torch.Tensor | None = None):
+               ignore_index: int = 0, row_mask: torch.Tensor | None = None,
+               shard=None):
     """(hits, total): the non-padding positions whose target is among the
     top k of preds (B, T, V), and the non-padding positions, of targets
     (B, T)."""
-    correct = _in_top_k(preds, targets, k)
+    correct = _in_top_k(preds, targets, k, shard)
     mask = targets != ignore_index
     if row_mask is not None:
         mask = mask & row_mask[:, None]
@@ -64,11 +76,13 @@ def percent(hits: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
 
 def sequence_accuracy(preds: torch.Tensor, targets: torch.Tensor, k: int,
                       ignore_index: int = 0,
-                      row_mask: torch.Tensor | None = None) -> torch.Tensor:
+                      row_mask: torch.Tensor | None = None,
+                      shard=None) -> torch.Tensor:
     """Top-k token accuracy over non-padding positions, as a percentage.
     preds (B, T, V) logits, targets (B, T) ids; 0.0 when every position is
     padding."""
-    return percent(*top_k_hits(preds, targets, k, ignore_index, row_mask))
+    return percent(*top_k_hits(preds, targets, k, ignore_index, row_mask,
+                               shard))
 
 
 def calculate_caption_lengths(captions: torch.Tensor, skip_ids,
@@ -87,13 +101,16 @@ def calculate_caption_lengths(captions: torch.Tensor, skip_ids,
 
 def reference_packed_cross_entropy(preds: torch.Tensor, targets: torch.Tensor,
                                    row_mask: torch.Tensor | None = None,
-                                   n_rows: int | None = None):
+                                   n_rows: int | None = None, shard=None):
     """Mean cross-entropy over the first T-1 timesteps of every row (the
     reference packs each row with length `len(row) - 1`)."""
     t_keep = preds.shape[1] - 1
     logits = preds[:, :t_keep].reshape(-1, preds.shape[-1])
     labels = targets[:, :t_keep].reshape(-1).long()
-    nll = -F.log_softmax(logits, dim=-1).gather(1, labels[:, None])[:, 0]
+    if shard is not None:
+        nll = vp.nll(logits, labels, shard)
+    else:
+        nll = -F.log_softmax(logits, dim=-1).gather(1, labels[:, None])[:, 0]
     if n_rows is not None:
         w = (torch.ones_like(nll) if row_mask is None
              else row_mask.to(nll.dtype).repeat_interleave(t_keep))
@@ -122,10 +139,11 @@ def attention_regularization(alphas: torch.Tensor, alpha_c: float,
 
 def repetition_penalty(preds: torch.Tensor, ignore_ids, beta: float = 1.0,
                        row_mask: torch.Tensor | None = None,
-                       n_rows: int | None = None):
+                       n_rows: int | None = None, shard=None):
     """Penalty on consecutive repeated argmax tokens (reference
     train.py:357-384), off unless Config.rep_penalty_beta is set."""
-    pred_tokens = preds.argmax(dim=2)                              # (B, T)
+    pred_tokens = (preds.argmax(dim=2) if shard is None
+                   else vp.argmax(preds, shard))                   # (B, T)
     shifted = torch.cat([pred_tokens[:, :1], pred_tokens[:, :-1]], dim=1)
     repetitions = (pred_tokens == shifted).float()
     mask = torch.ones_like(repetitions, dtype=torch.bool)

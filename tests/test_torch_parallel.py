@@ -1,7 +1,8 @@
 """Data-parallel training on the port against sat_tpu's mesh, on the CPU.
 
-- `make_mesh`, `validate_host_divisibility` and the Trainer's start-up
-  check: sat_tpu's messages (the device names aside);
+- `make_mesh` (the data axis, and the (data, model) grid),
+  `validate_host_divisibility` and the Trainer's start-up check: sat_tpu's
+  messages (the device names aside);
 - the stripe, the pad and the slice: for (nodes, local ranks) in
   {(1, 2), (1, 4), (2, 2)}, the ranks' rows of each batch, in rank order,
   are sat_tpu's global batch (each host's stripe padded by `_pad_batch`),
@@ -113,15 +114,16 @@ def _worker(root: str, out: str, rank: int, world: int, init: str) -> None:
 
 def test_make_mesh_messages(capsys):
     """sat_tpu's refusal and warning, with the port's devices; the model
-    axis is refused naming its roadmap item; the Trainer takes the count
-    of the ranks: a plain process is one."""
+    axis gives the grid, rank r at (r // M, r % M), with sat_tpu's count
+    refusal, and refuses a vocabulary it does not divide; the Trainer
+    takes the count of the ranks: a plain process is one."""
     import jax
     from sat_tpu.parallel.mesh import make_mesh as jax_make_mesh
     from sat_tpu.parallel.mesh import \
         validate_host_divisibility as jax_divisibility
 
     from sat_tpu_torch.engine.loop import data_ranks
-    from sat_tpu_torch.parallel.mesh import (make_mesh,
+    from sat_tpu_torch.parallel.mesh import (grid_cell, make_mesh,
                                              validate_host_divisibility)
 
     two = ["cpu", "cpu"]
@@ -142,8 +144,24 @@ def test_make_mesh_messages(capsys):
     assert capsys.readouterr().err == want_warning != ""
     assert make_mesh(0, devices=two) == [torch.device("cpu")] * 2
 
-    with pytest.raises(NotImplementedError, match="vocab-sharded head"):
+    four = ["cpu"] * 4
+    assert make_mesh(2, n_model=2, devices=four) == [
+        [torch.device("cpu")] * 2] * 2
+    assert make_mesh(0, n_model=2, devices=four) == make_mesh(
+        2, n_model=2, devices=four)
+    assert [grid_cell(r, 2) for r in range(4)] == [(0, 0), (0, 1), (1, 0),
+                                                   (1, 1)]
+    with pytest.raises(ValueError) as want:
+        jax_make_mesh(2, 2, jax.devices()[:2])
+    with pytest.raises(ValueError) as got:
         make_mesh(2, n_model=2, devices=two)
+    head = "mesh data=2 x model=2 needs 4 devices, but only 2 are visible"
+    assert str(want.value).startswith(head)
+    assert str(got.value).startswith(head)
+    with pytest.raises(ValueError, match=r"the vocabulary \(2633 words\) "
+                       r"is not divisible by --mesh-model 2"):
+        make_mesh(2, n_model=2, devices=four, vocab_size=2633)
+    capsys.readouterr()
     for n_data, hosts in ((8, 3), (6, 4), (4, 2)):
         try:
             jax_divisibility(n_data, hosts)

@@ -186,7 +186,6 @@ def test_step_lr_matches_sat_tpu():
 VOCAB_FILE = "<a bert vocab.txt>"
 PROFILE_DIR = "<a profile directory>"
 DATA = ["<the synthetic dataset>"]
-UNPORTED = (NotImplementedError, "ROADMAP.md")
 
 
 @pytest.mark.parametrize("flags,error", [
@@ -194,7 +193,9 @@ UNPORTED = (NotImplementedError, "ROADMAP.md")
     pytest.param(["--bert-vocab", "v.txt", "--bert"],
                  (FileNotFoundError, "v.txt"), id="--bert-vocab"),
     pytest.param(DATA + ["--mesh-data", "0"], None, id="--mesh-data"),
-    pytest.param(["--mesh-model", "2"], UNPORTED, id="--mesh-model"),
+    pytest.param(DATA + ["--mesh-model", "2"],
+                 (ValueError, r"the vocabulary \(19 words\) is not divisible "
+                              r"by --mesh-model 2"), id="--mesh-model"),
     pytest.param(["--bert-embeddings", "e.npy", "--bert", "--bert-vocab",
                   VOCAB_FILE], (FileNotFoundError, "e.npy"),
                  id="--bert-embeddings"),
@@ -206,13 +207,16 @@ UNPORTED = (NotImplementedError, "ROADMAP.md")
                  id="--debug-nans")])
 def test_unported_training_flags_raise(flags, error, tmp_path, data,
                                        capsys):
-    """The options still unported raise NotImplementedError naming
-    ROADMAP.md. The BERT flags are ported: each case reaches the BERT
-    path, which asks for --bert-vocab without it, and otherwise reads the
-    vocabulary and then the table that the flags name, here files that
-    are not there (tests/test_torch_bert.py trains with both).
+    """The options still unported would raise NotImplementedError naming
+    ROADMAP.md; none is left. The BERT flags are ported: each case reaches
+    the BERT path, which asks for --bert-vocab without it, and otherwise
+    reads the vocabulary and then the table that the flags name, here
+    files that are not there (tests/test_torch_bert.py trains with both).
     --mesh-data 0 (every rank; a plain process is one) trains an epoch
     (two ranks: tests/test_torch_parallel.py).
+    --mesh-model is ported: the dataset's 19 words do not divide over 2
+    model ranks, which is refused at start-up (the grid:
+    tests/test_torch_tensor_parallel.py, tests/test_torch_sharded_bank.py).
     --profile-dir and --debug-nans are ported: each trains an epoch of
     the synthetic dataset, the first writing its trace into the directory,
     the second stopping at the step whose loss is not finite (the first
