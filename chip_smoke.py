@@ -15,11 +15,14 @@ failed check exits non-zero and no result line is printed:
 
   1. device  — needs CUDA; the card's name and power limit; TF32 off (the
                main path is exact f32)
-  2. build   — nvcc builds ops/csrc/*.cu; build seconds, ptxas report
+  2. build   — nvcc builds ops/csrc/*.cu; build seconds, ptxas report,
+               the two topk_select kernels' registers, spills and shared
+               memory
   3. kernels — each kernel against its plain PyTorch form at the main
                path's shapes (top-k bit-exact on random and adversarial
                rows at B = 128, at B = 1 and 32, and at k = 20, the
-               k-round kernel; attention ctx atol 1e-5, alpha atol 1e-6, at
+               select kernel, with its bound and torch.topk's time;
+               attention ctx atol 1e-5, alpha atol 1e-6, at
                R = 5 and R = 1; the backward's bounds), two launches of
                each kernel bit-identical, and the times of kernel, plain
                form and library call: warm (back to back) and cold (a
@@ -37,7 +40,10 @@ failed check exits non-zero and no result line is printed:
                of the encoders, the sampler and BERT (top-k over
                (128, 152,610) rows at each cluster size, with ties on both
                sides of every split; the sampler's (128, 30,522) at k = 10
-               and 50; the forward at E = 768, f32 and bf16, also on a
+               and 50; the sampler's rows at both widths at k = 17, 64,
+               256 and 1,024 (the select kernel's largest k) and the
+               flagship's at 1,025 (the k-round kernel), each also at B = 1
+               and 32; the forward at E = 768, f32 and bf16, also on a
                ragged last tile; the backward at E = 768; top-k over a
                model rank's (128, 76,305) rows of the vocab-sharded BERT
                beam)
@@ -99,7 +105,9 @@ failed check exits non-zero and no result line is printed:
                [PAD]'s bias raised, graph against eager and 8 images
                against the CPU's plain forms (beam and greedy); greedy
                and sample (k = 10 and 50) through their graphs against
-               eager, their profiles and peak memory; the bf16 decode;
+               eager, their profiles and peak memory; sample decode alone
+               at k = 17, 64, 256 and 1,024 (the select kernel), each
+               replay's 51 top-k on the device and its ms; the bf16 decode;
                then BERT bank training at B = 64 (one step against the
                CPU, the table unchanged and outside Adam, launches and
                profiles, K = 8 blocks against per-batch steps in turns,
@@ -450,8 +458,39 @@ def phase_build():
     seconds = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln or "smem" in ln]
-    emit({"phase": "build", "seconds": seconds, "ptxas": ptxas})
-    return {"seconds": seconds, "log": log}
+    select = {name: info for name, info in ptxas_by_function(log).items()
+              if "topk_select" in name}
+    check(len(select) == 2, f"build: ptxas reported {sorted(select)}, not "
+                            f"the two topk_select kernels")
+    emit({"phase": "build", "seconds": seconds, "ptxas": ptxas,
+          "topk_select": select})
+    return {"seconds": seconds, "log": log, "topk_select": select}
+
+
+def ptxas_by_function(log: str) -> dict:
+    """nvcc -Xptxas -v's report, by kernel: registers, static shared memory
+    bytes, spill stores and loads (bytes), stack frame bytes."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            out[name].update(stack_bytes=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out[name]["smem_bytes"] = int(smem.group(1)) if smem else 0
+    return out
 
 
 def topk_inputs(gen):
@@ -636,16 +675,12 @@ def topk_row(peaks, hz, gen) -> dict:
     variants, by_cluster = {}, {}
     for Bx in TOPK_BATCHES:
         xb = inputs[Bx]
-        n = xb.numel()
-        t_bytes = (4 * n + Bx * BEAM * (4 + 8)) / peaks["bytes_s"]
-        t_ops = n / peaks["f32_s"]                 # one compare per entry
         var = {"shape": f"x ({Bx}, {BEAM * VOCAB}) f32, k={BEAM}",
                "cluster": cluster_size(Bx),
                "ms": time_ms(lambda: topk(xb, BEAM), hz),
                "cold_ms": time_ms(lambda: topk(xb, BEAM), hz, cold=True),
                **stream_ms(lambda: torch.amax(xb, dim=1), hz),
-               "bound_ms": max(t_bytes, t_ops) * 1e3,
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+               **topk_bound(xb, BEAM, peaks)}
         var.update(shares(var))
         variants[f"b{Bx}"] = var
         by_cluster[f"b{Bx}"] = {c: time_ms(lambda: launch(xb, BEAM, c), hz)
@@ -661,6 +696,8 @@ def topk_row(peaks, hz, gen) -> dict:
         "library_ms": time_ms(lambda: torch.topk(x, BEAM, dim=1), hz),
         "sort_ms": time_ms(lambda: topk_library(x, BEAM), hz),
         "k20_ms": time_ms(lambda: topk(x, 20), hz),
+        "k20_library_ms": time_ms(lambda: torch.topk(x, 20, dim=1), hz),
+        "k20_bound_ms": topk_bound(x, 20, peaks)["bound_ms"],
         # one PyTorch kernel that does almost nothing: what a launch costs
         # by this method
         "floor_ms": time_ms(lambda: torch.amax(inputs[1][:, :1], dim=1), hz),
@@ -886,6 +923,30 @@ def attention_bwd_row(peaks, sfu_s, issue_s, tanh_instr, hz, gen,
 WIDE = {"resnet152": 2048, "densenet161": 2208}
 L_WIDE = 49
 SAMPLE_KS = (10, 50)        # the sample phase's top-k
+# top-k past the cluster kernel's 16: the select kernel's k (its largest,
+# kMaxSelect, read from the source) and the k-round kernel's above it
+SELECT_KS = (17, 64, 256)
+
+
+def topk_max_select() -> int:
+    """csrc/topk.cu's kMaxSelect (= kSelectThreads): the select kernel's
+    largest k."""
+    src = open(os.path.join(REPO_DIR, "sat_tpu_torch", "ops", "csrc",
+                            "topk.cu")).read()
+    return int(re.search(r"constexpr int kSelectThreads = (\d+);",
+                         src).group(1))
+
+
+def topk_bound(x, k: int, peaks) -> dict:
+    """The least time for a top-k of x's rows, in ms, and what sets it:
+    each entry read once and k values and int64 indices a row written,
+    over the memory rate, or one compare an entry over the f32 rate,
+    whichever is larger."""
+    rows, n = x.shape
+    t_bytes = (4 * rows * n + rows * k * (4 + 8)) / peaks["bytes_s"]
+    t_ops = rows * n / peaks["f32_s"]
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def fwd_check(name: str, gen, Bx: int, R: int, Lx: int, Dx: int, Ex: int,
@@ -947,9 +1008,10 @@ def fwd_row(name: str, peaks, sfu_s, hz, gen, Lx: int, Dx: int,
 def sample_topk_row(k: int, peaks, hz, gen, vocab: int = VOCAB,
                     name: str | None = None) -> dict:
     """Top-k at the sampler's rows, (B, vocab) f32, at k: the cluster
-    kernel for k <= 16, the k-round kernel above; bit for bit against its
-    plain form on random and adversarial rows, two launches alike, times
-    warm and cold beside the bound and torch.topk's."""
+    kernel for k <= 16, the select kernel to kMaxSelect, the k-round
+    kernel above; bit for bit against its plain form on random and
+    adversarial rows, two launches alike, times warm and cold beside the
+    bound and torch.topk's; the same at B = 1 and 32 (`variants`)."""
     import torch
     from sat_tpu_torch.ops.topk import topk, topk_library, topk_plain
     x = torch.randn((B, vocab), generator=gen).cuda()
@@ -958,18 +1020,29 @@ def sample_topk_row(k: int, peaks, hz, gen, vocab: int = VOCAB,
     adv[1] = float("-inf")
     adv[2, ::5] = float("nan")
     adv[3, 7:] = float("-inf")
+    adv[4] = 0.0
+    adv[4, ::2] = -0.0
     adv = adv.cuda()
-    for label, inp in (("random", x), ("adversarial", adv)):
+    small = {Bx: torch.randn((Bx, vocab), generator=gen).cuda()
+             for Bx in TOPK_BATCHES if Bx != B}
+    for label, inp in (("random", x), ("adversarial", adv),
+                       *((f"random B={Bx}", xb) for Bx, xb in small.items())):
         kv, ki = topk(inp, k)
         pv, pi = topk_plain(inp, k)
         torch.cuda.synchronize()
         check(torch.equal(ki, pi) and same_bits(kv, pv),
-              f"topk k={k}: differs from its plain form on {label} rows")
+              f"{name or k}: differs from its plain form on {label} rows")
     check(all(map(same_bits, topk(x, k), topk(x, k))),
-          f"topk k={k}: two launches differ")
-    n = x.numel()
-    t_bytes = (4 * n + B * k * (4 + 8)) / peaks["bytes_s"]
-    t_ops = n / peaks["f32_s"]
+          f"{name or k}: two launches differ")
+    variants = {}
+    for Bx, xb in small.items():
+        var = {"shape": f"x ({Bx}, {vocab}) f32, k={k}",
+               "ms": time_ms(lambda: topk(xb, k), hz),
+               "cold_ms": time_ms(lambda: topk(xb, k), hz, cold=True),
+               "library_ms": time_ms(lambda: torch.topk(xb, k, dim=1), hz),
+               **topk_bound(xb, k, peaks)}
+        var.update(shares(var))
+        variants[f"b{Bx}"] = var
     row = {"name": name or f"topk_k{k}", "route": "cuda",
            "source": "sat_tpu_torch/ops/csrc/topk.cu",
            "replaces": "sat_tpu/ops/topk.py:41",
@@ -978,12 +1051,27 @@ def sample_topk_row(k: int, peaks, hz, gen, vocab: int = VOCAB,
            "cold_ms": time_ms(lambda: topk(x, k), hz, cold=True),
            "plain_ms": time_ms(lambda: topk_plain(x, k), hz),
            "library_ms": time_ms(lambda: torch.topk(x, k, dim=1), hz),
+           "library_cold_ms": time_ms(lambda: torch.topk(x, k, dim=1), hz,
+                                      cold=True),
            "sort_ms": time_ms(lambda: topk_library(x, k), hz),
            **stream_ms(lambda: torch.amax(x, dim=1), hz),
-           "bound_ms": max(t_bytes, t_ops) * 1e3,
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+           **topk_bound(x, k, peaks), "variants": variants}
     row.update(shares(row))
     return row
+
+
+def select_rows(peaks, hz, gen, vocab: int, prefix: str) -> list[dict]:
+    """Top-k at the sampler's rows past k = 16 beside the sample phase's
+    k = 50: the select kernel at SELECT_KS and at its largest k, and the
+    k-round kernel one above."""
+    top = topk_max_select()
+    rows = [sample_topk_row(k, peaks, hz, gen, vocab=vocab,
+                            name=f"{prefix}_k{k}")
+            for k in SELECT_KS + (top,)]
+    if vocab == VOCAB:
+        rows.append(sample_topk_row(top + 1, peaks, hz, gen, vocab=vocab,
+                                    name=f"topk_rounds_k{top + 1}"))
+    return rows
 
 
 def wide_rows(peaks, sfu_s, issue_s, tanh_instr, hz, gen) -> list[dict]:
@@ -1000,6 +1088,7 @@ def wide_rows(peaks, sfu_s, issue_s, tanh_instr, hz, gen) -> list[dict]:
                                   L=L_WIDE, D=WIDE["densenet161"],
                                   row_name="attention_bwd_d2208"))
     rows += [sample_topk_row(k, peaks, hz, gen) for k in SAMPLE_KS]
+    rows += select_rows(peaks, hz, gen, VOCAB, "topk")
     return rows
 
 
@@ -1598,7 +1687,9 @@ def phase_sample(dcfg, dec_flat, enc_flat, images, wide) -> dict:
     two replays and on the eager step, the next seed other captions;
     k = 1 gives greedy's tokens bit for bit; a replayed batch launches 51
     top-k (at k) and 51 attention_fwd on the device and nothing from the
-    host; decode ms beside greedy's."""
+    host; decode ms beside greedy's; on VGG19 also the decode alone at
+    k = 50, 17, 64, 256, 1,024 (the select kernel) and 1,025 (the k-round
+    kernel), each replay's launches counted the same way."""
     import torch
     from sat_tpu_torch.compat.jax_params import (decoder_from_jax,
                                                  encoder_from_jax)
@@ -1668,8 +1759,42 @@ def phase_sample(dcfg, dec_flat, enc_flat, images, wide) -> dict:
                 dec, feats, graphs=cache)))
         res["decode_only_ms"] = {"sample_k10": sample_ms,
                                  "greedy": greedy_ms}
+        if net == "vgg19":
+            top = topk_max_select()
+            res["by_k"] = by_k = decode_by_k(
+                dec, feats, cache, (50,) + SELECT_KS + (top, top + 1),
+                f"sample {net}")
+            out["device_launches"].update(
+                {f"{net}_k{k}": v["device_launches"]
+                 for k, v in by_k.items()})
         out[net] = res
     emit({"phase": "sample", **out})
+    return out
+
+
+def decode_by_k(dec, feats, cache, ks, label: str) -> dict:
+    """Sample decode alone (T = 0.8, p = 0.9) through its graph at each k:
+    a replayed batch launches 51 top-k and 51 attention_fwd on the device
+    and nothing from the host; decode ms (host clock, 3 runs) and the
+    profile's device busy ms."""
+    from sat_tpu_torch.models.beam import batch_generator, sample_caption
+    out = {}
+    for k in ks:
+        def run(k=k):
+            return sample_caption(dec, feats, batch_generator(5, 0, "cuda"),
+                                  0.8, k, 0.9, graphs=cache)
+
+        run()                                         # its capture
+        reset_launches()
+        prof = profile_run(run)
+        calls = prof.get("kernel_calls")
+        check(read_launches() == counts()
+              and calls == counts(topk=STEPS, attention_fwd=STEPS),
+              f"{label} k={k}: a replayed batch's device launches {calls}, "
+              f"expected {STEPS} of top-k and attention_fwd")
+        out[k] = {"decode_ms": [host_ms(run) for _ in range(3)],
+                  "device_launches": calls,
+                  "device_busy_ms": prof.get("device_busy_ms")}
     return out
 
 
@@ -4224,9 +4349,6 @@ def bert_topk_row(peaks, hz, gen, vocab: int = BERT_V,
             checks.append(f"{label}, cluster {c}")
     check(all(map(same_bits, topk(x, BEAM), topk(x, BEAM))),
           f"{name}: two launches differ")
-    n = x.numel()
-    t_bytes = (4 * n + B * BEAM * (4 + 8)) / peaks["bytes_s"]
-    t_ops = n / peaks["f32_s"]
     row = {"name": name, "route": "cuda",
            "source": "sat_tpu_torch/ops/csrc/topk.cu",
            "replaces": "sat_tpu/ops/topk.py:41",
@@ -4241,8 +4363,7 @@ def bert_topk_row(peaks, hz, gen, vocab: int = BERT_V,
            **stream_ms(lambda: torch.amax(x, dim=1), hz),
            "ms_by_cluster": {c: time_ms(lambda: launch(x, BEAM, c), hz)
                              for c in (1, 2, 4)},
-           "bound_ms": max(t_bytes, t_ops) * 1e3,
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+           **topk_bound(x, BEAM, peaks)}
     row.update(shares(row))
     return row
 
@@ -4259,6 +4380,7 @@ def bert_kernel_rows(peaks, sfu_s, issue_s, tanh_instr, hz, gen) -> list:
                           name="topk_tp")]
     rows += [sample_topk_row(k, peaks, hz, gen, vocab=BERT_V,
                              name=f"topk_bert_k{k}") for k in SAMPLE_KS]
+    rows += select_rows(peaks, hz, gen, BERT_V, "topk_bert")
     for bf16 in (False, True):
         name = f"attention_fwd{'_bf16' if bf16 else ''}_e768"
         row = fwd_row(name, peaks, sfu_s, hz, gen, L, D, bf16, Ex=BERT_E)
@@ -4547,6 +4669,9 @@ def phase_bert(seed: int, enc_flat, images) -> dict:
                         for _ in range(3)],
             "device_busy_ms": prof.get("device_busy_ms"),
             "mean_length": float(ref["length"].float().mean())}
+    top = topk_max_select()
+    sample["by_k"] = decode_by_k(dec, feats, cache, SELECT_KS + (top,),
+                                 "bert sample")
 
     # (d) the bf16 decode: the forward's bf16 variant at E = 768
     step16 = build_caption_step("vgg19", dcfg, BEAM, bf16=True,
@@ -5428,7 +5553,9 @@ def main():
             bert["train"]["bf16_profile"]["kernel_calls"],
             bert["train"]["bf16_launches"], "attention_bwd_bf16"),
         **{f"topk_bert_k{k}": (bert["sample"][f"k{k}"]["device_launches"],
-                               counts(), "topk") for k in SAMPLE_KS}}
+                               counts(), "topk") for k in SAMPLE_KS},
+        **{f"topk_bert_k{k}": (v["device_launches"], counts(), "topk")
+           for k, v in bert["sample"]["by_k"].items()}}
     for row in kernels:
         name = row["name"]
         if name == "topk_tp":
@@ -5443,9 +5570,13 @@ def main():
             res, mode, kname = wide_paths[name]
             row["launches"] = res["device_launches"][mode][kname]
             row["host_launches"] = res["host_launches"][mode][kname]
-        elif name.startswith("topk_k"):
-            row["launches"] = sample["device_launches"][
-                f"resnet152_{name[5:]}"]["topk"]
+        elif name.startswith(("topk_k", "topk_rounds_k")):
+            # the sample phase's replayed batches: ResNet152's at k = 10
+            # and 50, the flagship's at the other k
+            k = name.rsplit("_k", 1)[1]
+            launches = sample["device_launches"]
+            row["launches"] = launches.get(f"resnet152_k{k}",
+                                           launches.get(f"vgg19_k{k}"))["topk"]
             row["host_launches"] = 0
         elif name == "attention_bwd_d2208":
             row["launches"] = row["host_launches"] = entry[

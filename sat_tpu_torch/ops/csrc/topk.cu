@@ -42,11 +42,71 @@
 // kUnroll, and the wrapper's choice of C, were chosen by timing on the card
 // at B = 1, 32 and 128.
 //
-// k > 16, topk_rounds: one block of 1024 threads per row and k rounds of a
-// block-wide arg-max. Round r looks for the first entry, in the same order,
-// that comes after round r-1's winner, so no "taken" mask is stored; each
-// round re-reads the row (from L2 after the first). The C entry picks the
-// kernel by k alone.
+// k = 17..kMaxSelect (1,024), topk_select: each row read once from device
+// memory, then a radix select over it in at most three block-wide passes,
+// whatever k.
+//  - One block of 1,024 threads a row. The row is copied into dynamic
+//    shared memory (up to kRowVecs float4s, 208 KiB: rows of up to 53,245
+//    entries; the flagship sampler's 2,633 take 10.5 KB, BERT's 30,522 take
+//    122 KB). A row starts 4-byte aligned only, so it is read as the
+//    float4s of its own 16-byte boundaries: it sits s = 0..3 entries into
+//    its first vector, and only the first and last vectors are partial
+//    (scalar loads, pads of -inf; every pass masks entries by index). Each
+//    thread keeps kLoadUnroll float4 loads in flight and keeps the largest
+//    value it loaded.
+//  - A bound at or below the k-th largest value, from those maxima: each
+//    warp whose lanes all hold entries takes the r-th largest of its lanes'
+//    maxima, r = ceil(k / such warps) <= 32, and the least of these is
+//    reached by at least k entries of the row. Entries below it cannot be
+//    in the top k, and every later sweep drops them with one compare.
+//    Without such warps, or with r > 32, every entry stays.
+//  - Warp w sweeps a contiguous run of the row's vectors, 32 lanes'
+//    vectors at a time, and places the (key, ~index) words of the entries
+//    that reach the bound, in index order, by ballots, in its own 64 words
+//    of shared memory. When no warp has more than 64 and all of them are
+//    at most kMaxSelect (random rows keep a few hundred of BERT's 30,522
+//    at k = 50), they are the survivors.
+//  - Otherwise a radix select over them: each maps to a 32-bit order key
+//    (NaN as -inf, -0.0 as +0.0: for the key only), and passes over digits
+//    of 11, 11 and 10 bits (key bits 31-21, 20-10, 9-0) histogram the keys
+//    that match the prefix found so far into 2,048 bins in shared memory
+//    (atomic adds: their order changes no count); a descending scan of the
+//    bins finds the bin of the k-th largest key and the count of keys
+//    above it. After a pass whose prefix has at most kMaxSelect keys at or
+//    above it, the passes stop and all of those survive. Otherwise, after
+//    the third, the prefix is the k-th key T itself: every key above T
+//    survives, and the lowest-index (k - above) of the keys equal to T.
+//    They are taken in index order by two sweeps: the first counts each
+//    warp's, one barrier and a scan of the 32 counts give each warp its
+//    first place, and the second places each word at the count above the
+//    prefix before it plus the count at it before it, capped at the quota.
+//    No atomic decides a place, so two launches give the same bits.
+//  - A bitonic sort of the survivors, one 64-bit word (key, ~index) a
+//    thread of the first (survivors, rounded up to a power of two from 32)
+//    threads, descending, which orders by value descending, then index
+//    ascending: strides below 32 by warp shuffles, the others through
+//    shared memory (one barrier of those threads each). Thread t < k
+//    writes the t-th index and its value, read again from the row (so
+//    -0.0 keeps its sign and NaN comes back as -inf).
+//  - A row too wide for the copy runs the same sweeps with each one reading
+//    the row from device memory (the L2 after the first): exact, slower. No
+//    path of the port gives such rows at k > 16.
+//  kMaxSelect is what the sort holds: one survivor a thread of the block,
+//  in registers. Bound on the H100: the row read once and k values and
+//  indices written; at the sampler's (128, 30,522), k = 50, 15.6 MB, 4.7 us
+//  at 3.35 TB/s, and a row a block leaves each SM one copy to wait on. The
+//  rest is a chain of barriers: 2 (the bound, the take) when the bound
+//  keeps few enough entries, else 3 for each pass and 2 for the take, and
+//  the sort's stages at strides of 32 and up (none to 15); only the sort
+//  grows with the survivors, as log^2.
+//  kLoadUnroll and the block were chosen by timing on the card.
+
+// k > kMaxSelect, topk_rounds: one block of 1024 threads per row and k
+// rounds of a block-wide arg-max. Round r looks for the first entry, in the
+// same order, that comes after round r-1's winner, so no "taken" mask is
+// stored; each round re-reads the row (from L2 after the first). It is
+// linear in k (the first design); no path of the port asks for k > 1,024.
+// The C entry picks the kernel by k.
 
 #include <cuda_runtime.h>
 
@@ -64,6 +124,14 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 4;  // float4 loads in flight per thread
 constexpr int kMaxK = 16;  // topk_cluster's largest k
 constexpr int kMaxCluster = 4;  // blocks a row: 4 * kWarps lists, one a lane
+constexpr int kSelectThreads = 1024;  // topk_select's block
+constexpr int kSelectWarps = kSelectThreads / 32;
+constexpr int kMaxSelect = kSelectThreads;  // survivors: one a thread
+constexpr int kBins = 2048;  // an 11-bit digit
+constexpr int kPasses = 3;  // digits of 11, 11 and 10 bits
+constexpr int kLoadUnroll = 4;  // float4 loads in flight per thread
+constexpr int kRowVecs = 13312;  // float4s of a row in shared memory
+constexpr int kRunWords = 64;  // a warp's run of kept entries: 32 runs fill the histograms
 constexpr int kRoundThreads = 1024;  // topk_rounds' block
 constexpr int kRoundWarps = kRoundThreads / 32;
 
@@ -282,7 +350,381 @@ topk_cluster(const float* __restrict__ x, float* __restrict__ values,
   }
 }
 
-// One block per row, k rounds (the k > kMaxK kernel).
+
+// ---- topk_select (16 < k <= kMaxSelect)
+
+// Digit `pass` of a key: its shift and width (bits 31-21, 20-10, 9-0).
+__device__ __forceinline__ int digit_shift(int pass) { return pass == 0 ? 21 : pass == 1 ? 10 : 0; }
+__device__ __forceinline__ int digit_bits(int pass) { return pass == 2 ? 10 : 11; }
+
+__device__ __forceinline__ float4 neg_inf4() {
+  return make_float4(neg_inf(), neg_inf(), neg_inf(), neg_inf());
+}
+
+// Vector q of a row that sits s entries into its first 16-byte unit:
+// entries 4q - s .. 4q - s + 3; those outside [0, n) read as -inf (and no
+// pass counts them). `vec` is the row's first 16-byte unit (src - s).
+__device__ __forceinline__ float4 row_vec(const float4* vec, const float* src,
+                                          int q, int s, int n) {
+  const int j = 4 * q - s;
+  if (j >= 0 && j + 3 < n) return __ldg(vec + q);
+  float e[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) e[c] = (j + c >= 0 && j + c < n) ? __ldg(src + j + c) : neg_inf();
+  return make_float4(e[0], e[1], e[2], e[3]);
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+// Inclusive sum over the warp's lanes.
+__device__ __forceinline__ uint32_t warp_inclusive(uint32_t v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const uint32_t o = __shfl_up_sync(0xffffffffu, v, off);
+    if (lane >= off) v += o;
+  }
+  return v;
+}
+
+// Where the select kernel reads its row: shared memory (kResident) or
+// device memory.
+template <bool kResident>
+struct Row {
+  const float4* smem;
+  const float4* vec;
+  const float* src;
+  int s, n, nv;
+
+  __device__ __forceinline__ float4 operator[](int q) const {
+    if (q >= nv) return neg_inf4();
+    return kResident ? smem[q] : row_vec(vec, src, q, s, n);
+  }
+  __device__ __forceinline__ float at(int j) const {
+    return kResident ? reinterpret_cast<const float*>(smem)[j + s] : src[j];
+  }
+};
+
+// A barrier of the first `threads` threads of the block (a multiple of
+// 32), on barrier `id` (0 is __syncthreads'). The warp converges first:
+// the barrier may follow code whose lanes branched apart.
+__device__ __forceinline__ void named_barrier(int id, uint32_t threads) {
+  __syncwarp();
+  asm volatile("barrier.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// A bitonic sort of kSize 64-bit words, one in each of the first kSize
+// threads, descending: the thread's word after it. Strides below 32 go by
+// warp shuffles, the others through `buf`'s two halves of kMaxSelect
+// words in turn, with one barrier of the kSize threads each.
+template <int kSize>
+__device__ __forceinline__ unsigned long long bitonic(unsigned long long mine,
+                                                      unsigned long long* buf) {
+  const int t = threadIdx.x;
+  int exchange = 0;
+#pragma unroll
+  for (int size = 2; size <= kSize; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      unsigned long long other;
+      if (stride >= 32) {
+        unsigned long long* half = buf + (exchange++ & 1) * kMaxSelect;
+        half[t] = mine;
+        named_barrier(1, kSize);
+        other = half[t ^ stride];
+      } else {
+        other = __shfl_xor_sync(0xffffffffu, mine, stride);
+      }
+      const bool descending = (t & size) == 0;
+      const bool first = (t & stride) == 0;
+      const bool larger = other > mine;
+      if (first == descending ? larger : !larger && other != mine) mine = other;
+    }
+  }
+  return mine;
+}
+
+// Grid: one block per row. kResident: the row lives in dynamic shared
+// memory (16 * ((n + 6) / 4) bytes); else each pass reads device memory.
+template <bool kResident>
+__global__ void __launch_bounds__(kSelectThreads, 1)
+topk_select(const float* __restrict__ x, float* __restrict__ values,
+            int64_t* __restrict__ indices, int n, int k) {
+  extern __shared__ float4 row_smem[];  // kResident: the row's vectors
+  // The warps' runs of kept entries, or two histograms and then the
+  // survivors; then the sort's two exchange buffers (64-bit words).
+  __shared__ __align__(16) uint32_t work[2 * kBins];
+  __shared__ uint32_t warp_a[kSelectWarps], warp_b[kSelectWarps], warp_bound[kSelectWarps];
+  __shared__ uint32_t chosen[3];  // the pass's prefix, keys above it, keys at it
+
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const size_t r = blockIdx.x;
+  const float* src = x + r * n;
+  const int s = static_cast<int>((reinterpret_cast<uintptr_t>(src) & 15u) >> 2);
+  const int nv = (n + s + 3) >> 2;
+  const Row<kResident> row{row_smem, reinterpret_cast<const float4*>(src - s), src, s, n, nv};
+
+  for (int i = t; i < 2 * kBins; i += kSelectThreads) work[i] = 0;
+
+  // ---- the copy (kResident), and each thread's largest value (pads are
+  // -inf; fmaxf drops NaN, which ranks as -inf)
+  float top = neg_inf();
+  for (int q0 = 0; q0 < nv; q0 += kLoadUnroll * kSelectThreads) {
+    float4 v[kLoadUnroll];
+#pragma unroll
+    for (int u = 0; u < kLoadUnroll; ++u) {
+      const int q = q0 + t + u * kSelectThreads;
+      v[u] = q < nv ? row_vec(row.vec, src, q, s, n) : neg_inf4();
+    }
+#pragma unroll
+    for (int u = 0; u < kLoadUnroll; ++u) {
+      const int q = q0 + t + u * kSelectThreads;
+      if (kResident && q < nv) row_smem[q] = v[u];
+      top = fmaxf(top, fmaxf(fmaxf(v[u].x, v[u].y), fmaxf(v[u].z, v[u].w)));
+    }
+  }
+
+  // ---- a bound at or below the k-th largest key. Each lane of the first
+  // `full` warps holds vector t, so its largest value is one of its
+  // entries. A warp's per_warp-th largest lane maximum is reached by
+  // per_warp entries, so the least of those over the full warps is reached
+  // by full * per_warp >= k entries: no entry below it is in the top k.
+  const int full = min(kSelectWarps, nv / 32);
+  const int per_warp = full > 0 ? (k + full - 1) / full : 33;
+  if (warp < full && per_warp <= 32) {
+    uint32_t key = order_key(top), kth = 0;
+    int seen = 0;
+    for (int round = 0; round < 32 && seen < per_warp; ++round) {
+      kth = __reduce_max_sync(0xffffffffu, key);
+      seen += __popc(__ballot_sync(0xffffffffu, key == kth));
+      if (key == kth) key = 0;
+    }
+    if (lane == 0) warp_bound[warp] = kth;
+  }
+  __syncthreads();  // also: the copy and the zeroed histograms
+  uint32_t bound = 0;
+  if (per_warp <= 32)
+    bound = __reduce_min_sync(0xffffffffu, lane < full ? warp_bound[lane] : 0xffffffffu);
+  const bool all = bound <= 0x007fffffu;  // at most -inf's key: every entry
+  const float least = all ? neg_inf() : key_value(bound);
+
+  // Warp w sweeps a contiguous run of the row's vectors, 32 lanes' vectors
+  // at a time, so a warp's ballots see its entries in index order.
+  unsigned long long* surv = reinterpret_cast<unsigned long long*>(work);
+  const int per = (nv + kSelectWarps - 1) / kSelectWarps;
+  const int w0 = min(nv, warp * per), w1 = min(nv, w0 + per);
+  const unsigned below = (1u << lane) - 1u;
+
+  // ---- the entries that reach the bound (below a finite bound, NaN fails
+  // the compare, as it ranks as -inf): when they fit the sort, they are
+  // the survivors
+  auto kept = [&](const float4& v, int q, int c) -> bool {
+    const bool in_row = static_cast<unsigned>(4 * q - s + c) < static_cast<unsigned>(n);
+    return in_row && (all || lane_of(v, c) >= least);
+  };
+  // One sweep: each warp places its kept entries in index order in its
+  // own run of kRunWords words. They are the survivors when no run
+  // overflows and all fit the sort.
+  uint32_t m = static_cast<uint32_t>(n), placed = 0;
+  bool fits = false;
+  if (!all || n <= kMaxSelect) {
+    for (int q0 = w0; q0 < w1; q0 += 32) {  // the same trips in every lane
+      const int q = q0 + lane;
+      const float4 v = row[q < w1 ? q : nv];
+      bool kd[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) kd[c] = q < w1 && kept(v, q, c);
+      if (__ballot_sync(0xffffffffu, kd[0] || kd[1] || kd[2] || kd[3]) == 0) continue;
+      uint32_t at = placed;  // before this lane's first entry
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const unsigned b = __ballot_sync(0xffffffffu, kd[c]);
+        at += __popc(b & below);
+        placed += __popc(b);
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (!kd[c]) continue;
+        if (at < kRunWords)
+          surv[warp * kRunWords + at] =
+              (static_cast<unsigned long long>(order_key(ranked(lane_of(v, c)))) << 32) |
+              ~static_cast<uint32_t>(4 * q - s + c);
+        ++at;
+      }
+    }
+    if (lane == 0) warp_a[warp] = placed;
+    __syncthreads();
+    placed = warp_a[lane];
+    m = __shfl_sync(0xffffffffu, warp_inclusive(placed), 31);
+    fits = !__any_sync(0xffffffffu, placed > static_cast<uint32_t>(kRunWords)) &&
+           m <= static_cast<uint32_t>(kMaxSelect);
+  }
+  unsigned long long mine = 0;
+  if (fits) {
+    // survivor t: the (t - runs before)-th of the first run that ends past
+    // t, found by halving over the 32 runs' ends (lane l holds run l's)
+    const uint32_t ends = warp_inclusive(placed);
+    int w = 0;
+#pragma unroll
+    for (int step = 16; step > 0; step >>= 1)
+      if (__shfl_sync(0xffffffffu, ends, min(w + step - 1, 31)) <= static_cast<uint32_t>(t)) w += step;
+    const uint32_t start = __shfl_sync(0xffffffffu, ends - placed, min(w, 31));
+    if (static_cast<uint32_t>(t) < m) mine = surv[w * kRunWords + (t - start)];
+  } else {
+    for (int i = t; i < 2 * kBins; i += kSelectThreads) work[i] = 0;
+    __syncthreads();
+    // ---- else passes over them: prefix = key >> shift of the k-th
+    // largest key
+    uint32_t prefix = 0, above = 0, at = 0;
+    int shift = 32;
+    for (int pass = 0; pass < kPasses; ++pass) {
+      const int prev = shift;
+      shift = digit_shift(pass);
+      const uint32_t mask = (1u << digit_bits(pass)) - 1u;
+      uint32_t* hist = work + (pass & 1) * kBins;
+      for (int q0 = 0; q0 < nv; q0 += kLoadUnroll * kSelectThreads) {
+        float4 v[kLoadUnroll];
+#pragma unroll
+        for (int u = 0; u < kLoadUnroll; ++u) v[u] = row[q0 + t + u * kSelectThreads];
+#pragma unroll
+        for (int u = 0; u < kLoadUnroll; ++u) {
+          const int q = q0 + t + u * kSelectThreads;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            if (!kept(v[u], q, c)) continue;
+            const uint32_t key = order_key(ranked(lane_of(v[u], c)));
+            if (pass == 0 || (key >> prev) == prefix) atomicAdd(hist + ((key >> shift) & mask), 1u);
+          }
+        }
+      }
+      __syncthreads();
+
+      // The bin of the k-th largest key: thread t holds bins kBins-1-2t
+      // and kBins-2-2t, and the count of keys in the bins above them.
+      const uint32_t needed = static_cast<uint32_t>(k) - above;
+      const uint32_t c_hi = hist[kBins - 1 - 2 * t], c_lo = hist[kBins - 2 - 2 * t];
+      const uint32_t inc = warp_inclusive(c_hi + c_lo);
+      if (lane == 31) warp_a[warp] = inc;
+      uint32_t* other = work + ((pass + 1) & 1) * kBins;  // the next pass's
+      for (int i = t; i < kBins; i += kSelectThreads) other[i] = 0;
+      __syncthreads();
+      const uint32_t w = warp_a[lane];
+      const uint32_t w_inc = warp_inclusive(w);
+      const uint32_t before = __shfl_sync(0xffffffffu, w_inc - w, warp) + inc - (c_hi + c_lo);
+      const uint32_t bin_hi = kBins - 1 - 2 * t;
+      if (before < needed && needed <= before + c_hi) {
+        chosen[0] = (prefix << digit_bits(pass)) | bin_hi;
+        chosen[1] = above + before;
+        chosen[2] = c_hi;
+      } else if (before + c_hi < needed && needed <= before + c_hi + c_lo) {
+        chosen[0] = (prefix << digit_bits(pass)) | (bin_hi - 1);
+        chosen[1] = above + before + c_hi;
+        chosen[2] = c_lo;
+      }
+      __syncthreads();
+      prefix = chosen[0];
+      above = chosen[1];
+      at = chosen[2];
+      if (above + at <= static_cast<uint32_t>(kMaxSelect)) break;
+    }
+    // Every key above the prefix survives (side 1), and the first `quota`
+    // at it (side 2): all of them when they fit, else the k-th key's
+    // lowest-index ties. A first sweep counts each warp's entries of each
+    // side; after a barrier, a scan of the 32 counts gives those before
+    // this warp's run; a second sweep places each word at the count of
+    // side 1 before it plus the count of side 2 before it, the latter
+    // capped at the quota.
+    const uint32_t quota = above + at <= static_cast<uint32_t>(kMaxSelect)
+                               ? at : static_cast<uint32_t>(k) - above;
+    auto side = [&](const float4& v, int q, int c, uint32_t& key) -> int {
+      if (!kept(v, q, c)) return 0;
+      key = order_key(ranked(lane_of(v, c)));
+      const uint32_t pre = key >> shift;
+      return pre > prefix ? 1 : pre == prefix ? 2 : 0;
+    };
+    uint32_t n1 = 0, n2 = 0;
+    for (int q = w0 + lane; q < w1; q += 32) {
+      const float4 v = row[q];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        uint32_t key;
+        const int sd = side(v, q, c, key);
+        n1 += sd == 1;
+        n2 += sd == 2;
+      }
+    }
+    n1 = __reduce_add_sync(0xffffffffu, n1);
+    n2 = __reduce_add_sync(0xffffffffu, n2);
+    if (lane == 0) {
+      warp_a[warp] = n1;
+      warp_b[warp] = n2;
+    }
+    __syncthreads();
+    const uint32_t a = warp_a[lane], b = warp_b[lane];
+    uint32_t g = __shfl_sync(0xffffffffu, warp_inclusive(a) - a, warp);
+    uint32_t e = __shfl_sync(0xffffffffu, warp_inclusive(b) - b, warp);
+    for (int q0 = w0; q0 < w1; q0 += 32) {  // the same trips in every lane
+      const int q = q0 + lane;
+      const float4 v = row[q < w1 ? q : nv];
+      uint32_t key[4];
+      int sd[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sd[c] = q < w1 ? side(v, q, c, key[c]) : 0;
+      if (__ballot_sync(0xffffffffu, sd[0] | sd[1] | sd[2] | sd[3]) == 0) continue;
+      uint32_t gl = g, el = e;  // before this lane's first entry
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const unsigned b1 = __ballot_sync(0xffffffffu, sd[c] == 1);
+        const unsigned b2 = __ballot_sync(0xffffffffu, sd[c] == 2);
+        gl += __popc(b1 & below);
+        el += __popc(b2 & below);
+        g += __popc(b1);
+        e += __popc(b2);
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (sd[c] == 0) continue;
+        const unsigned long long word =
+            (static_cast<unsigned long long>(key[c]) << 32) | ~static_cast<uint32_t>(4 * q - s + c);
+        if (sd[c] == 1) {
+          surv[gl + min(el, quota)] = word;
+          ++gl;
+        } else {
+          if (el < quota) surv[gl + el] = word;
+          ++el;
+        }
+      }
+    }
+    m = above + quota;
+    __syncthreads();
+    if (static_cast<uint32_t>(t) < m) mine = surv[t];
+  }
+
+  // ---- the sort, by the first size_all threads
+  uint32_t size_all = 32;
+  while (size_all < m) size_all <<= 1;
+  if (t >= static_cast<int>(size_all)) return;
+  named_barrier(1, size_all);  // every survivor read: the buffers are free
+  switch (size_all) {
+    case 32: mine = bitonic<32>(mine, surv); break;
+    case 64: mine = bitonic<64>(mine, surv); break;
+    case 128: mine = bitonic<128>(mine, surv); break;
+    case 256: mine = bitonic<256>(mine, surv); break;
+    case 512: mine = bitonic<512>(mine, surv); break;
+    default: mine = bitonic<1024>(mine, surv); break;
+  }
+  if (t < k) {
+    const int j = static_cast<int>(~static_cast<uint32_t>(mine));
+    values[r * k + t] = ranked(row.at(j));
+    indices[r * k + t] = j;
+  }
+}
+
+// One block per row, k rounds (the k > kMaxSelect kernel).
 __global__ void __launch_bounds__(kRoundThreads)
 topk_rounds(const float* __restrict__ x, float* __restrict__ values,
             int64_t* __restrict__ indices, int n, int k) {
@@ -337,6 +779,10 @@ topk_rounds(const float* __restrict__ x, float* __restrict__ values,
 static_assert(kMaxCluster * kWarps <= 32, "rank 0's warp takes one list a lane");
 static_assert((kUnroll & (kUnroll - 1)) == 0, "the thread's max is a tree of 2 * kUnroll");
 static_assert(kRoundWarps == 32, "the second reduction gives one warp entry per lane");
+static_assert(kSelectWarps == 32, "the scans give one warp total per lane");
+static_assert(2 * kSelectThreads == kBins, "a thread scans two bins");
+static_assert(2 * kMaxSelect * 8 <= 2 * kBins * 4, "the sort's two buffers fit the histograms");
+static_assert(kSelectWarps * kRunWords * 8 <= 2 * kBins * 4, "the warps' runs fit the histograms");
 
 using Launch = int (*)(const float*, float*, int64_t*, int, int, int, cudaStream_t);
 
@@ -355,19 +801,33 @@ constexpr Launch kLaunch[kMaxK] = {
     launch_cluster_k<13>, launch_cluster_k<14>, launch_cluster_k<15>,
     launch_cluster_k<16>};
 
+// The row in shared memory when it fits (its float4s, for any start
+// alignment), else read from device memory in each pass.
+int launch_select(const float* x, float* values, int64_t* indices, int rows,
+                  int n, int k, cudaStream_t stream) {
+  const long long vecs = (static_cast<long long>(n) + 6) / 4;
+  if (vecs <= kRowVecs)
+    return launch_cluster_grid(topk_select<true>, dim3(rows, 1, 1), 1, kSelectThreads,
+                               static_cast<size_t>(16 * vecs), stream, x, values,
+                               indices, n, k);
+  return launch_cluster_grid(topk_select<false>, dim3(rows, 1, 1), 1, kSelectThreads,
+                             0, stream, x, values, indices, n, k);
+}
+
 }  // namespace
 
 // x (rows, n) f32 contiguous -> values (rows, k) f32, indices (rows, k)
 // int64. Needs 0 < k <= n and rows >= 1; `cluster` (1..4) is the blocks a
-// row for k <= 16, and k > 16 ignores it. Returns the CUDA error of the
+// row for k <= 16, and larger k ignores it. Returns the CUDA error of the
 // launch (cudaErrorInvalidValue for a cluster out of range).
 extern "C" int sat_topk_f32(const float* x, float* values, int64_t* indices,
                             int rows, int n, int k, int cluster,
                             cudaStream_t stream) {
-  if (k > kMaxK) {
+  if (k > kMaxSelect) {
     topk_rounds<<<rows, kRoundThreads, 0, stream>>>(x, values, indices, n, k);
     return static_cast<int>(cudaGetLastError());
   }
+  if (k > kMaxK) return launch_select(x, values, indices, rows, n, k, stream);
   if (k < 1 || cluster < 1 || cluster > kMaxCluster || rows > INT_MAX / cluster)
     return static_cast<int>(cudaErrorInvalidValue);
   return kLaunch[k - 1](x, values, indices, rows, n, cluster, stream);

@@ -10,9 +10,15 @@ this one:
 form: that is a stable descending sort after NaN -> -inf.
 
 The kernel (csrc/topk.cu) replaces sat_tpu/ops/topk.py::_topk_kernel; its
-source note gives the bound and the design: for k <= 16 one pass over each
-row, split across a thread-block cluster of `cluster_size(B)` blocks, and
-for larger k one block per row and k rounds.
+source note gives the bound and the design. For k <= 16, one pass over each
+row, split across a thread-block cluster of `cluster_size(B)` blocks. For
+16 < k <= 1,024, one block a row: the row read once into shared memory (or,
+above 53,245 entries, read from device memory in each sweep), a bound below
+the k-th largest from the threads' maxima, the entries above it taken in
+index order (and, when more than 1,024 stay, narrowed by a radix select in
+at most three passes whatever k), and a bitonic sort of the survivors; its
+bound is the row's bytes read once. Above 1,024, k rounds of a block-wide
+arg-max (the first design, linear in k).
 
 `topk` checks its input and calls the operator `sat::topk`, whose CPU
 implementation is the plain form and whose CUDA implementation

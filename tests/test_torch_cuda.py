@@ -6,6 +6,9 @@ CPU tests hold the plain forms against sat_tpu). On the card:
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -39,6 +42,19 @@ def _rows(seed, B, N):
 
 
 TOPK_N = 13165     # the beam's row at the flagship vocab: 5 x 2633
+TOPK_SOURCE = (Path(__file__).resolve().parents[1] / "sat_tpu_torch" / "ops"
+               / "csrc" / "topk.cu").read_text()
+
+
+def _topk_constant(name: str) -> int:
+    """A `constexpr int` of csrc/topk.cu, following names it is set to."""
+    value = re.search(rf"constexpr int {name} = (\w+);",
+                      TOPK_SOURCE).group(1)
+    return int(value) if value.isdigit() else _topk_constant(value)
+
+
+# the select kernel's largest k; above it, the k-round kernel
+MAX_SELECT = _topk_constant("kMaxSelect")
 
 
 def _assert_topk_exact(x, values, indices, k):
@@ -49,7 +65,9 @@ def _assert_topk_exact(x, values, indices, k):
 
 
 # B = 1, 32 and 128 at the beam's row give 4, 4 and 2 blocks a row; N = 5
-# leaves blocks with no entry; k = 20 and 17 take the k-round kernel.
+# leaves blocks with no entry; 16 < k <= MAX_SELECT takes the select kernel
+# (its row in shared memory up to 53,245 entries, read from device memory
+# in each pass above: N = 70,000 and 152,610), larger k the k-round kernel.
 @pytest.mark.parametrize("B,N,k", [(1, 5, 5), (3, 40, 7), (16, 1000, 5),
                                    (128, TOPK_N, 5), (4, 70000, 8),
                                    (1, TOPK_N, 5), (32, TOPK_N, 5),
@@ -57,7 +75,12 @@ def _assert_topk_exact(x, values, indices, k):
                                    (128, TOPK_N, 20), (3, 40, 17),
                                    (128, 2633, 10), (128, 2633, 50),
                                    (128, 5 * 30522, 5), (128, 30522, 10),
-                                   (128, 30522, 50)])
+                                   (128, 30522, 50)]
+                         + [(128, N, k) for N in (2633, TOPK_N, 30522)
+                            for k in (17, 32, 64, 256, MAX_SELECT,
+                                      MAX_SELECT + 1)]
+                         + [(1, 2633, 50), (3, 40, 40), (4, 70000, 50),
+                            (2, 5 * 30522, 32)])
 def test_topk_kernel_is_bit_exact(cuda, B, N, k):
     x = _rows(N, B, N).to(cuda)
     before = topk.launches
@@ -83,6 +106,9 @@ def _adversarial(case, B, N):
     elif case == "signed-zeros":
         x[:] = 0.0
         x[:, ::2] = -0.0
+    elif case == "largest-at-the-end":
+        # more of the largest entries in one warp's run than it holds
+        x[:, -300:] += 10.0
     return x
 
 
@@ -147,6 +173,36 @@ def test_topk_two_launches_give_the_same_bits(cuda):
     first, second = topk(x, 5), topk(x, 5)
     assert torch.equal(first[1], second[1])
     assert torch.equal(first[0].view(torch.int32), second[0].view(torch.int32))
+
+
+@pytest.mark.parametrize("N", [2633, 30522])
+@pytest.mark.parametrize("B", [1, 32, 128])
+@pytest.mark.parametrize("case", ["all-neg-inf", "last-slice-only",
+                                  "tie-across-ranks", "nan-every-3rd",
+                                  "signed-zeros", "largest-at-the-end"])
+def test_topk_select_adversarial_rows(cuda, case, B, N):
+    """The adversarial rows at the sampler's widths and k = 50 (the select
+    kernel): ties spread over the row, NaN, +0.0/-0.0 (each keeps its bits),
+    -inf rows, rows finite only at their end, and rows whose largest
+    entries crowd one warp's run (the passes take over)."""
+    x = _adversarial(case, B, N).to(cuda)
+    values, indices = topk(x, 50)
+    _assert_topk_exact(x, values, indices, 50)
+    if case == "all-neg-inf":
+        assert torch.equal(indices.cpu(), torch.arange(50).repeat(B, 1))
+
+
+@pytest.mark.parametrize("N", [2633, 30522, 70000])
+def test_topk_select_two_launches_give_the_same_bits(cuda, N):
+    """No atomic decides a survivor's slot: two launches at k = 50 give the
+    same bits, on random rows and on rows of three values."""
+    x = _rows(N + 50, 128, N).to(cuda)
+    x[3:8] = torch.randint(0, 3, (5, N), generator=torch.Generator()
+                           .manual_seed(N)).float().to(cuda)
+    first, second = topk(x, 50), topk(x, 50)
+    assert torch.equal(first[1], second[1])
+    assert torch.equal(first[0].view(torch.int32), second[0].view(torch.int32))
+    _assert_topk_exact(x, *first, 50)
 
 
 def _fwd_inputs(seed, B, R, L, E, D, device):
@@ -851,6 +907,31 @@ def test_graph_sample_equals_eager(cuda, knobs):
     draws = [sample_caption(dec, feats, batch_generator(7, 0, cuda), *knobs,
                             graphs=cache)[0] for _ in range(2)]
     assert torch.equal(*draws)
+
+
+def test_sample_tokens_with_the_kernel_are_the_plain_forms(cuda,
+                                                          monkeypatch):
+    """A sampled batch at k = 50 on the card: the same Gumbel noise gives
+    the same tokens, lengths and alphas with the select kernel as with
+    topk_plain in its place, and the kernel ran once a step."""
+    import sat_tpu_torch.models.beam as port_beam
+    from sat_tpu_torch.models.beam import sample_caption
+
+    dec = _small_decoder(cuda)
+    feats = torch.rand((32, 49, 64),
+                       generator=torch.Generator().manual_seed(8)).to(cuda)
+    noise = -torch.log(-torch.log(torch.rand(
+        (51, 32, 300), generator=torch.Generator().manual_seed(9)).clamp_min(
+        torch.finfo(torch.float32).tiny))).to(cuda)
+    before = topk.launches
+    kernel = sample_caption(dec, feats, None, 0.8, 50, 0.9, with_alphas=True,
+                            noise=noise)
+    assert topk.launches - before == 51
+    monkeypatch.setattr(port_beam, "topk", topk_plain)
+    plain = sample_caption(dec, feats, None, 0.8, 50, 0.9, with_alphas=True,
+                           noise=noise)
+    assert topk.launches - before == 51
+    assert all(map(_same_bits, kernel, plain))
 
 
 def test_sample_top_k_one_is_greedy_on_the_card(cuda):
