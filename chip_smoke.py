@@ -16,8 +16,8 @@ failed check exits non-zero and no result line is printed:
   1. device  — needs CUDA; the card's name and power limit; TF32 off (the
                main path is exact f32)
   2. build   — nvcc builds ops/csrc/*.cu; build seconds, ptxas report,
-               the two topk_select kernels' registers, spills and shared
-               memory
+               the four topk_select kernels' (row resident or not, bitonic
+               or radix sort) registers, spills and shared memory
   3. kernels — each kernel against its plain PyTorch form at the main
                path's shapes (top-k bit-exact on random and adversarial
                rows at B = 128, at B = 1 and 32, and at k = 20, the
@@ -41,10 +41,11 @@ failed check exits non-zero and no result line is printed:
                (128, 152,610) rows at each cluster size, with ties on both
                sides of every split; the sampler's (128, 30,522) at k = 10
                and 50; the sampler's rows at both widths at k = 17, 64,
-               256 and 1,024 (the select kernel's largest k) and the
-               flagship's at 1,025 (the k-round kernel), each also at B = 1
-               and 32; the forward at E = 768, f32 and bf16, also on a
-               ragged last tile; the backward at E = 768; top-k over a
+               256 and 1,024 (the select kernel's bitonic sort) and past it
+               (its radix sort: 1,025, 2,048 and 2,632 at the flagship's
+               2,633, 1,025, 4,096, 16,384 and 30,521 at BERT's 30,522),
+               each also at B = 1 and 32; the forward at E = 768, f32
+               and bf16, also on a ragged last tile; the backward at E = 768; top-k over a
                model rank's (128, 76,305) rows of the vocab-sharded BERT
                beam)
   4. main    — the worst case (stop-token logits pinned to -1e9, so every
@@ -106,8 +107,9 @@ failed check exits non-zero and no result line is printed:
                against the CPU's plain forms (beam and greedy); greedy
                and sample (k = 10 and 50) through their graphs against
                eager, their profiles and peak memory; sample decode alone
-               at k = 17, 64, 256 and 1,024 (the select kernel), each
-               replay's 51 top-k on the device and its ms; the bf16 decode;
+               at k = 17, 64, 256 and 1,024 (the select kernel's bitonic
+               sort) and 1,025, 4,096, 16,384 and 30,521 (its radix
+               sort), each replay's 51 top-k on the device and its ms; the bf16 decode;
                then BERT bank training at B = 64 (one step against the
                CPU, the table unchanged and outside Adam, launches and
                profiles, K = 8 blocks against per-batch steps in turns,
@@ -460,8 +462,8 @@ def phase_build():
              if "registers" in ln or "spill" in ln or "smem" in ln]
     select = {name: info for name, info in ptxas_by_function(log).items()
               if "topk_select" in name}
-    check(len(select) == 2, f"build: ptxas reported {sorted(select)}, not "
-                            f"the two topk_select kernels")
+    check(len(select) == 4, f"build: ptxas reported {sorted(select)}, not "
+                            f"the four topk_select kernels")
     emit({"phase": "build", "seconds": seconds, "ptxas": ptxas,
           "topk_select": select})
     return {"seconds": seconds, "log": log, "topk_select": select}
@@ -639,7 +641,7 @@ TOPK_BATCHES = (1, 32, B)   # one request, the server's default batch, main
 
 def topk_row(peaks, hz, gen) -> dict:
     """Top-k against its plain form, bit for bit: random and adversarial
-    rows at B = 128, random rows at B = 1 and 32, k = 20 (the k-round
+    rows at B = 128, random rows at B = 1 and 32, k = 20 (the select
     kernel), two launches against each other. Times warm and cold at each
     batch beside the bound and the yardstick (torch.amax over the same
     rows, one pass that returns one value a row), the plain form's and
@@ -923,8 +925,9 @@ def attention_bwd_row(peaks, sfu_s, issue_s, tanh_instr, hz, gen,
 WIDE = {"resnet152": 2048, "densenet161": 2208}
 L_WIDE = 49
 SAMPLE_KS = (10, 50)        # the sample phase's top-k
-# top-k past the cluster kernel's 16: the select kernel's k (its largest,
-# kMaxSelect, read from the source) and the k-round kernel's above it
+# top-k past the cluster kernel's 16: the select kernel's k with the bitonic
+# sort (to kMaxSelect, read from the source) and with the radix sort above
+# it (`sort_ks`)
 SELECT_KS = (17, 64, 256)
 
 
@@ -935,6 +938,16 @@ def topk_max_select() -> int:
                             "topk.cu")).read()
     return int(re.search(r"constexpr int kSelectThreads = (\d+);",
                          src).group(1))
+
+
+def sort_ks(vocab: int) -> tuple:
+    """The sampler's k past kMaxSelect, where the select kernel sorts its
+    survivors by radix: its least k, and up to the widest, V - 1, at the
+    flagship's V and at BERT's (where the index buffers leave shared
+    memory past 19,228)."""
+    top = topk_max_select()
+    return ((top + 1, 2048, vocab - 1) if vocab == VOCAB
+            else (top + 1, 4096, 16384, vocab - 1))
 
 
 def topk_bound(x, k: int, peaks) -> dict:
@@ -1008,8 +1021,8 @@ def fwd_row(name: str, peaks, sfu_s, hz, gen, Lx: int, Dx: int,
 def sample_topk_row(k: int, peaks, hz, gen, vocab: int = VOCAB,
                     name: str | None = None) -> dict:
     """Top-k at the sampler's rows, (B, vocab) f32, at k: the cluster
-    kernel for k <= 16, the select kernel to kMaxSelect, the k-round
-    kernel above; bit for bit against its plain form on random and
+    kernel for k <= 16, the select kernel above (its bitonic sort to
+    kMaxSelect, its radix sort past it); bit for bit against its plain form on random and
     adversarial rows, two launches alike, times warm and cold beside the
     bound and torch.topk's; the same at B = 1 and 32 (`variants`)."""
     import torch
@@ -1062,16 +1075,12 @@ def sample_topk_row(k: int, peaks, hz, gen, vocab: int = VOCAB,
 
 def select_rows(peaks, hz, gen, vocab: int, prefix: str) -> list[dict]:
     """Top-k at the sampler's rows past k = 16 beside the sample phase's
-    k = 50: the select kernel at SELECT_KS and at its largest k, and the
-    k-round kernel one above."""
+    k = 50: the select kernel at SELECT_KS and at its largest k for the
+    bitonic sort, and at `sort_ks` past it."""
     top = topk_max_select()
-    rows = [sample_topk_row(k, peaks, hz, gen, vocab=vocab,
+    return [sample_topk_row(k, peaks, hz, gen, vocab=vocab,
                             name=f"{prefix}_k{k}")
-            for k in SELECT_KS + (top,)]
-    if vocab == VOCAB:
-        rows.append(sample_topk_row(top + 1, peaks, hz, gen, vocab=vocab,
-                                    name=f"topk_rounds_k{top + 1}"))
-    return rows
+            for k in SELECT_KS + (top,) + sort_ks(vocab)]
 
 
 def wide_rows(peaks, sfu_s, issue_s, tanh_instr, hz, gen) -> list[dict]:
@@ -1688,8 +1697,9 @@ def phase_sample(dcfg, dec_flat, enc_flat, images, wide) -> dict:
     k = 1 gives greedy's tokens bit for bit; a replayed batch launches 51
     top-k (at k) and 51 attention_fwd on the device and nothing from the
     host; decode ms beside greedy's; on VGG19 also the decode alone at
-    k = 50, 17, 64, 256, 1,024 (the select kernel) and 1,025 (the k-round
-    kernel), each replay's launches counted the same way."""
+    k = 50, 17, 64, 256, 1,024 (the select kernel's bitonic sort) and
+    1,025, 2,048 and 2,632 (its radix sort), each replay's launches counted
+    the same way."""
     import torch
     from sat_tpu_torch.compat.jax_params import (decoder_from_jax,
                                                  encoder_from_jax)
@@ -1762,7 +1772,8 @@ def phase_sample(dcfg, dec_flat, enc_flat, images, wide) -> dict:
         if net == "vgg19":
             top = topk_max_select()
             res["by_k"] = by_k = decode_by_k(
-                dec, feats, cache, (50,) + SELECT_KS + (top, top + 1),
+                dec, feats, cache,
+                (50,) + SELECT_KS + (top,) + sort_ks(VOCAB),
                 f"sample {net}")
             out["device_launches"].update(
                 {f"{net}_k{k}": v["device_launches"]
@@ -4670,7 +4681,8 @@ def phase_bert(seed: int, enc_flat, images) -> dict:
             "device_busy_ms": prof.get("device_busy_ms"),
             "mean_length": float(ref["length"].float().mean())}
     top = topk_max_select()
-    sample["by_k"] = decode_by_k(dec, feats, cache, SELECT_KS + (top,),
+    sample["by_k"] = decode_by_k(dec, feats, cache,
+                                 SELECT_KS + (top,) + sort_ks(BERT_V),
                                  "bert sample")
 
     # (d) the bf16 decode: the forward's bf16 variant at E = 768
@@ -5570,7 +5582,7 @@ def main():
             res, mode, kname = wide_paths[name]
             row["launches"] = res["device_launches"][mode][kname]
             row["host_launches"] = res["host_launches"][mode][kname]
-        elif name.startswith(("topk_k", "topk_rounds_k")):
+        elif name.startswith("topk_k"):
             # the sample phase's replayed batches: ResNet152's at k = 10
             # and 50, the flagship's at the other k
             k = name.rsplit("_k", 1)[1]

@@ -35,8 +35,10 @@ _I = ctypes.c_int
 # are c_void_p: without argtypes ctypes passes Python ints as 32-bit ints
 # and cuts the pointer.
 SIGNATURES = {
-    # x, values, indices, rows, n, k, cluster, stream
-    "sat_topk_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # x, values, indices, rows, n, k, cluster, workspace, stream
+    "sat_topk_f32": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
+    # n, k, the address of an int64 that receives a row's workspace bytes
+    "sat_topk_workspace_bytes": (_I, _I, _P),
     # keys, feats, u_h, v, b_v, ctx, alpha, images, rows_per_image, L, E, D,
     # stream
     "sat_attention_fwd_f32": (_P, _P, _P, _P, _P, _P, _P,

@@ -42,9 +42,9 @@
 // kUnroll, and the wrapper's choice of C, were chosen by timing on the card
 // at B = 1, 32 and 128.
 //
-// k = 17..kMaxSelect (1,024), topk_select: each row read once from device
-// memory, then a radix select over it in at most three block-wide passes,
-// whatever k.
+// k > 16, topk_select: each row read once from device memory, then a radix
+// select over it in at most three block-wide passes, whatever k, and a sort
+// of the k survivors.
 //  - One block of 1,024 threads a row. The row is copied into dynamic
 //    shared memory (up to kRowVecs float4s, 208 KiB: rows of up to 53,245
 //    entries; the flagship sampler's 2,633 take 10.5 KB, BERT's 30,522 take
@@ -59,7 +59,8 @@
 //    maxima, r = ceil(k / such warps) <= 32, and the least of these is
 //    reached by at least k entries of the row. Entries below it cannot be
 //    in the top k, and every later sweep drops them with one compare.
-//    Without such warps, or with r > 32, every entry stays.
+//    Without such warps, or with r > 32 (every k > 1,024), every entry
+//    stays.
 //  - Warp w sweeps a contiguous run of the row's vectors, 32 lanes'
 //    vectors at a time, and places the (key, ~index) words of the entries
 //    that reach the bound, in index order, by ballots, in its own 64 words
@@ -72,46 +73,86 @@
 //    that match the prefix found so far into 2,048 bins in shared memory
 //    (atomic adds: their order changes no count); a descending scan of the
 //    bins finds the bin of the k-th largest key and the count of keys
-//    above it. After a pass whose prefix has at most kMaxSelect keys at or
-//    above it, the passes stop and all of those survive. Otherwise, after
-//    the third, the prefix is the k-th key T itself: every key above T
-//    survives, and the lowest-index (k - above) of the keys equal to T.
-//    They are taken in index order by two sweeps: the first counts each
-//    warp's, one barrier and a scan of the 32 counts give each warp its
-//    first place, and the second places each word at the count above the
-//    prefix before it plus the count at it before it, capped at the quota.
-//    No atomic decides a place, so two launches give the same bits.
-//  - A bitonic sort of the survivors, one 64-bit word (key, ~index) a
-//    thread of the first (survivors, rounded up to a power of two from 32)
-//    threads, descending, which orders by value descending, then index
-//    ascending: strides below 32 by warp shuffles, the others through
-//    shared memory (one barrier of those threads each). Thread t < k
-//    writes the t-th index and its value, read again from the row (so
-//    -0.0 keeps its sign and NaN comes back as -inf).
+//    above it. After a pass whose prefix has at most S = max(k, kMaxSelect)
+//    keys at or above it, the passes stop and all of those survive (for
+//    k > kMaxSelect, exactly k). Otherwise, after the third, the prefix is
+//    the k-th key T itself: every key above T survives, and the
+//    lowest-index (k - above) of the keys equal to T. They are taken in
+//    index order by two sweeps: the first counts each warp's, one barrier
+//    and a scan of the 32 counts give each warp its first place, and the
+//    second places each at the count above the prefix before it plus the
+//    count at it before it, capped at the quota. No atomic decides a
+//    place, so two launches give the same bits.
+//  - k <= kMaxSelect: a bitonic sort of the survivors, one 64-bit word
+//    (key, ~index) a thread of the first (survivors, rounded up to a power
+//    of two from 32) threads, descending, which orders by value
+//    descending, then index ascending: strides below 32 by warp shuffles,
+//    the others through shared memory (one barrier of those threads each).
+//    Thread t < k writes the t-th index and its value, read again from the
+//    row (so -0.0 keeps its sign and NaN comes back as -inf).
+//  - k > kMaxSelect: the take lays the k survivors' indices down in index
+//    order, and a stable LSD radix sort on their order keys, descending,
+//    orders them by value descending, then index ascending, without ever
+//    comparing indices. Digits of 8 bits (kSortBits), low digit first;
+//    only the digits below the highest bit in which the survivors' least
+//    and largest keys differ are sorted (the rest are the same in every
+//    survivor). Each pass gives warp w a contiguous run of the current
+//    order and 256 counters of its run's digits; a block scan in (digit
+//    descending, warp ascending) order turns the 32 x 256 counts into
+//    first places, and one sweep places each index at its (warp, digit)
+//    place plus the lanes before it with its digit (lanes with one digit
+//    found by __match_any_sync), whose highest lane moves the place on:
+//    places by scans, never by atomics. The counts are made where each
+//    index is placed, by the take for the first digit and by each pass's
+//    sweep for the next: a shared atomic add to the counter of the next
+//    digit of the warp whose run the place falls in (the order of the adds
+//    changes no count), into the other of two tables. The counters are
+//    16-bit (a resident row has < 65,536 entries, so 16-bit indices too),
+//    two to a word for the atomics: one table in the 16 KB the passes'
+//    histograms used, one after the row in dynamic shared memory; for a
+//    row not resident (or one too wide to leave room for that table) both
+//    are 32-bit, in dynamic shared memory. A warp's row of counters is
+//    padded by one word, so that the scan's reads (one digit of 8 warps a
+//    thread) find 32 banks. On the card (`time_topk.py`), at (128, 2,633)
+//    and k = 1,025: 0.0308 ms with a sweep of its own to count each digit,
+//    no padding and the unrolled sub-steps past a warp's run swept too;
+//    0.0277 padded and skipping them; 0.0248 counting at the places.
+//    A key is read again from the row at each use (shared memory when it
+//    is resident). The two index buffers take the shared memory the row
+//    leaves (BERT's 30,522-entry row leaves room for 19,228 16-bit indices
+//    in each, beside the second table); one or both that do not fit lie
+//    in a workspace in device
+//    memory (`sat_topk_workspace_bytes`, allocated by the wrapper), whose
+//    scattered stores go to the L2. Why not a bitonic sort of several words
+//    a thread: at BERT's k = 30,521 it is 120 stages of 32,768 words with a
+//    barrier each and 64-bit words that do not fit beside the row; the
+//    radix sort is at most 4 passes of 3 block barriers over 16-bit
+//    indices (chosen by this count; only the radix sort was built). A
+//    ballot of each digit bit in place of __match_any_sync was timed on
+//    the card: faster at k >= 2,048 of random rows, slower at 1,025 and
+//    in BERT's sampled decode at 30,521, so match stays. The radix sort
+//    is the template argument kRadix, so that the kernel for k <=
+//    kMaxSelect compiles as it did without it.
 //  - A row too wide for the copy runs the same sweeps with each one reading
 //    the row from device memory (the L2 after the first): exact, slower. No
 //    path of the port gives such rows at k > 16.
-//  kMaxSelect is what the sort holds: one survivor a thread of the block,
-//  in registers. Bound on the H100: the row read once and k values and
-//  indices written; at the sampler's (128, 30,522), k = 50, 15.6 MB, 4.7 us
-//  at 3.35 TB/s, and a row a block leaves each SM one copy to wait on. The
-//  rest is a chain of barriers: 2 (the bound, the take) when the bound
-//  keeps few enough entries, else 3 for each pass and 2 for the take, and
-//  the sort's stages at strides of 32 and up (none to 15); only the sort
-//  grows with the survivors, as log^2.
+//  Bound on the H100: the row read once and k values and indices written;
+//  at the sampler's (128, 30,522), k = 50, 15.6 MB, 4.7 us at 3.35 TB/s,
+//  and at k = 30,521 62.5 MB, 19 us; a row a block leaves each SM one copy
+//  to wait on. The rest is a chain of barriers: 2 (the bound, the take)
+//  when the bound keeps few enough entries, else 3 for each pass and 2 for
+//  the take; for k <= kMaxSelect the bitonic sort's stages at strides of 32
+//  and up (none to 15; log^2 in the survivors), for larger k 3 barriers
+//  for each of at most 4 digits and a sweep of k / 32 indices a warp.
 //  kLoadUnroll and the block were chosen by timing on the card.
-
-// k > kMaxSelect, topk_rounds: one block of 1024 threads per row and k
-// rounds of a block-wide arg-max. Round r looks for the first entry, in the
-// same order, that comes after round r-1's winner, so no "taken" mask is
-// stored; each round re-reads the row (from L2 after the first). It is
-// linear in k (the first design); no path of the port asks for k > 1,024.
+//
 // The C entry picks the kernel by k.
 
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 #include "cluster.cuh"
 
@@ -132,8 +173,9 @@ constexpr int kPasses = 3;  // digits of 11, 11 and 10 bits
 constexpr int kLoadUnroll = 4;  // float4 loads in flight per thread
 constexpr int kRowVecs = 13312;  // float4s of a row in shared memory
 constexpr int kRunWords = 64;  // a warp's run of kept entries: 32 runs fill the histograms
-constexpr int kRoundThreads = 1024;  // topk_rounds' block
-constexpr int kRoundWarps = kRoundThreads / 32;
+constexpr int kSortBits = 8;  // the sort's digit (k > kMaxSelect)
+constexpr int kSortBins = 1 << kSortBits;
+constexpr int kSortUnroll = 4;  // indices a lane loads at a time in the sort's sweeps
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
@@ -144,19 +186,6 @@ __device__ __forceinline__ bool precedes(float av, int ai, float bv, int bi) {
 
 __device__ __forceinline__ float ranked(float v) {  // NaN ranks as -inf
   return v != v ? neg_inf() : v;
-}
-
-// The first of the lanes' (v, i), in lane 0.
-__device__ __forceinline__ void warp_best(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(0xffffffffu, v, off);
-    const int oi = __shfl_down_sync(0xffffffffu, i, off);
-    if (precedes(ov, oi, v, i)) {
-      v = ov;
-      i = oi;
-    }
-  }
 }
 
 // An unsigned key in the order of the values: -0.0 and +0.0 share one,
@@ -351,7 +380,7 @@ topk_cluster(const float* __restrict__ x, float* __restrict__ values,
 }
 
 
-// ---- topk_select (16 < k <= kMaxSelect)
+// ---- topk_select (k > 16)
 
 // Digit `pass` of a key: its shift and width (bits 31-21, 20-10, 9-0).
 __device__ __forceinline__ int digit_shift(int pass) { return pass == 0 ? 21 : pass == 1 ? 10 : 0; }
@@ -446,16 +475,146 @@ __device__ __forceinline__ unsigned long long bitonic(unsigned long long mine,
   return mine;
 }
 
+// The sort's row indices and counters (k > kMaxSelect): 16-bit when the row
+// is resident (fewer than 65,536 entries), else 32-bit.
+template <bool kResident>
+using Slot = typename std::conditional<kResident, uint16_t, uint32_t>::type;
+
+// A warp's row of the sort's counters, kSortBins and one 32-bit word: the
+// scan, which reads one digit of 8 warps a thread, then finds 32 banks.
+template <bool kResident>
+__host__ __device__ constexpr int sort_stride() { return kSortBins + 4 / static_cast<int>(sizeof(Slot<kResident>)); }
+
+// Add one to the counter of digit `digit` of the warp whose run of `per`
+// indices holds `place`: a shared atomic, whose order changes no count. Two
+// 16-bit counters share a word; a count stays below 65,536, so the add
+// never carries into the other.
+template <bool kResident>
+__device__ __forceinline__ void count_at(Slot<kResident>* table, uint32_t place,
+                                         uint32_t digit, uint32_t per) {
+  Slot<kResident>* row = table + (place / per) * sort_stride<kResident>();
+  if constexpr (kResident)
+    atomicAdd(reinterpret_cast<uint32_t*>(row + (digit & ~1u)), 1u << (16 * (digit & 1u)));
+  else
+    atomicAdd(row + digit, 1u);
+}
+
+// A stable LSD radix sort of the m row indices in `a`, descending by their
+// order keys, over the key's low `digits` digits of kSortBits: returns the
+// buffer (`a` or `b`) that holds them sorted. Warp w sorts the w-th run of
+// ceil(m / kSelectWarps) indices of each pass's order. `t0` for even
+// passes and `t1` for odd ones (kSelectWarps rows of sort_stride counters
+// each) hold the pass's digit counts of each warp's run, counted where the
+// indices were placed (the take counts pass 0's, the scatter of pass p
+// those of pass p + 1); the first pass zeroes `t1`. `warp_sum`:
+// kSelectWarps words.
+template <bool kResident>
+__device__ __forceinline__ const Slot<kResident>* radix_sort(
+    const Row<kResident>& row, Slot<kResident>* a, Slot<kResident>* b,
+    Slot<kResident>* t0, Slot<kResident>* t1, uint32_t* warp_sum, int m, int digits) {
+  using S = Slot<kResident>;
+  constexpr int kStride = sort_stride<kResident>();
+  constexpr int kTableWords = kSelectWarps * kStride * sizeof(S) / 4;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const uint32_t per = (m + kSelectWarps - 1) / kSelectWarps;
+  const int c0 = min(m, static_cast<int>(warp * per)), c1 = min(m, c0 + static_cast<int>(per));
+  for (int p = 0; p < digits; ++p) {
+    const int shift = kSortBits * p;
+    S* const table = p & 1 ? t1 : t0;
+    S* const next = p & 1 ? t0 : t1;  // pass p - 1's places: free
+    // the counts' exclusive scan in (digit descending, warp ascending)
+    // order: thread t holds digit kSortBins-1 - t/4, warps 8(t%4)..+7
+    {
+      const int d = kSortBins - 1 - (t >> 2);
+      const int w0 = 8 * (t & 3);
+      uint32_t c[8], sum = 0;
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        c[u] = table[(w0 + u) * kStride + d];
+        sum += c[u];
+      }
+      for (int i = t; i < kTableWords; i += kSelectThreads) reinterpret_cast<uint32_t*>(next)[i] = 0;
+      const uint32_t inc = warp_inclusive(sum);
+      if (lane == 31) warp_sum[warp] = inc;
+      __syncthreads();
+      const uint32_t w = warp_sum[lane];
+      uint32_t place = __shfl_sync(0xffffffffu, warp_inclusive(w) - w, warp) + inc - sum;
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        table[(w0 + u) * kStride + d] = static_cast<S>(place);
+        place += c[u];
+      }
+    }
+    __syncthreads();
+    // each index goes to its (warp, digit) place plus the lanes before it
+    // with its digit, and counts there for the next pass; the group's
+    // highest lane moves the place on
+    S* const own = table + warp * kStride;
+    const bool counts = p + 1 < digits;
+    for (int i0 = c0; i0 < c1; i0 += 32 * kSortUnroll) {  // the same trips in every lane
+      S j[kSortUnroll];
+      uint32_t key[kSortUnroll], d[kSortUnroll];
+#pragma unroll
+      for (int u = 0; u < kSortUnroll; ++u) {
+        const int i = i0 + lane + 32 * u;
+        j[u] = i < c1 ? a[i] : S(0);
+      }
+#pragma unroll
+      for (int u = 0; u < kSortUnroll; ++u) {
+        const int i = i0 + lane + 32 * u;
+        key[u] = i < c1 ? order_key(ranked(row.at(j[u]))) : 0u;
+        d[u] = i < c1 ? (key[u] >> shift) & (kSortBins - 1) : static_cast<uint32_t>(kSortBins);
+      }
+#pragma unroll
+      for (int u = 0; u < kSortUnroll; ++u) {
+        if (i0 + 32 * u >= c1) break;  // no lane's index is in the run
+        const unsigned peers = __match_any_sync(0xffffffffu, d[u]);
+        const bool in_run = d[u] < kSortBins;
+        const uint32_t at = in_run ? own[d[u]] : 0u;
+        __syncwarp();
+        if (in_run) {
+          const uint32_t to = at + __popc(peers & below);
+          b[to] = j[u];
+          if (counts) count_at<kResident>(next, to, (key[u] >> (shift + kSortBits)) & (kSortBins - 1), per);
+          if (lane == 31 - __clz(peers)) own[d[u]] = static_cast<S>(at + __popc(peers));
+        }
+        __syncwarp();
+      }
+    }
+    __syncthreads();
+    S* done = b;
+    b = a;
+    a = done;
+  }
+  return a;
+}
+
+// The select kernel's static words: two histograms, or the 16-bit
+// counters of the radix sort.
+constexpr int kWorkWords = 2 * kBins + kSelectWarps;
+
 // Grid: one block per row. kResident: the row lives in dynamic shared
 // memory (16 * ((n + 6) / 4) bytes); else each pass reads device memory.
-template <bool kResident>
+// kRadix (k > kMaxSelect): the radix sort of the survivors, else the
+// bitonic one. Its two tables of counters are `work` and the first
+// dynamic bytes after the row when the row is resident, else the first
+// dynamic bytes; then come the first `in_smem` (0-2) of its two index
+// buffers of k Slots; the others lie in `ws`, (2 - in_smem) * k Slots a
+// row.
+template <bool kResident, bool kRadix>
 __global__ void __launch_bounds__(kSelectThreads, 1)
 topk_select(const float* __restrict__ x, float* __restrict__ values,
-            int64_t* __restrict__ indices, int n, int k) {
+            int64_t* __restrict__ indices, int n, int k, void* __restrict__ ws,
+            int in_smem) {
+  using S = Slot<kResident>;
   extern __shared__ float4 row_smem[];  // kResident: the row's vectors
   // The warps' runs of kept entries, or two histograms and then the
-  // survivors; then the sort's two exchange buffers (64-bit words).
-  __shared__ __align__(16) uint32_t work[2 * kBins];
+  // survivors; then the sort's two exchange buffers (64-bit words), or
+  // (k > kMaxSelect, resident) the radix sort's counters.
+  __shared__ __align__(16) uint32_t work[kWorkWords];
   __shared__ uint32_t warp_a[kSelectWarps], warp_b[kSelectWarps], warp_bound[kSelectWarps];
   __shared__ uint32_t chosen[3];  // the pass's prefix, keys above it, keys at it
 
@@ -467,6 +626,7 @@ topk_select(const float* __restrict__ x, float* __restrict__ values,
   const int s = static_cast<int>((reinterpret_cast<uintptr_t>(src) & 15u) >> 2);
   const int nv = (n + s + 3) >> 2;
   const Row<kResident> row{row_smem, reinterpret_cast<const float4*>(src - s), src, s, n, nv};
+  const uint32_t cap = kRadix ? k : kMaxSelect;  // the survivors the sort holds
 
   for (int i = t; i < 2 * kBins; i += kSelectThreads) work[i] = 0;
 
@@ -505,10 +665,15 @@ topk_select(const float* __restrict__ x, float* __restrict__ values,
     }
     if (lane == 0) warp_bound[warp] = kth;
   }
+  if constexpr (kRadix) {  // the row's largest key, for the sort's digits
+    const uint32_t warp_most = __reduce_max_sync(0xffffffffu, order_key(top));
+    if (lane == 0) warp_b[warp] = warp_most;
+  }
   __syncthreads();  // also: the copy and the zeroed histograms
-  uint32_t bound = 0;
+  uint32_t bound = 0, most = 0;
   if (per_warp <= 32)
     bound = __reduce_min_sync(0xffffffffu, lane < full ? warp_bound[lane] : 0xffffffffu);
+  if constexpr (kRadix) most = __reduce_max_sync(0xffffffffu, warp_b[lane]);
   const bool all = bound <= 0x007fffffu;  // at most -inf's key: every entry
   const float least = all ? neg_inf() : key_value(bound);
 
@@ -629,17 +794,27 @@ topk_select(const float* __restrict__ x, float* __restrict__ values,
       prefix = chosen[0];
       above = chosen[1];
       at = chosen[2];
-      if (above + at <= static_cast<uint32_t>(kMaxSelect)) break;
+      if (above + at <= cap) break;
     }
     // Every key above the prefix survives (side 1), and the first `quota`
     // at it (side 2): all of them when they fit, else the k-th key's
     // lowest-index ties. A first sweep counts each warp's entries of each
     // side; after a barrier, a scan of the 32 counts gives those before
-    // this warp's run; a second sweep places each word at the count of
-    // side 1 before it plus the count of side 2 before it, the latter
-    // capped at the quota.
-    const uint32_t quota = above + at <= static_cast<uint32_t>(kMaxSelect)
-                               ? at : static_cast<uint32_t>(k) - above;
+    // this warp's run; a second sweep places each word (or, for the radix
+    // sort, each index in `sort_a`) at the count of side 1 before it plus
+    // the count of side 2 before it, the latter capped at the quota.
+    // kRadix: the sort's two tables of counters and its index buffers
+    constexpr int kTableBytes = kSelectWarps * sort_stride<kResident>() * sizeof(S);
+    char* const dyn = reinterpret_cast<char*>(row_smem) + (kResident ? 16 * ((n + 6) / 4) : 0);
+    S* const t0 = kResident ? reinterpret_cast<S*>(work) : reinterpret_cast<S*>(dyn);
+    S* const t1 = reinterpret_cast<S*>(dyn + (kResident ? 0 : kTableBytes));
+    char* const after = dyn + (kResident ? 1 : 2) * kTableBytes;
+    const uint32_t sort_per = (k + kSelectWarps - 1) / kSelectWarps;  // a warp's run in the sort
+    S* const ws_row = static_cast<S*>(ws) + r * (2 - in_smem) * k;
+    S* const sort_a = in_smem > 0 ? reinterpret_cast<S*>(after) : ws_row;
+    S* const sort_b = in_smem > 1 ? reinterpret_cast<S*>(after) + k
+                                  : in_smem > 0 ? ws_row : ws_row + k;
+    const uint32_t quota = above + at <= cap ? at : static_cast<uint32_t>(k) - above;
     auto side = [&](const float4& v, int q, int c, uint32_t& key) -> int {
       if (!kept(v, q, c)) return 0;
       key = order_key(ranked(lane_of(v, c)));
@@ -659,6 +834,8 @@ topk_select(const float* __restrict__ x, float* __restrict__ values,
     }
     n1 = __reduce_add_sync(0xffffffffu, n1);
     n2 = __reduce_add_sync(0xffffffffu, n2);
+    if constexpr (kRadix)  // the passes' histograms are read: pass 0's counters
+      for (int i = t; i < kTableBytes / 4; i += kSelectThreads) reinterpret_cast<uint32_t*>(t0)[i] = 0;
     if (lane == 0) {
       warp_a[warp] = n1;
       warp_b[warp] = n2;
@@ -688,19 +865,37 @@ topk_select(const float* __restrict__ x, float* __restrict__ values,
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         if (sd[c] == 0) continue;
-        const unsigned long long word =
-            (static_cast<unsigned long long>(key[c]) << 32) | ~static_cast<uint32_t>(4 * q - s + c);
-        if (sd[c] == 1) {
-          surv[gl + min(el, quota)] = word;
-          ++gl;
-        } else {
-          if (el < quota) surv[gl + el] = word;
-          ++el;
+        const uint32_t j = 4 * q - s + c;
+        if (sd[c] == 1 || el < quota) {
+          const uint32_t place = sd[c] == 1 ? gl + min(el, quota) : gl + el;
+          if constexpr (kRadix) {
+            sort_a[place] = static_cast<S>(j);
+            count_at<kResident>(t0, place, key[c] & (kSortBins - 1), sort_per);
+          } else
+            surv[place] = (static_cast<unsigned long long>(key[c]) << 32) | ~j;
         }
+        if (sd[c] == 1)
+          ++gl;
+        else
+          ++el;
       }
     }
     m = above + quota;
     __syncthreads();
+    if constexpr (kRadix) {
+      // ---- k > kMaxSelect: the radix sort of the k survivors (m = k), over
+      // the digits below the highest bit in which their least possible key
+      // (the prefix) and the row's largest differ
+      const uint32_t differ = (prefix << shift) ^ most;
+      const int digits = differ == 0 ? 0 : (31 - __clz(differ)) / kSortBits + 1;
+      const S* sorted = radix_sort(row, sort_a, sort_b, t0, t1, warp_a, k, digits);
+      for (int p = t; p < k; p += kSelectThreads) {
+        const int j = sorted[p];
+        values[r * k + p] = ranked(row.at(j));
+        indices[r * k + p] = j;
+      }
+      return;
+    }
     if (static_cast<uint32_t>(t) < m) mine = surv[t];
   }
 
@@ -724,64 +919,14 @@ topk_select(const float* __restrict__ x, float* __restrict__ values,
   }
 }
 
-// One block per row, k rounds (the k > kMaxSelect kernel).
-__global__ void __launch_bounds__(kRoundThreads)
-topk_rounds(const float* __restrict__ x, float* __restrict__ values,
-            int64_t* __restrict__ indices, int n, int k) {
-  __shared__ float warp_v[kRoundWarps];
-  __shared__ int warp_i[kRoundWarps];
-  __shared__ float last_v;
-  __shared__ int last_i;
-
-  const float* row = x + static_cast<size_t>(blockIdx.x) * n;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  // The previous winner; (+inf, -1) comes before every entry.
-  float pv = __int_as_float(0x7f800000);
-  int pi = -1;
-
-  for (int r = 0; r < k; ++r) {
-    // (-inf, INT_MAX) comes after every entry, -inf ones included.
-    float bv = neg_inf();
-    int bi = INT_MAX;
-    for (int j = threadIdx.x; j < n; j += kRoundThreads) {
-      const float v = ranked(row[j]);
-      const bool after_last = v < pv || (v == pv && j > pi);
-      if (after_last && precedes(v, j, bv, bi)) {
-        bv = v;
-        bi = j;
-      }
-    }
-    warp_best(bv, bi);
-    if (lane == 0) {
-      warp_v[warp] = bv;
-      warp_i[warp] = bi;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      bv = warp_v[lane];  // kRoundWarps == 32: one entry per lane
-      bi = warp_i[lane];
-      warp_best(bv, bi);
-      if (lane == 0) {
-        const size_t out = static_cast<size_t>(blockIdx.x) * k + r;
-        values[out] = bv;
-        indices[out] = bi;
-        last_v = bv;
-        last_i = bi;
-      }
-    }
-    __syncthreads();
-    pv = last_v;
-    pi = last_i;
-  }
-}
-
 static_assert(kMaxCluster * kWarps <= 32, "rank 0's warp takes one list a lane");
 static_assert((kUnroll & (kUnroll - 1)) == 0, "the thread's max is a tree of 2 * kUnroll");
-static_assert(kRoundWarps == 32, "the second reduction gives one warp entry per lane");
 static_assert(kSelectWarps == 32, "the scans give one warp total per lane");
 static_assert(2 * kSelectThreads == kBins, "a thread scans two bins");
 static_assert(2 * kMaxSelect * 8 <= 2 * kBins * 4, "the sort's two buffers fit the histograms");
+static_assert(kSelectWarps * kSortBins == 8 * kSelectThreads, "a thread scans 8 of the radix sort's counters");
+static_assert(kSelectWarps * sort_stride<true>() * 2 <= kWorkWords * 4, "the 16-bit counters fit the work words");
+static_assert(kRowVecs * 4 < 65536, "a resident row's indices fit 16 bits");
 static_assert(kSelectWarps * kRunWords * 8 <= 2 * kBins * 4, "the warps' runs fit the histograms");
 
 using Launch = int (*)(const float*, float*, int64_t*, int, int, int, cudaStream_t);
@@ -801,33 +946,84 @@ constexpr Launch kLaunch[kMaxK] = {
     launch_cluster_k<13>, launch_cluster_k<14>, launch_cluster_k<15>,
     launch_cluster_k<16>};
 
-// The row in shared memory when it fits (its float4s, for any start
-// alignment), else read from device memory in each pass.
-int launch_select(const float* x, float* values, int64_t* indices, int rows,
-                  int n, int k, cudaStream_t stream) {
+// Where topk_select keeps what it needs for (n, k): the row in shared
+// memory when it fits (its float4s, for any start alignment; for k >
+// kMaxSelect with the radix sort's second table of counters beside it),
+// else read from device memory in each pass; for k > kMaxSelect as many
+// of the sort's two index buffers as the block's shared memory still
+// holds, the rest in a workspace of `ws_row` bytes a row. The static
+// shared memory is the same in every instance of the kernel.
+struct SelectPlan {
+  bool resident;
+  int in_smem;    // index buffers in shared memory
+  size_t smem;    // dynamic shared memory bytes
+  size_t ws_row;  // workspace bytes a row
+};
+
+cudaError_t select_plan(int n, int k, SelectPlan* plan) {
   const long long vecs = (static_cast<long long>(n) + 6) / 4;
-  if (vecs <= kRowVecs)
-    return launch_cluster_grid(topk_select<true>, dim3(rows, 1, 1), 1, kSelectThreads,
-                               static_cast<size_t>(16 * vecs), stream, x, values,
-                               indices, n, k);
-  return launch_cluster_grid(topk_select<false>, dim3(rows, 1, 1), 1, kSelectThreads,
-                             0, stream, x, values, indices, n, k);
+  plan->resident = vecs <= kRowVecs;
+  plan->in_smem = 0;
+  plan->smem = plan->resident ? static_cast<size_t>(16 * vecs) : 0;
+  plan->ws_row = 0;
+  if (k <= kMaxSelect) return cudaSuccess;
+  int device = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, topk_select<true, true>);
+  if (err != cudaSuccess) return err;
+  const size_t room = static_cast<size_t>(optin) - attr.sharedSizeBytes;
+  // the resident row, the second table of 16-bit counters beside it, or
+  // both tables of 32-bit counters
+  const size_t resident = plan->smem + kSelectWarps * sort_stride<true>() * sizeof(Slot<true>);
+  plan->resident = plan->resident && resident <= room;
+  plan->smem = plan->resident ? resident : 2 * kSelectWarps * sort_stride<false>() * sizeof(Slot<false>);
+  const size_t buf = static_cast<size_t>(k) * (plan->resident ? sizeof(Slot<true>) : sizeof(Slot<false>));
+  plan->in_smem = plan->smem + 2 * buf <= room ? 2 : plan->smem + buf <= room ? 1 : 0;
+  plan->smem += plan->in_smem * buf;
+  plan->ws_row = (2 - plan->in_smem) * buf;
+  return cudaSuccess;
+}
+
+int launch_select(const float* x, float* values, int64_t* indices, int rows,
+                  int n, int k, void* ws, cudaStream_t stream) {
+  SelectPlan plan;
+  const cudaError_t err = select_plan(n, k, &plan);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (plan.ws_row > 0 && ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const bool radix = k > kMaxSelect;
+  auto* kernel = plan.resident ? (radix ? topk_select<true, true> : topk_select<true, false>)
+                               : (radix ? topk_select<false, true> : topk_select<false, false>);
+  return launch_cluster_grid(kernel, dim3(rows, 1, 1), 1, kSelectThreads, plan.smem, stream,
+                             x, values, indices, n, k, ws, plan.in_smem);
 }
 
 }  // namespace
 
+// The workspace bytes a row that sat_topk_f32 needs at (n, k), in *bytes
+// (0 for most k: everything fits the block's shared memory). Returns the
+// CUDA error of the device queries.
+extern "C" int sat_topk_workspace_bytes(int n, int k, int64_t* bytes) {
+  *bytes = 0;
+  if (k <= kMaxK) return static_cast<int>(cudaSuccess);
+  SelectPlan plan;
+  const cudaError_t err = select_plan(n, k, &plan);
+  if (err == cudaSuccess) *bytes = static_cast<int64_t>(plan.ws_row);
+  return static_cast<int>(err);
+}
+
 // x (rows, n) f32 contiguous -> values (rows, k) f32, indices (rows, k)
 // int64. Needs 0 < k <= n and rows >= 1; `cluster` (1..4) is the blocks a
-// row for k <= 16, and larger k ignores it. Returns the CUDA error of the
-// launch (cudaErrorInvalidValue for a cluster out of range).
+// row for k <= 16, and larger k ignores it; `workspace` holds rows times
+// sat_topk_workspace_bytes(n, k) bytes (null when that is 0). Returns the
+// CUDA error of the launch (cudaErrorInvalidValue for a cluster out of
+// range or a missing workspace).
 extern "C" int sat_topk_f32(const float* x, float* values, int64_t* indices,
-                            int rows, int n, int k, int cluster,
+                            int rows, int n, int k, int cluster, void* workspace,
                             cudaStream_t stream) {
-  if (k > kMaxSelect) {
-    topk_rounds<<<rows, kRoundThreads, 0, stream>>>(x, values, indices, n, k);
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (k > kMaxK) return launch_select(x, values, indices, rows, n, k, stream);
+  if (k > kMaxK) return launch_select(x, values, indices, rows, n, k, workspace, stream);
   if (k < 1 || cluster < 1 || cluster > kMaxCluster || rows > INT_MAX / cluster)
     return static_cast<int>(cudaErrorInvalidValue);
   return kLaunch[k - 1](x, values, indices, rows, n, cluster, stream);

@@ -12,13 +12,16 @@ form: that is a stable descending sort after NaN -> -inf.
 The kernel (csrc/topk.cu) replaces sat_tpu/ops/topk.py::_topk_kernel; its
 source note gives the bound and the design. For k <= 16, one pass over each
 row, split across a thread-block cluster of `cluster_size(B)` blocks. For
-16 < k <= 1,024, one block a row: the row read once into shared memory (or,
+every k > 16, one block a row: the row read once into shared memory (or,
 above 53,245 entries, read from device memory in each sweep), a bound below
-the k-th largest from the threads' maxima, the entries above it taken in
-index order (and, when more than 1,024 stay, narrowed by a radix select in
-at most three passes whatever k), and a bitonic sort of the survivors; its
-bound is the row's bytes read once. Above 1,024, k rounds of a block-wide
-arg-max (the first design, linear in k).
+the k-th largest from the threads' maxima (k <= 1,024), the entries above
+it taken in index order (and, when more than 1,024 stay, narrowed by a
+radix select in at most three passes whatever k), then a sort of the
+survivors: bitonic for k <= 1,024, a stable radix sort of the k indices
+above; its bound is the row's bytes read once and the k values and indices
+written. Where the radix sort's index buffers do not fit the block's shared
+memory (BERT's rows past k = 19,228), they lie in a workspace that `launch`
+allocates on the current stream for the call.
 
 `topk` checks its input and calls the operator `sat::topk`, whose CPU
 implementation is the plain form and whose CUDA implementation
@@ -45,6 +48,8 @@ nothing falls back to it.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -113,14 +118,22 @@ def topk_cuda(x: torch.Tensor, k: int):
 def launch(x: torch.Tensor, k: int, cluster: int):
     """One launch of the kernel on a checked CUDA tensor x (B, N), with
     `cluster` (1..MAX_CLUSTER) blocks a row (k <= 16; larger k ignores
-    it)."""
+    it), and the workspace the kernel asks for at (N, k), if any."""
     B, N = x.shape
     values = torch.empty((B, k), dtype=torch.float32, device=x.device)
     indices = torch.empty((B, k), dtype=torch.int64, device=x.device)
     lib = _kernels.library()
     with torch.cuda.device(x.device):
+        row_bytes = ctypes.c_int64(0)
+        _kernels.check_launch("topk", lib.sat_topk_workspace_bytes(
+            N, k, ctypes.addressof(row_bytes)))
+        workspace = (torch.empty(B * row_bytes.value, dtype=torch.uint8,
+                                 device=x.device)
+                     if row_bytes.value else None)
         rc = lib.sat_topk_f32(x.data_ptr(), values.data_ptr(),
                               indices.data_ptr(), B, N, k, cluster,
+                              None if workspace is None
+                              else workspace.data_ptr(),
                               torch.cuda.current_stream().cuda_stream)
     _kernels.check_launch("topk", rc)
     _kernels.count(topk)

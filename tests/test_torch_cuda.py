@@ -53,7 +53,8 @@ def _topk_constant(name: str) -> int:
     return int(value) if value.isdigit() else _topk_constant(value)
 
 
-# the select kernel's largest k; above it, the k-round kernel
+# the select kernel's largest k for the bitonic sort; above it, the radix
+# sort of the k survivors
 MAX_SELECT = _topk_constant("kMaxSelect")
 
 
@@ -65,9 +66,9 @@ def _assert_topk_exact(x, values, indices, k):
 
 
 # B = 1, 32 and 128 at the beam's row give 4, 4 and 2 blocks a row; N = 5
-# leaves blocks with no entry; 16 < k <= MAX_SELECT takes the select kernel
-# (its row in shared memory up to 53,245 entries, read from device memory
-# in each pass above: N = 70,000 and 152,610), larger k the k-round kernel.
+# leaves blocks with no entry; k > 16 takes the select kernel (its row in
+# shared memory up to 53,245 entries, read from device memory in each pass
+# above: N = 70,000 and 152,610); k > MAX_SELECT: test_topk_sort_*.
 @pytest.mark.parametrize("B,N,k", [(1, 5, 5), (3, 40, 7), (16, 1000, 5),
                                    (128, TOPK_N, 5), (4, 70000, 8),
                                    (1, TOPK_N, 5), (32, TOPK_N, 5),
@@ -77,8 +78,7 @@ def _assert_topk_exact(x, values, indices, k):
                                    (128, 5 * 30522, 5), (128, 30522, 10),
                                    (128, 30522, 50)]
                          + [(128, N, k) for N in (2633, TOPK_N, 30522)
-                            for k in (17, 32, 64, 256, MAX_SELECT,
-                                      MAX_SELECT + 1)]
+                            for k in (17, 32, 64, 256, MAX_SELECT)]
                          + [(1, 2633, 50), (3, 40, 40), (4, 70000, 50),
                             (2, 5 * 30522, 32)])
 def test_topk_kernel_is_bit_exact(cuda, B, N, k):
@@ -203,6 +203,76 @@ def test_topk_select_two_launches_give_the_same_bits(cuda, N):
     assert torch.equal(first[1], second[1])
     assert torch.equal(first[0].view(torch.int32), second[0].view(torch.int32))
     _assert_topk_exact(x, *first, 50)
+
+
+# k > MAX_SELECT: the radix sort of the k survivors. Its two index buffers
+# lie in shared memory beside the row and a table of counters (N = 2,633;
+# 30,522 up to k = 19,228), one there and one in the workspace (30,522
+# past that), both in the workspace (a resident 45,000-entry row at k =
+# 20,000; the 70,000-entry row, read from device memory, at k = N), or in
+# shared memory beside the 32-bit counters of a row read from device
+# memory (70,000 at k = 2,000; 53,245, resident for k <= MAX_SELECT but
+# leaving no room for the counters, at 20,000).
+SORT_CASES = ([(128, N, k) for N in (2633, 30522)
+               for k in (MAX_SELECT + 1, 2048, N - 1, N)]
+              + [(128, 30522, 4096), (128, 30522, 16384),
+                 (128, TOPK_N, MAX_SELECT + 1), (2, 53245, 20000),
+                 (2, 45000, 20000), (4, 70000, 2000), (2, 70000, 70000),
+                 (1, 2633, 2632), (32, 30522, 1025)])
+
+
+@pytest.mark.parametrize("B,N,k", SORT_CASES)
+def test_topk_sort_is_bit_exact(cuda, B, N, k):
+    """Bit for bit against topk_plain, one launch a call, two launches
+    alike."""
+    x = _rows(N + k, B, N).to(cuda)
+    before = topk.launches
+    first = topk(x, k)
+    assert topk.launches == before + 1
+    _assert_topk_exact(x, *first, k)
+    second = topk(x, k)
+    assert torch.equal(first[1], second[1])
+    assert torch.equal(first[0].view(torch.int32), second[0].view(torch.int32))
+
+
+@pytest.mark.parametrize("N,k", [(2633, MAX_SELECT + 1),
+                                 (30522, MAX_SELECT + 1), (30522, 30521)])
+@pytest.mark.parametrize("case", ["all-neg-inf", "last-slice-only",
+                                  "tie-across-ranks", "nan-every-3rd",
+                                  "signed-zeros", "largest-at-the-end"])
+def test_topk_sort_adversarial_rows(cuda, case, N, k):
+    """The adversarial rows past MAX_SELECT: ties spread over the row and
+    straddling the cut (rows of three values), NaN, +0.0/-0.0, -inf rows
+    (indices 0..k-1) and rows finite only at their end; two launches
+    alike."""
+    x = _adversarial(case, 32, N)
+    x[3:6] = torch.randint(0, 3, (3, N), generator=torch.Generator()
+                           .manual_seed(k)).float()
+    x = x.to(cuda)
+    first, second = topk(x, k), topk(x, k)
+    _assert_topk_exact(x, *first, k)
+    assert torch.equal(first[1], second[1])
+    assert torch.equal(first[0].view(torch.int32), second[0].view(torch.int32))
+    if case == "all-neg-inf":                   # rows 3-5 hold the ties
+        rows = [r for r in range(32) if not 3 <= r < 6]
+        assert torch.equal(first[1][rows].cpu(),
+                           torch.arange(k).repeat(len(rows), 1))
+
+
+@pytest.mark.parametrize("N,k", [(2633, 2048), (30522, 30521)])
+def test_topk_sort_in_a_cuda_graph(cuda, N, k):
+    """A captured top-k past MAX_SELECT (at 30,522 and k = 30,521 with its
+    workspace, allocated in the capture) replays to the eager bits."""
+    x = _rows(N, 32, N).to(cuda)
+    want = topk(x, k)                 # outside the capture: the placement
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = topk(x, k)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], want[1])
+        assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
 
 
 def _fwd_inputs(seed, B, R, L, E, D, device):
@@ -885,7 +955,7 @@ def test_bf16_encoder_on_the_card(cuda):
                                    (1.0, 0, 0.9)], ids=str)
 def test_graph_sample_equals_eager(cuda, knobs):
     """Sample decode through its graph gives the eager path's bits for the
-    same noise (top-k on the kernel at k = 10 and the k-round kernel at 50),
+    same noise (top-k on the kernel at k = 10 and the select kernel at 50),
     on the capture and on a replay; one generator seed, one draw."""
     from sat_tpu_torch.models.beam import batch_generator, sample_caption
     from sat_tpu_torch.utils.graphs import GraphCache

@@ -1,14 +1,19 @@
-"""The steps of csrc/topk.cu's `topk_select` (16 < k <= kMaxSelect) in plain
-form, held to topk_plain, jax.lax.top_k and sat_tpu's Pallas kernel.
+"""The steps of csrc/topk.cu's `topk_select` (every k > 16) in plain form,
+held to topk_plain, jax.lax.top_k and sat_tpu's Pallas kernel.
 
 The kernel runs only on the card (tests/test_torch_cuda.py holds it to
 topk_plain there). Its arithmetic is modelled here step by step on numpy
 rows made from a seed: the 32-bit order keys, the digit histograms of
 11, 11 and 10 bits down to the k-th largest key, the count above it, the
-stop once the survivors fit the sort, the take in index order with the
-quota on the k-th key's ties, and the bitonic sort of the survivors'
-(key, ~index) words. The model reads kMaxSelect and the digit layout from
-the source, so the two cannot drift apart.
+stop once the survivors fit the sort (max(k, kMaxSelect) of them), the take
+in index order with the quota on the k-th key's ties, and the sort of the
+survivors: for k <= kMaxSelect the bitonic network on their (key, ~index)
+words, above it the stable LSD radix sort of their indices on 8-bit digits
+of their keys, each pass's places from 32 warps' digit counts (made where
+the previous step placed each index) scanned in (digit descending, warp
+ascending) order. The model reads kMaxSelect,
+kSortBits and the digit layout from the source, so the two cannot drift
+apart.
 
 lax.top_k ranks NaN and +0.0/-0.0 by backend, so rows holding them are held
 to topk_plain and the Pallas kernel only. The Pallas kernel is unrolled k
@@ -46,6 +51,8 @@ def _constant(name: str) -> int:
 
 MAX_SELECT = _constant("kMaxSelect")
 THREADS = _constant("kSelectThreads")
+SORT_BITS = _constant("kSortBits")        # the radix sort's digit
+SORT_BINS = 1 << SORT_BITS
 RUN_WORDS = _constant("kRunWords")        # a warp's run of kept entries
 BINS = _constant("kBins")
 DIGITS = ((21, 11), (10, 11), (0, 10))    # (shift, bits) of each pass
@@ -99,8 +106,9 @@ def radix_passes(keys: np.ndarray, kept: np.ndarray, k: int):
     """The passes over the kept entries: each histograms the digit of the
     keys that match the prefix so far and picks the bin of the k-th largest
     key by a descending scan. Stops once the keys at or above the prefix
-    fit the sort, else after the last digit. Returns (shift, prefix, above,
-    at, passes run)."""
+    fit the sort (max(k, MAX_SELECT): for k > MAX_SELECT, exactly k), else
+    after the last digit. Returns (shift, prefix, above, at, passes run)."""
+    cap = max(k, MAX_SELECT)
     match = kept.copy()
     prefix = above = 0
     for p, (shift, bits) in enumerate(DIGITS):
@@ -117,7 +125,7 @@ def radix_passes(keys: np.ndarray, kept: np.ndarray, k: int):
         at = int(hist[b])
         prefix = (prefix << bits) | b
         match = kept & ((keys >> np.uint32(shift)) == prefix)
-        if above + at <= MAX_SELECT:
+        if above + at <= cap:
             return shift, prefix, above, at, p + 1
     return shift, prefix, above, at, len(DIGITS)
 
@@ -215,12 +223,60 @@ def bitonic_descending(words: np.ndarray) -> np.ndarray:
     return a
 
 
+def sort_digits(least: int, most: int) -> int:
+    """The radix sort's digits: those at and below the highest bit in which
+    the survivors' least possible key and the row's largest differ (the
+    bits above are the same in every survivor)."""
+    differ = least ^ most
+    return 0 if differ == 0 else (differ.bit_length() - 1) // SORT_BITS + 1
+
+
+def radix_sort(keys: np.ndarray, idx: np.ndarray, digits: int) -> np.ndarray:
+    """The kernel's radix sort of the survivors' indices `idx` (in the
+    take's order), descending by key: for each digit, low first, warp w
+    holds the w-th run of ceil(m / 32) indices of the current order, and
+    its digit counts are those of the places in that run (the kernel
+    counts each index where the take or the previous pass placed it);
+    the 32 x SORT_BINS counts are scanned with thread t
+    holding digit SORT_BINS-1 - t/4 of warps 8(t%4)..+7, i.e. in (digit
+    descending, warp ascending) order; each index goes to its (warp,
+    digit) place plus the indices before it in its run with its digit."""
+    m = idx.size
+    per = -(-m // 32)
+    warp = np.arange(m) // per
+    order = idx.astype(np.int64)
+    for p in range(digits):
+        d = ((keys[order] >> np.uint32(SORT_BITS * p))
+             & np.uint32(SORT_BINS - 1)).astype(np.int64)
+        counts = np.zeros((32, SORT_BINS), np.int64)
+        np.add.at(counts, (warp, d), 1)
+        t = np.arange(THREADS)
+        q = 8 * t[:, None] + np.arange(8)[None]         # thread t's counters
+        qd, qw = SORT_BINS - 1 - (q >> 5), q & 31
+        assert (qd == SORT_BINS - 1 - (t[:, None] >> 2)).all()
+        assert (qw == 8 * (t[:, None] & 3) + np.arange(8)[None]).all()
+        flat = counts[qw, qd].ravel()
+        first = np.zeros_like(counts)
+        first[qw.ravel(), qd.ravel()] = np.cumsum(flat) - flat
+        group = warp * SORT_BINS + d
+        by_group = np.argsort(group, kind="stable")
+        rank = np.empty(m, np.int64)
+        rank[by_group] = np.arange(m) - np.searchsorted(
+            group[by_group], group[by_group], side="left")
+        place = first[warp, d] + rank
+        assert sorted(place.tolist()) == list(range(m))
+        new = np.empty_like(order)
+        new[place] = order
+        order = new
+    return order
+
+
 def select_model(x: np.ndarray, k: int):
     """(values (B, k) f32, indices (B, k) int64, info) by the kernel's
     steps, row by row; the rows lie as in a contiguous (B, N) tensor at a
     16-byte boundary, so row b sits (b * N) % 4 entries into its first
     float4."""
-    assert 16 < k <= MAX_SELECT and k <= x.shape[1]
+    assert 16 < k <= x.shape[1]
     out_v, out_i, info = [], [], []
     for b, row in enumerate(x):
         s = (b * x.shape[1]) % 4
@@ -229,6 +285,7 @@ def select_model(x: np.ndarray, k: int):
         kept = keys >= bound
         kth = np.sort(keys)[::-1][k - 1]
         assert bound <= kth                       # the top k are all kept
+        digits = None
         if fits_runs(kept, s):                    # they survive as they are
             hi, eq, quota, passes = kept, np.zeros_like(kept), 0, 0
         else:
@@ -236,19 +293,25 @@ def select_model(x: np.ndarray, k: int):
             pre = keys >> np.uint32(shift)
             hi, eq = kept & (pre > prefix), kept & (pre == prefix)
             assert hi.sum() == above and eq.sum() == at
-            quota = at if above + at <= MAX_SELECT else k - above
+            quota = at if above + at <= max(k, MAX_SELECT) else k - above
         words = take_survivors(keys, hi, eq, quota, s)
         if passes == 0:
             np.testing.assert_array_equal(run_survivors(keys, kept, s), words)
-        top = bitonic_descending(words)[:k]
-        idx = (~top & np.uint64(0xFFFFFFFF)).astype(np.int64)
-        assert (top >> np.uint64(32)).min() >= NEG_INF_KEY    # no 0 pad
+        if k > MAX_SELECT:                        # the radix sort, m = k
+            assert words.size == k and passes > 0
+            digits = sort_digits(int(prefix) << shift, int(keys.max()))
+            idx = radix_sort(keys, (~words & np.uint64(0xFFFFFFFF))
+                             .astype(np.int64), digits)
+        else:
+            top = bitonic_descending(words)[:k]
+            idx = (~top & np.uint64(0xFFFFFFFF)).astype(np.int64)
+            assert (top >> np.uint64(32)).min() >= NEG_INF_KEY  # no 0 pad
         vals = row[idx]
         out_v.append(np.where(np.isnan(vals), np.float32(-np.inf), vals))
         out_i.append(idx)
         info.append({"passes": passes, "survivors": words.size,
                      "kept": int(kept.sum()), "bound": bound,
-                     "runs": passes == 0,
+                     "runs": passes == 0, "digits": digits,
                      "tie_cut": quota < eq.sum()})
     return (np.stack(out_v).astype(np.float32), np.stack(out_i), info)
 
@@ -286,9 +349,12 @@ PLAIN_ONLY = ("nan-every-3rd", "signed-zeros")   # lax.top_k's own placement
 WIDTHS = (40, 2633, 30522)
 KS = (17, 20, 50, 64, 256, 1024)
 # (4000, 600): a weak bound (r = 20 of 31 full warps' lanes) keeps more than
-# kMaxSelect entries, and on the octaves row one pass narrows them
+# kMaxSelect entries, and on the octaves row one pass narrows them. Past
+# MAX_SELECT, the radix sort at the flagship's 2,633 and at 5,000 entries.
+SORT_CASES = [(n, k) for n in (2633, 5000)
+              for k in (MAX_SELECT + 1, 2048, n - 1, n)]
 CASES = ([(n, k) for n in WIDTHS for k in KS if k <= n]
-         + [(40, 40), (4000, 600)])
+         + [(40, 40), (4000, 600)] + SORT_CASES)
 
 
 @functools.lru_cache(maxsize=None)
@@ -317,11 +383,17 @@ def test_select_model_is_the_exact_topk(n, k):
         np.testing.assert_array_equal(got_v, np.asarray(pal_v))
         np.testing.assert_array_equal(got_i, np.asarray(pal_i))
     # one key in the whole row: the passes stop at once when the row fits
-    # the sort, else only the last digit finds it and the take cuts ties
+    # the sort, after the first digit when k = n, else only the last digit
+    # finds it and the take cuts ties; the radix sort then has no digit to
+    # sort (after the first, the 21 low bits of the least key are unknown)
     neg_inf = dict(zip(names, info))["neg-inf"]
     assert (neg_inf["passes"], bool(neg_inf["tie_cut"])) == (
-        (0, False) if n <= MAX_SELECT else (len(DIGITS), True))
-    assert all(i["survivors"] <= MAX_SELECT for i in info)
+        (0, False) if n <= MAX_SELECT else (1, False) if k == n
+        else (len(DIGITS), True))
+    assert all(i["survivors"] <= max(k, MAX_SELECT) for i in info)
+    if k > MAX_SELECT:
+        assert all(i["survivors"] == k for i in info)
+        assert neg_inf["digits"] == (0 if k < n else 3)
 
 
 def test_every_way_out_of_the_passes_is_taken():
@@ -340,7 +412,7 @@ def test_every_way_out_of_the_passes_is_taken():
     assert overflow > 0
 
 
-@pytest.mark.parametrize("k", [17, 50, 1024])
+@pytest.mark.parametrize("k", [17, 50, 1024, 2000])
 def test_ties_at_the_cut_keep_the_lowest_indices(k):
     """A row of one value: the third pass finds it as the k-th key, the
     take keeps indices 0..k-1 and the sort keeps them in order."""
@@ -399,7 +471,8 @@ def test_no_bound_without_full_warps():
                    for i in select_model(x, k)[2])
 
 
-KNOBS = [(0.8, 50, 0.9), (1.0, 256, 1.0), (0.7, 17, 0.5)]
+KNOBS = [(0.8, 50, 0.9), (1.0, 256, 1.0), (0.7, 17, 0.5),
+         (0.8, MAX_SELECT + 1, 0.9), (1.0, 2632, 1.0)]
 
 
 @pytest.mark.parametrize("knobs", KNOBS, ids=str)
@@ -409,7 +482,8 @@ def test_filter_through_the_model_matches_sat_tpu(knobs, monkeypatch):
     the flagship's V = 2,633."""
     from tests.test_torch_sampling import boundary_gap, sat_tpu_filter
 
-    logits = (np.random.default_rng(7).normal(size=(4, 2633)) * 3.0
+    rows = 4 if knobs[1] <= MAX_SELECT else 2
+    logits = (np.random.default_rng(7).normal(size=(rows, 2633)) * 3.0
               ).astype(np.float32)
     assert boundary_gap(logits, knobs) > 1e-6
 
@@ -420,3 +494,20 @@ def test_filter_through_the_model_matches_sat_tpu(knobs, monkeypatch):
     monkeypatch.setattr(port_beam, "topk", model_topk)
     got = to_np(filter_logits(torch.from_numpy(logits), Sampling(*knobs)))
     np.testing.assert_array_equal(got, sat_tpu_filter(logits, knobs))
+
+
+@pytest.mark.parametrize("spread,digits", [(1.0, 3), (2.0 ** -12, 2)])
+def test_radix_sort_skips_the_digits_the_survivors_share(spread, digits):
+    """Rows in [1, 1 + spread): every key shares its sign, exponent and the
+    mantissa bits above the spread, so the sort runs only the digits below
+    the highest bit in which the least survivor's key and the largest key
+    differ, and still orders them as topk_plain does (ties included)."""
+    rng = np.random.default_rng(digits)
+    x = (1.0 + spread * rng.random((3, 4000))).astype(np.float32)
+    x[2, ::2] = x[2, 1]                        # ties across the whole row
+    v, i, info = select_model(x, 3000)
+    want_v, want_i = topk_plain(torch.from_numpy(x), 3000)
+    np.testing.assert_array_equal(i, to_np(want_i))
+    np.testing.assert_array_equal(v.view(np.int32),
+                                  to_np(want_v).view(np.int32))
+    assert [d["digits"] for d in info[:2]] == [digits, digits]

@@ -7,17 +7,20 @@ Imports sat_tpu_torch from DIR (default: the directory of this script),
 which builds its kernels at first use, and times, at the sampler's rows
 (B = 1, 32 and 128 rows of the flagship's V = 2,633 and BERT's V = 30,522
 entries, random f32 from a seed), the top-k wrapper at k = 17, 50, 64, 256
-and 1,024: the median of `--reps` CUDA-event-timed calls, warm (back to
-back) and cold (a 128 MB write before each call evicts the L2), beside
-torch.topk's warm time on the same rows and the bound (the rows read once,
-k values and int64 indices written, at 3.35 TB/s). Each result is first
-held to the plain form bit for bit. Then it times sample decode alone
-(T = 0.8, p = 0.9, k = 10 and 50) through its CUDA graph at B = 128 on
-random grids (196 x 512) with two decoders of random weights: the
-flagship's (attention + ado, E = 512, V = 2,633) and BERT's (tf + ado +
-attention, E = 768, V = 30,522, a random table): host clock around 5
-synchronized runs after the capture. Prints one JSON line: the tree, the
-card's name and power limit, the rows and the decodes.
+and 1,024, and past 1,024 at k = 1,025, 2,048 and 2,632 (V = 2,633) and
+1,025, 4,096, 16,384 and 30,521 (V = 30,522): the median of `--reps`
+CUDA-event-timed calls (fewer, at least 3, where one call takes more than
+a millisecond: 100 ms of calls), warm (back to back) and cold (a 128 MB
+write before each call evicts the L2), beside torch.topk's warm time on
+the same rows and the bound (the rows read once, k values and int64
+indices written, at 3.35 TB/s). Each result is first held to the plain
+form bit for bit. Then it times sample decode alone (T = 0.8, p = 0.9, k =
+10, 50, 1,024 and 1,025, and the widest k, 2,632 and 30,521) through its
+CUDA graph at B = 128 on random grids (196 x 512) with two decoders of
+random weights: the flagship's (attention + ado, E = 512, V = 2,633) and
+BERT's (tf + ado + attention, E = 768, V = 30,522, a random table): host
+clock around 3 synchronized runs after the capture. Prints one JSON line:
+the tree, the card's name and power limit, the rows and the decodes.
 
 To compare two commits on one card, run it in one call for both trees in
 turns (A, B, B, A), the other commit unpacked by `git archive` into a
@@ -35,10 +38,12 @@ import sys
 # call; the card's name and power limit
 from chip_smoke import host_ms, nvidia_smi, time_ms
 
-WIDTHS = (2633, 30522)
 BATCHES = (1, 32, 128)
 KS = (17, 50, 64, 256, 1024)
-DECODE_KS = (10, 50)
+# width -> k past 1,024 (the radix sort of the survivors)
+WIDE_KS = {2633: (1025, 2048, 2632), 30522: (1025, 4096, 16384, 30521)}
+DECODE_KS = {"flagship": (10, 50, 1024, 1025, 2632),
+             "bert": (10, 50, 1024, 1025, 30521)}
 L, D = 196, 512            # VGG19 grid and annotation width
 BYTES_S = 3.35e12          # H100 SXM memory rate (data sheet)
 SEED = 0
@@ -49,20 +54,23 @@ def kernel_rows(torch, reps: int) -> list:
     from sat_tpu_torch.ops.topk import topk, topk_plain
     gen = torch.Generator().manual_seed(SEED)
     rows = []
-    for n in WIDTHS:
+    for n, wide in WIDE_KS.items():
         for B in BATCHES:
             x = torch.randn((B, n), generator=gen).cuda()
-            for k in KS:
+            for k in KS + wide:
                 got, want = topk(x, k), topk_plain(x, k)
                 if not (torch.equal(got[1], want[1]) and torch.equal(
                         got[0].view(torch.int32), want[0].view(torch.int32))):
                     raise SystemExit(f"time_topk: ({B}, {n}), k={k}: the "
                                      f"kernel differs from its plain form")
+                n_reps = max(3, min(reps, int(100 / max(
+                    host_ms(lambda: topk(x, k)), 1e-3))))
                 rows.append({
-                    "shape": [B, n], "k": k,
-                    "ms": time_ms(lambda: topk(x, k), CLOCK_HZ, reps),
-                    "cold_ms": time_ms(lambda: topk(x, k), CLOCK_HZ, reps,
-                                       cold=True),
+                    "shape": [B, n], "k": k, "reps": n_reps,
+                    "ms": time_ms(lambda: topk(x, k), CLOCK_HZ, n_reps,
+                                  warmup=min(10, n_reps)),
+                    "cold_ms": time_ms(lambda: topk(x, k), CLOCK_HZ, n_reps,
+                                       warmup=min(10, n_reps), cold=True),
                     "library_ms": time_ms(
                         lambda: torch.topk(x, k, dim=1), CLOCK_HZ, reps),
                     "bound_ms": (4 * B * n + 12 * B * k) / BYTES_S * 1e3})
@@ -90,13 +98,13 @@ def decodes(torch) -> dict:
         dec = decoder_from_jax(init_decoder_params(cfg, gen, **extra), cfg,
                                "cuda")
         cache = GraphCache()
-        for k in DECODE_KS:
+        for k in DECODE_KS[name]:
             def run(k=k):
                 return sample_caption(dec, feats,
                                       batch_generator(5, 0, "cuda"), 0.8, k,
                                       0.9, graphs=cache)
             run()                                     # the capture
-            out[f"{name}_k{k}"] = [host_ms(run) for _ in range(5)]
+            out[f"{name}_k{k}"] = [host_ms(run) for _ in range(3)]
     return out
 
 
