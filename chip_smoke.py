@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (sat_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--out DIR]
-                          [--phase parallel|export|tensor_parallel]
+                          [--phase parallel|export|tensor_parallel|learn]
 
 Run from the root of a checkout. It builds the CUDA kernels from the
 sources in the checkout and drives the port's serving path at the flagship
@@ -47,7 +47,7 @@ failed check exits non-zero and no result line is printed:
                each also at B = 1 and 32; the forward at E = 768, f32
                and bf16, also on a ragged last tile; the backward at E = 768; top-k over a
                model rank's (128, 76,305) rows of the vocab-sharded BERT
-               beam)
+               beam and its sampler's (128, 15,261) rows at k = 8 and 50)
   4. main    — the worst case (stop-token logits pinned to -1e9, so every
                beam runs all 51 steps) through a new build_caption_step,
                whose first batch captures the beam's CUDA graphs (the
@@ -207,7 +207,15 @@ failed check exits non-zero and no result line is printed:
                and resumed by this process, a B = 128 beam-5 worst-case
                batch decoded by the group (tokens, lengths and completion
                equal to one card's; top-k at each rank's (128, 76,305)
-               rows, held to its plain form, 51 launches a rank); (b) four
+               rows, held to its plain form, 51 launches a rank), greedy
+               and sample decode of the group at B = 128 (sat_tpu's dryrun
+               knobs T = 0.8, k = 8, p = 0.9, and k = 50 with no top-p,
+               one seeded generator) against this process's decodes with
+               the whole vocabulary, tokens and lengths bit for bit,
+               alphas within 1e-6, 51 top-k and 51 attention_fwd a
+               sampled batch a rank, each rank's top-k at its (128,
+               15,261) sampler rows at k = 8 and 50 held to its plain
+               form; (b) four
                gloo ranks at 2 x 2 with the bank sharded over the data
                ranks against the same process, one step of data rank 0
                profiled (its attention launches at 32 rows equal to the
@@ -221,6 +229,12 @@ failed check exits non-zero and no result line is printed:
                shards and its bank (the ranks `chip_smoke.py --tp-rank R
                --tp-spec JSON` processes; nothing here measures a speed-up
                across cards)
+  7f. learn  — `python -m sat_tpu_torch.demo_learnability` as a fresh
+               process at its defaults (12 epochs of the colour corpus):
+               tests/test_learnability.py's bars (final validation BLEU-1
+               >= 0.9, beam colour accuracy >= 0.85, no fall of BLEU-1 by
+               more than 0.05), its seconds, history and the kernels'
+               host launch counts (each > 0)
   8. data    — the data layer from raw files at the flagship's width: a
                Karpathy split of 512 train, 128 val and 16 test images of
                640 x 480 and 500 x 375 (half JPEG, half PNG, four
@@ -2948,13 +2962,13 @@ def entry_tooling(argv, k_flag, blk_dir, blk_log, blk_launches, root,
                   n_train) -> dict:
     """train.py's tooling flags on the entry phase's blocked run, in one
     run with both: under --debug-nans it must log the same rows, launch
-    the same kernels and end in the same state bit for bit (the finite
-    flag is computed inside each block's graph and read with its metrics),
+    the same kernels and end in the same state bit for bit (the NaN flag
+    is computed inside each block's graph and read with its metrics),
     and --profile-dir must leave a trace whose device kernels include
     attention_fwd and attention_bwd (the blocks' graph replays); and a
     fresh per-batch `train --lr 1e38 --debug-nans` process must stop with
-    FloatingPointError (the first update's step size overflows to inf), so
-    that the flag is shown on both paths."""
+    FloatingPointError (the first update's step size overflows to inf, and
+    NaNs follow), so that the flag is shown on both paths."""
     import contextlib
     import io
 
@@ -3457,6 +3471,11 @@ TP_LR = PARITY_LR
 TP_VAL = 4                 # evaluation batches of TRAIN_B rows
 TP_RESUME_AT = 4           # the per-batch run's train state, written here
 TP_TOKEN_SLACK = 2         # of the evaluation's 6,656 argmax tokens
+# the group's greedy and sample decodes: sat_tpu's dryrun knobs, and k = 50
+# with no top-p (the select kernel at a rank's rows)
+TP_DECODES = {"greedy": None, "sample_k8": (0.8, 8, 0.9),
+              "sample_k50": (0.8, 50, 1.0)}
+TP_SAMPLE_KS = (8, 50)
 
 
 def tp_inputs(seed: int, dropout: float = 0.0):
@@ -3522,6 +3541,30 @@ def tp_diffs(a: dict, b: dict, skip=("attention.v.bias",)) -> dict:
     return out
 
 
+def tp_decodes(dec, feats, seed: int) -> tuple:
+    """Greedy and sample decode of feats at the TP_DECODES knobs, eager
+    (under gloo a model group's decode cannot be captured, and one
+    process runs the same code), both samples from one generator seeded
+    with `seed` on the card: (each decode's tokens, lengths and alphas;
+    its seconds and host launches)."""
+    import torch
+    from sat_tpu_torch.models.beam import greedy_caption, sample_caption
+    gen = torch.Generator(device=feats.device).manual_seed(seed)
+    results, info = {}, {}
+    for name, knobs in TP_DECODES.items():
+        reset_launches()
+        t0 = time.perf_counter()
+        if knobs is None:
+            res = greedy_caption(dec, feats, with_alphas=True)
+        else:
+            res = sample_caption(dec, feats, gen, *knobs, with_alphas=True)
+        torch.cuda.synchronize()
+        info[name] = {"seconds": time.perf_counter() - t0,
+                      "launches": read_launches()}
+        results[name] = [t.cpu() for t in res]
+    return results, info
+
+
 def tp_bleu(tokens, caps) -> dict:
     """BLEU-1..4 of argmax token rows against each row's caption, ids as
     words (engine/evaluate.py's BLEU)."""
@@ -3564,10 +3607,14 @@ def tp_rank(rank: int, spec: dict) -> None:
     steps (the train state written after TP_RESUME_AT of them), one
     K_BLOCK block from the same start, the evaluation batches, the
     worst-case beam at B = 128 (top-k at each rank's (128, 5 x V/2)).
+    Then greedy and sample decode of the group at B = 128 (`tp_decodes`,
+    on the seeded beam's weights), each rank's top-k at its sampler rows
+    (128, V/2) at TP_SAMPLE_KS held to its plain form.
     Grid (b), 2 x 2: the K_BLOCK steps with the bank sharded over the data
     ranks (each data rank's rows of every batch; attention at its rows,
     held to the plain forms and profiled), then two steps at dropout 0.5.
-    Prints one JSON line; rank 0 writes the whole states."""
+    Prints one JSON line; rank 0 writes the whole states, each rank of
+    grid (a) its decodes."""
     import dataclasses
 
     import torch
@@ -3715,6 +3762,24 @@ def tp_rank(rank: int, spec: dict) -> None:
             if rank == 0:
                 torch.save({k: v.cpu() for k, v in res._asdict().items()},
                            os.path.join(out_dir, f"tp_beam_{name}.pt"))
+        # greedy and sample decode of the group, each rank's top-k at its
+        # sampler rows (random, and small integers: ties) against its
+        # plain form
+        for k in TP_SAMPLE_KS:
+            for x in (torch.randn((B, BERT_V // TP_M), generator=gen),
+                      torch.randint(0, 64, (B, BERT_V // TP_M),
+                                    generator=gen).float()):
+                x = x.cuda()
+                got, want = topk(x, k), topk_plain(x, k)
+                check(torch.equal(got[1], want[1])
+                      and same_bits(got[0], want[0]),
+                      f"tensor_parallel: rank {rank}'s top-k at "
+                      f"{tuple(x.shape)}, k = {k}, differs from its plain "
+                      f"form")
+        dec = decoder_from_jax(tp_beam_weights(flat, spec["boost"]), dcfg,
+                               TP_DEVICE, vocab_shard=shard)
+        decodes, out["decode"] = tp_decodes(dec, feats, spec["seed"] + 23)
+        torch.save(decodes, os.path.join(out_dir, f"tp_decode_{rank}.pt"))
     dist.shutdown()
     print(json.dumps(out), flush=True)
 
@@ -3733,8 +3798,12 @@ def phase_tensor_parallel(seed: int, enc_flat, images) -> dict:
     gather one-way), the block's graph captured and bit for bit a plain
     process's block; (d) `train --mesh-model 2` at the flagship's V =
     2,633, refused at start-up by a fresh process. Every rank's bytes of
-    the vocabulary shards and of its bank. Nothing here measures a
-    speed-up across cards: the machine has one."""
+    the vocabulary shards and of its bank. In (a) also greedy and sample
+    decode of the group at B = 128 against this process's with the whole
+    vocabulary, from one seed: tokens and lengths bit for bit, alphas
+    within 1e-6, each rank's launches (51 top-k a sampled batch, 51
+    attention_fwd a decode). Nothing here measures a speed-up across
+    cards: the machine has one."""
     import torch
     from sat_tpu_torch.compat.jax_params import (decoder_from_jax,
                                                  encoder_from_jax)
@@ -3793,6 +3862,8 @@ def phase_tensor_parallel(seed: int, enc_flat, images) -> dict:
         one_beam = {name: beam_search_batched(decoder_from_jax(
             tp_beam_weights(flat, b), dcfg, "cuda"), feats, BEAM)
             for name, b in (("worst", None), ("seeded", boost))}
+        one_decodes, one_decode_info = tp_decodes(decoder_from_jax(
+            tp_beam_weights(flat, boost), dcfg, "cuda"), feats, seed + 23)
         state = init_train_state(decoder_from_jax(flat, dcfg, "cuda",
                                                   trainable=True))
         ev = make_bank_eval_step(dcfg, 1.0)
@@ -3951,6 +4022,41 @@ def phase_tensor_parallel(seed: int, enc_flat, images) -> dict:
         check(res["a"]["beam"]["seeded"]["found"] > 0,
               "tensor_parallel: no seeded beam completed")
         res["a"]["beam"]["pad_boost"] = boost
+        # greedy and sample decode of the group against one process's
+        res["a"]["decode"] = {}
+        group = [torch.load(os.path.join(tmp, f"tp_decode_{r}.pt"))
+                 for r in range(TP_M)]
+        for name, knobs in TP_DECODES.items():
+            tokens, lengths, alphas = one_decodes[name]
+            for r, got in enumerate(group):
+                check(torch.equal(got[name][0], tokens)
+                      and torch.equal(got[name][1], lengths),
+                      f"tensor_parallel: rank {r}'s {name} tokens or "
+                      f"lengths differ from one process's "
+                      f"({int((got[name][0] != tokens).sum())} tokens)")
+            alpha_diff = max((g[name][2] - alphas).abs().max().item()
+                             for g in group)
+            check(alpha_diff <= 1e-6, f"tensor_parallel: the group's "
+                                      f"{name} alphas {alpha_diff} from one "
+                                      f"process's")
+            want = counts(attention_fwd=STEPS, topk=0 if knobs is None
+                          else STEPS)
+            launches = [r["decode"][name]["launches"] for r in a_ranks]
+            check(all(n == want for n in launches)
+                  and one_decode_info[name]["launches"] == want,
+                  f"tensor_parallel: {name} launches {launches}, one "
+                  f"process {one_decode_info[name]['launches']}, expected "
+                  f"{want}")
+            res["a"]["decode"][name] = {
+                "knobs": knobs, "alphas_max_abs_diff": alpha_diff,
+                "stopped": int((lengths < STEPS).sum()),
+                "mean_length": float(lengths.float().mean()),
+                "seconds": [r["decode"][name]["seconds"] for r in a_ranks],
+                "one_process_seconds": one_decode_info[name]["seconds"],
+                "launches": launches}
+        check(not torch.equal(one_decodes["sample_k8"][0],
+                              one_decodes["greedy"][0]),
+              "tensor_parallel: the sampled tokens are greedy's")
 
         # (b) 2 x 2, the bank sharded, against the same process
         diffs = tp_diffs(torch.load(os.path.join(tmp, f"tp_2x{TP_M}.pt")),
@@ -4389,6 +4495,9 @@ def bert_kernel_rows(peaks, sfu_s, issue_s, tanh_instr, hz, gen) -> list:
     rows = [bert_topk_row(peaks, hz, gen),
             bert_topk_row(peaks, hz, gen, vocab=BERT_V // TP_M,
                           name="topk_tp")]
+    # a model rank's sampler rows in the tensor_parallel phase's decodes
+    rows += [sample_topk_row(k, peaks, hz, gen, vocab=BERT_V // TP_M,
+                             name=f"topk_tp_k{k}") for k in TP_SAMPLE_KS]
     rows += [sample_topk_row(k, peaks, hz, gen, vocab=BERT_V,
                              name=f"topk_bert_k{k}") for k in SAMPLE_KS]
     rows += select_rows(peaks, hz, gen, BERT_V, "topk_bert")
@@ -5056,6 +5165,48 @@ def phase_bert_cli(root: str, enc_path: str, seed: int) -> dict:
 
 # ------------------------------------------------------------------ data
 
+# tests/test_learnability.py's bars, unchanged
+LEARN_BLEU1, LEARN_BEAM_ACCURACY, LEARN_REGRESSION = 0.9, 0.85, 0.05
+
+
+def phase_learn() -> dict:
+    """The port's learnability demo as a fresh process on the card at its
+    defaults (12 epochs of the colour corpus at 64 px: VGG19 features
+    standardized, attention + tf decoder, Adam at lr 4e-3, beam 3 on the
+    held-out images): `python -m sat_tpu_torch.demo_learnability`, held to
+    tests/test_learnability.py's bars (final validation BLEU-1 >=
+    LEARN_BLEU1, beam colour accuracy >= LEARN_BEAM_ACCURACY, the last
+    epoch's BLEU-1 at least the first's less LEARN_REGRESSION); its
+    seconds, history and the three kernels' host launch counts (each > 0:
+    the beam's top-k and attention_fwd, training's attention_bwd)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = os.path.join(tmp, "colordemo")
+        stdout, seconds = run_cli("demo_learnability", "--out-dir", out_dir,
+                                  timeout=600)
+        with open(os.path.join(out_dir, "summary.json")) as f:
+            summary = json.load(f)
+    history = summary["history"]
+    res = {"phase": "learn", "seconds": seconds,
+           "demo_seconds": summary["seconds"],
+           "final_val_bleu1": summary["final_val_bleu1"],
+           "beam_color_accuracy": summary["beam_color_accuracy"],
+           "history": history, "launches": summary["launches"],
+           "captions": [ln.strip() for ln in stdout.splitlines()
+                        if ln.strip().endswith(("OK", "MISS"))]}
+    check(res["final_val_bleu1"] >= LEARN_BLEU1,
+          f"learn: final validation BLEU-1 {res['final_val_bleu1']} < "
+          f"{LEARN_BLEU1}: {history}")
+    check(res["beam_color_accuracy"] >= LEARN_BEAM_ACCURACY,
+          f"learn: beam colour accuracy {res['beam_color_accuracy']} < "
+          f"{LEARN_BEAM_ACCURACY}: {res['captions']}")
+    check(history[-1][1] >= history[0][1] - LEARN_REGRESSION,
+          f"learn: BLEU-1 fell from {history[0][1]} to {history[-1][1]}")
+    check(len(history) == 12 and all(v > 0 for v in res["launches"].values()),
+          f"learn: {len(history)} epochs, launches {res['launches']}")
+    emit(res)
+    return res
+
+
 # The data phase's split: COCO-like image sizes (the resize downscales),
 # five sentences an image
 DATA_IMAGES = {"train": 512, "val": 128, "test": 16}
@@ -5426,7 +5577,7 @@ def main():
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--out", type=str, default="chiprun_out")
     parser.add_argument("--phase", choices=["parallel", "export",
-                                            "tensor_parallel"],
+                                            "tensor_parallel", "learn"],
                         default=None,
                         help="run only this phase (after device and build; "
                              "parallel on the entry phase's dataset); "
@@ -5462,6 +5613,16 @@ def main():
             json.dump(res, f, indent=1)
         print("chip_smoke: phase tensor_parallel passed (--phase prints no "
               "result line)", flush=True)
+        return
+    if args.phase == "learn":
+        phase_device()
+        phase_build()
+        res = phase_learn()
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, "chip_smoke_learn.json"), "w") as f:
+            json.dump(res, f, indent=1)
+        print("chip_smoke: phase learn passed (--phase prints no result "
+              "line)", flush=True)
         return
     if args.artifact_run is not None:
         artifact_run(json.loads(args.artifact_run))
@@ -5529,6 +5690,8 @@ def main():
     lap("entry_cli_bert_cli_parallel")
     tensor_parallel = phase_tensor_parallel(args.seed, enc_flat, images)
     lap("tensor_parallel")
+    learn = phase_learn()
+    lap("learn")
     data = phase_data(enc_flat, args.seed)
     lap("data")
     emit({"phase_seconds": seconds})
@@ -5575,6 +5738,11 @@ def main():
             # host count is its device count)
             row["launches"] = row["host_launches"] = tensor_parallel["a"][
                 "beam"]["worst"]["launches"][0]["topk"]
+        elif name.startswith("topk_tp_k"):
+            # model rank 0's sampled decode at k in the same phase (eager)
+            k = name.rsplit("_k", 1)[1]
+            row["launches"] = row["host_launches"] = tensor_parallel["a"][
+                "decode"][f"sample_k{k}"]["launches"][0]["topk"]
         elif name in bert_paths:
             device, host, kname = bert_paths[name]
             row["launches"], row["host_launches"] = device[kname], host[kname]
@@ -5619,7 +5787,7 @@ def main():
                    "encoders": encoders,
                    "sample": sample, "bert": bert, "train": train,
                    "entry": entry, "tensor_parallel": tensor_parallel,
-                   "data": data}, f,
+                   "learn": learn, "data": data}, f,
                   indent=1)
     emit(summary)
     print(dev["card"], flush=True)

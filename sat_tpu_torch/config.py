@@ -283,8 +283,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         help="log to Weights & Biases (not ported)")
     parser.add_argument("--debug-nans", action="store_true", default=False,
                         help="stop with FloatingPointError at the first "
-                             "train step whose loss or parameters are not "
-                             "finite")
+                             "NaN (not inf) in the outputs of a train step "
+                             "(loss, metrics, parameters, Adam's moments), "
+                             "an eval step or block (metrics, alphas) or "
+                             "the feature precompute")
     parser.add_argument("--profile-dir", type=str, default=None,
                         help="write a torch.profiler trace of the run "
                              "into this directory")

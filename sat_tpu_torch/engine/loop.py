@@ -52,11 +52,15 @@ optimizer.
 `--profile-dir` runs the whole of `run_training` under torch.profiler
 (host and, on the card, device activity) and writes its trace into the
 directory, as sat_tpu's jax.profiler trace does. `--debug-nans` stops the
-run with FloatingPointError, naming the epoch and the step, at the first
-train step whose loss or updated parameters are not finite: each step
-computes a finite flag on the device (inside the captured graph of a K-step
-block), which the one-behind read of the step's metrics checks; without
-the option the steps compute no flag.
+run with FloatingPointError at the first NaN in what sat_tpu's
+`jax_debug_nans` checks: the outputs of a train step (loss, metrics,
+parameters, Adam's moments), of an eval step (metrics, alphas) or block
+(metrics), and the features of the precompute; an inf goes on, as there.
+Each step computes a NaN flag on the device (inside the captured graph of
+a K-step block), which the one-behind read of the step's metrics checks;
+the precompute checks each chunk it encodes. The error names the pass
+(train, val, test, or a split's precompute), the epoch and the step.
+Without the option the steps compute no flag.
 
 Data and model parallel: under `torchrun` (parallel/distributed.py) the
 ranks form sat_tpu's (data, model) grid, `--mesh-data N` by `--mesh-model
@@ -148,6 +152,15 @@ MAX_ATTENTION_PLOTS = 50     # per TEST pass, as the reference logs
 class EvalMode(Enum):
     VALIDATION = "val"
     TEST = "test"
+
+
+def nan_error(what: str, epoch: int | None,
+              step: int) -> FloatingPointError:
+    """--debug-nans' error: a NaN in the outputs of `what` (a pass, or a
+    split's precompute, which has no epoch) at the epoch and the step."""
+    at = f"epoch {epoch}, step {step}" if epoch is not None else f"step {step}"
+    return FloatingPointError(
+        f"--debug-nans: a NaN in the output of the {what} at {at}")
 
 
 def step_lr(base_lr: float, epoch: int, step_size: int,
@@ -358,15 +371,16 @@ class Trainer:
             self.train_step = make_bank_train_step(
                 self.dcfg, cfg.alpha_c, rep_penalty_beta=cfg.rep_penalty_beta,
                 debug_nans=cfg.debug_nans, **banked)
-            self.eval_step = make_bank_eval_step(self.dcfg, cfg.alpha_c,
-                                                 **banked)
+            self.eval_step = make_bank_eval_step(
+                self.dcfg, cfg.alpha_c, debug_nans=cfg.debug_nans, **banked)
             if cfg.steps_per_dispatch > 1:
                 self.train_block = make_bank_train_block(
                     self.dcfg, cfg.alpha_c,
                     rep_penalty_beta=cfg.rep_penalty_beta,
                     debug_nans=cfg.debug_nans, **banked)
-                self.eval_block = make_bank_eval_block(self.dcfg,
-                                                       cfg.alpha_c, **banked)
+                self.eval_block = make_bank_eval_block(
+                    self.dcfg, cfg.alpha_c, debug_nans=cfg.debug_nans,
+                    **banked)
         else:
             if cfg.steps_per_dispatch > 1:
                 print("--steps-per-dispatch needs the device feature bank "
@@ -382,6 +396,7 @@ class Trainer:
                                             cfg.alpha_c,
                                             bf16_encoder=cfg.bf16_encoder,
                                             from_features=cfg.cache_features,
+                                            debug_nans=cfg.debug_nans,
                                             **shared)
 
         # sat_tpu's tables: the frozen encoder's (no trainable row), then
@@ -500,6 +515,9 @@ class Trainer:
             chunks.append(encoder_forward(
                 self.encoder, cfg.network, imgs,
                 torch.bfloat16 if cfg.bf16_encoder else None).cpu().numpy())
+            if cfg.debug_nans and np.isnan(chunks[-1]).any():
+                raise nan_error(f"{ds.split_type} feature precompute", None,
+                                start // batch)
         feats = (np.concatenate(chunks) if chunks
                  else np.zeros((0, 1, cfg.encoder_dim), np.float32))
 
@@ -622,11 +640,9 @@ class Trainer:
             float()/int() reads synchronize, so deferring them lets the
             device run step N while the host reads step N-1. With
             --fast-metrics only log-interval batches are read, and with
-            --debug-nans every batch's finite flag."""
-            if cfg.debug_nans and not bool(metrics["finite"]):
-                raise FloatingPointError(
-                    f"--debug-nans: the loss or the parameters stopped being "
-                    f"finite at epoch {epoch}, step {batch_idx}")
+            --debug-nans every batch's NaN flag."""
+            if cfg.debug_nans and bool(metrics["nan"]):
+                raise nan_error("train step", epoch, batch_idx)
             if cfg.fast_metrics and batch_idx % cfg.log_interval != 0:
                 return
             n = int(metrics["caption_length"])
@@ -781,6 +797,8 @@ class Trainer:
         def finish(batch_idx, imgs, captions, all_captions, metrics,
                    pred_tokens, alphas):
             nonlocal viz_count
+            if cfg.debug_nans and bool(metrics["nan"]):
+                raise nan_error(f"{mode.value} step", epoch, batch_idx)
             n = int(metrics["caption_length"])
             losses.update(float(metrics["loss"]), n)
             top1.update(float(metrics["acc1"]), n)

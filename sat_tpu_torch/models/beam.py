@@ -73,8 +73,23 @@ candidates of each image are merged by value descending, then global flat
 index ascending (`parallel.vocab.merge_top_k`: lax.top_k's order), and the
 chosen words' embeddings come through the vocab-parallel lookup. Every
 rank then holds the same beams. Under gloo the loop runs eagerly (its
-collectives cannot be captured). Greedy and sample decode, and the
-static decodes, refuse a model group (ROADMAP.md, Queue 1).
+collectives cannot be captured).
+
+Greedy and sample decode run under a model group too, as sat_tpu jits them
+over its vocab-sharded parameters. Each step's token is the vocab-parallel
+argmax (models/decoder.py::token_argmax: the lowest index among the
+maxima, as `jnp.argmax`). The sampler's filter reads the shard:
+the temperature is elementwise, the top-k cut is the k-th largest value of
+the whole row (parallel/vocab.py::kth_largest: each rank's top-k kernel
+on its columns, the values merged), and the nucleus is computed from the
+whole row (parallel/vocab.py::whole_row), alike on every rank, which then
+masks its own columns. Each rank holds its columns of the Gumbel noise,
+(max_steps, B, V/M): `noise=` takes sat_tpu's whole (max_steps, B, V)
+draw, and a generator draws the whole tensor, as one process would, and
+each rank keeps its columns, so the group's tokens are one process's for
+one seed. The static decodes refuse a model group: sat_tpu's AOT export
+and serving CLIs build their mesh with n_model = 1 (serve.py:434,
+caption_split.py:118).
 
 For AOT export (engine/serving.py), `beam_search_static` and
 `greedy_caption_static` are the same decodes as one program with no host
@@ -95,7 +110,7 @@ import torch
 from sat_tpu_torch import constants
 from sat_tpu_torch.models.attention import precompute_attention_keys
 from sat_tpu_torch.models.decoder import (Decoder, decode_step, embed_tokens,
-                                          init_lstm_state)
+                                          init_lstm_state, token_argmax)
 from sat_tpu_torch.ops.topk import topk, topk_library
 from sat_tpu_torch.parallel import distributed as dist
 from sat_tpu_torch.parallel import vocab as vp
@@ -176,8 +191,10 @@ def _graph_cache(graphs: GraphCache | None, device: torch.device,
 def _whole_vocab_only(dec: Decoder, what: str) -> None:
     if dec.vocab_shard is not None:
         raise NotImplementedError(
-            f"{what} under a model group (--mesh-model > 1) is not ported "
-            f"(ROADMAP.md, Queue 1); the beam is")
+            f"{what} takes no model group (--mesh-model > 1): sat_tpu's AOT "
+            f"export and serving CLIs build their mesh with n_model=1 "
+            f"(serve.py:434, caption_split.py:118); beam_search_batched, "
+            f"greedy_caption and sample_caption run under one")
 
 
 def _beam_buffers(spec: _Spec, device, features=None) -> dict:
@@ -540,7 +557,7 @@ def beam_search_static(dec: Decoder, features: torch.Tensor, beam_size: int,
     early. No inference mode: the caller sets the grad mode
     (engine/serving.py exports under torch.no_grad)."""
     kernel_topk = use_kernel_topk(fast_topk, pallas_topk)
-    _whole_vocab_only(dec, "the static beam")
+    _whole_vocab_only(dec, "beam_search_static")
     spec = _beam_spec(dec, features, beam_size, max_steps, dedup, backtrack,
                       bf16, kernel_topk)
     buf = _beam_buffers(spec, features.device, features)
@@ -583,19 +600,24 @@ class Sampling(NamedTuple):
     top_p: float = 1.0
 
 
-def filter_logits(logits: torch.Tensor, knobs: Sampling) -> torch.Tensor:
+def filter_logits(logits: torch.Tensor, knobs: Sampling,
+                  shard: vp.VocabShard | None = None) -> torch.Tensor:
     """sat_tpu's filter, step for step: divide by max(temperature, 1e-6);
     if 0 < top_k < V, mask entries below the k-th largest to -inf, the
     k-th taken from the exact top-k (ops/topk.py: the kernel on the card);
     if top_p < 1, keep the entries of the sorted row whose exclusive
-    prefix mass is below top_p and mask below the smallest kept logit."""
-    V = logits.shape[-1]
+    prefix mass is below top_p and mask below the smallest kept logit.
+    Under a `shard`, logits are the rank's (B, V/M) columns of rows of the
+    whole vocabulary V (module note)."""
+    V = logits.shape[-1] if shard is None else shard.vocab
     logits = logits / max(knobs.temperature, 1e-6)
     if knobs.top_k and knobs.top_k < V:
-        kth = topk(logits, knobs.top_k)[0][:, -1:]
+        kth = (topk(logits, knobs.top_k)[0][:, -1:] if shard is None
+               else vp.kth_largest(logits, knobs.top_k, shard))
         logits = logits.masked_fill(logits < kth, float("-inf"))
     if knobs.top_p < 1.0:
-        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        whole = logits if shard is None else vp.whole_row(logits, shard)
+        sorted_logits = torch.sort(whole, dim=-1, descending=True).values
         probs = torch.softmax(sorted_logits, dim=-1)
         keep = (torch.cumsum(probs, dim=-1) - probs) < knobs.top_p
         threshold = torch.where(keep, sorted_logits, float("inf")).amin(
@@ -626,6 +648,8 @@ def batch_generator(seed: int, index: int, device) -> torch.Generator:
 
 def _scan_buffers(B: int, L: int, D: int, V: int, max_steps: int, device,
                   features=None, sample: bool = False) -> dict:
+    """The scan's buffers; V is the noise's columns (a rank's V/M under a
+    vocab shard)."""
     def new(*shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device=device)
     buf = {"features": new(B, L, D) if features is None else features,
@@ -671,8 +695,9 @@ def _scan_step(dec: Decoder, state: dict, t, knobs: Sampling | None) -> None:
                                          state["keys"], state["h"],
                                          state["c"], emb)
     if knobs is not None:
-        logits = filter_logits(logits, knobs) + state["noise"][t]
-    nxt = torch.where(state["done"], state["prev"], logits.argmax(dim=1))
+        logits = (filter_logits(logits, knobs, dec.vocab_shard)
+                  + state["noise"][t])
+    nxt = torch.where(state["done"], state["prev"], token_argmax(dec, logits))
     state["done"] = state["done"] | (nxt == stop_a) | (nxt == stop_b)
     state.update(h=h, c=c, prev=nxt)
     state["tokens"][state["rows"], t] = nxt
@@ -694,16 +719,19 @@ def _scan_caption(dec: Decoder, features: torch.Tensor, max_steps: int,
                   generator=None):
     B, L, D = features.shape
     V = dec.cfg.effective_vocab_size
+    shard = dec.vocab_shard
+    cols = slice(None) if shard is None else slice(
+        shard.offset, shard.offset + shard.rows)     # the rank's noise
+    Vl = V if shard is None else shard.rows
     sample = knobs is not None
-    _whole_vocab_only(dec, "sample decode" if sample else "greedy decode")
-    cache = _graph_cache(graphs, features.device)
+    cache = _graph_cache(graphs, features.device, dec)
     if cache is None:
-        buf = _scan_buffers(B, L, D, V, max_steps, features.device, features,
-                            sample)
+        buf = _scan_buffers(B, L, D, Vl, max_steps, features.device,
+                            features, sample)
     else:
         slot = cache.slot(("sample" if sample else "greedy", B, L, D,
                            max_steps, knobs), (dec,),
-                          lambda: _scan_buffers(B, L, D, V, max_steps,
+                          lambda: _scan_buffers(B, L, D, Vl, max_steps,
                                                 features.device,
                                                 sample=sample))
         buf = slot.buffers
@@ -713,9 +741,15 @@ def _scan_caption(dec: Decoder, features: torch.Tensor, max_steps: int,
             if tuple(noise.shape) != (max_steps, B, V):
                 raise ValueError(f"noise must be {(max_steps, B, V)}, got "
                                  f"{tuple(noise.shape)}")
-            buf["noise"].copy_(noise)
-        else:
+            buf["noise"].copy_(noise[..., cols])
+        elif shard is None:
             gumbel_noise_(buf["noise"], generator)
+        else:
+            # one process's whole draw, of which the rank keeps its
+            # columns; freed before the decode
+            whole = torch.empty((max_steps, B, V), device=features.device)
+            buf["noise"].copy_(gumbel_noise_(whole, generator)[..., cols])
+            del whole
     if cache is None:
         _scan_decode(dec, max_steps, buf, knobs)
     else:
@@ -735,7 +769,8 @@ def greedy_caption(dec: Decoder, features: torch.Tensor,
     was emitted). `with_alphas=True` adds the per-step attention maps
     (B, max_steps, L). Like sat_tpu's scan, it runs all max_steps: on the
     card, given a GraphCache (`graphs` as in beam_search_batched), as one
-    CUDA graph."""
+    CUDA graph. On a decoder with a vocab shard every rank of its model
+    group calls it, and each gets the group's tokens (module note)."""
     return _scan_caption(dec, features, max_steps, with_alphas, graphs)
 
 
@@ -746,7 +781,7 @@ def greedy_caption_static(dec: Decoder, features: torch.Tensor,
     max_steps steps in a torch while_loop (`_while`) on fresh buffers,
     with no graph cache and no inference mode (the caller sets the grad
     mode)."""
-    _whole_vocab_only(dec, "greedy decode")
+    _whole_vocab_only(dec, "greedy_caption_static")
     B, L, D = features.shape
     buf = _scan_buffers(B, L, D, dec.cfg.effective_vocab_size, max_steps,
                         features.device, features)
@@ -781,7 +816,9 @@ def sample_caption(dec: Decoder, features: torch.Tensor,
     `noise` (the tests pass sat_tpu's: `jax.random.gumbel(step_rngs[t],
     (B, V))`). On the card, given a GraphCache, the steps replay as one
     CUDA graph, keyed by the knobs too, that reads the noise buffer and
-    draws nothing itself: a replay is as deterministic as its noise."""
+    draws nothing itself: a replay is as deterministic as its noise. On a
+    decoder with a vocab shard every rank of its model group calls it with
+    the same noise or an alike seeded generator (module note)."""
     validate_sampling_params(temperature, top_k, top_p)
     return _scan_caption(dec, features, max_steps, with_alphas, graphs,
                          Sampling(temperature, top_k, top_p), noise,

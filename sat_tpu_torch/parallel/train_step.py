@@ -40,11 +40,20 @@ through `bank_rows`, which widens the gathered rows to f32 inside the step
 bf16-rounded features. `bf16_encoder` runs the image path's encoder in
 bf16 (models/encoder.py).
 
-`debug_nans` (train.py's --debug-nans) adds a metric `finite` to each
-train step's: a device bool, true while the loss and every trainable
-parameter after the update are finite. A block computes it inside its
-captured step, so it costs no sync; the caller reads it with the other
-metrics. Without the option the steps compute exactly what they did.
+`debug_nans` (train.py's --debug-nans) adds a metric `nan` to each
+step's: a device bool, true when an output of the step that sat_tpu's
+`jax_debug_nans` checks holds a NaN (an inf does not count, as there).
+For a train step those are the loss and the metrics, the trainable
+parameters after the update and Adam's two moments; for an eval step the
+metrics and the alphas; for an eval block, whose outputs are metrics and
+tokens, the metrics. A train step's flag is ORed over the model group,
+whose shards differ. An eval step's needs no collective: under a grid its
+metrics are the data group's sums, into which every row's alphas enter
+(the regularizer, weighted by the row mask: NaN x 0 is NaN), so a NaN in
+any rank's alphas reaches every rank's metrics. A
+block computes it inside its captured step, so it costs no sync; the
+caller reads it with the other metrics. Without the option the steps
+compute exactly what they did.
 """
 
 from __future__ import annotations
@@ -178,16 +187,26 @@ def _loss_and_metrics(dcfg: DecoderConfig, alpha_c: float, decoder: Decoder,
     return loss, (metrics, preds, alphas)
 
 
-def _finite(loss, decoder: Decoder):
-    """One device bool: the loss and every trainable parameter finite (on
-    every rank of a model group, whose shards differ)."""
+def _any_nan(tensors, shard: vp.VocabShard | None = None):
+    """One device bool: a NaN in any floating tensor of `tensors`, on any
+    rank of the model group of `shard` (module note)."""
     with torch.no_grad():
-        ok = torch.stack([torch.isfinite(loss).all()] + [
-            torch.isfinite(p).all() for p in decoder.parameters()
-            if p.requires_grad]).all()
-        if decoder.vocab_shard is not None:
-            ok = vp.model_gather(ok.int(), decoder.vocab_shard).min() == 1
-        return ok
+        flag = torch.stack([t.isnan().any() for t in tensors
+                            if t.is_floating_point()]).any()
+        if shard is not None:
+            flag = vp.model_gather(flag.int(), shard).max() > 0
+        return flag
+
+
+def _train_nan(loss, metrics: dict, state: TrainState):
+    """`_any_nan` of a train step's outputs: the loss and the metrics, the
+    trainable parameters and Adam's moments."""
+    moments = [st[k] for st in state.optimizer.state.values()
+               for k in ("exp_avg", "exp_avg_sq") if k in st]
+    return _any_nan([loss, *metrics.values(),
+                     *(p for p in state.decoder.parameters()
+                       if p.requires_grad), *moments],
+                    state.decoder.vocab_shard)
 
 
 def _reduce(sums, grads=()) -> dict:
@@ -277,7 +296,7 @@ def _train_metrics(state, loss, metrics, distributed, debug_nans):
     if distributed:
         metrics = reduced
     if debug_nans:
-        metrics["finite"] = _finite(loss, state.decoder)
+        metrics["nan"] = _train_nan(loss, metrics, state)
     return metrics
 
 
@@ -344,21 +363,27 @@ def make_bank_train_step(dcfg: DecoderConfig, alpha_c: float,
 
 
 def _eval(dcfg, alpha_c, decoder, features, captions, row_mask,
-          n_rows=None):
+          n_rows=None, debug_nans: bool = False, with_alphas: bool = True):
     """(metrics, argmax tokens, alphas); with `n_rows`, the metrics of the
-    global batch, summed over the ranks."""
+    global batch, summed over the ranks; with `debug_nans` the metric
+    `nan` of the metrics, and of the alphas `with_alphas` (module
+    note)."""
     with torch.no_grad():
         _, (metrics, preds, alphas) = _loss_and_metrics(
             dcfg, alpha_c, decoder, features, captions, None, False,
             row_mask, n_rows=n_rows)
         if n_rows is not None:
             metrics = _reduce(metrics["sums"])
+        if debug_nans:
+            metrics["nan"] = _any_nan(
+                [*metrics.values()] + ([alphas] if with_alphas else []))
         return metrics, token_argmax(decoder, preds).int(), alphas
 
 
 def make_bank_eval_step(dcfg: DecoderConfig, alpha_c: float,
                         distributed: bool = False,
-                        sharded_bank: bool = False):
+                        sharded_bank: bool = False,
+                        debug_nans: bool = False):
     """`eval(decoder, feat_bank, caps_bank, img_idx, row_idx, row_mask=None,
     n_rows=None) -> (metrics, pred_tokens (B, T), alphas (B, T, L))`."""
 
@@ -367,17 +392,18 @@ def make_bank_eval_step(dcfg: DecoderConfig, alpha_c: float,
         return _eval(dcfg, alpha_c, decoder,
                      bank_rows(feat_bank, img_idx, sharded_bank),
                      bank_caps(caps_bank, row_idx, sharded_bank), row_mask,
-                     n_rows if distributed else None)
+                     n_rows if distributed else None, debug_nans)
 
     return eval_fn
 
 
 def make_eval_step(dcfg: DecoderConfig, network: str, alpha_c: float,
                    bf16_encoder: bool = False, from_features: bool = False,
-                   distributed: bool = False):
+                   distributed: bool = False, debug_nans: bool = False):
     """`eval(decoder, encoder, imgs, captions, row_mask=None, n_rows=None)
     -> (metrics, pred_tokens (B, T), alphas (B, T, L))`; `bf16_encoder`,
-    `from_features` and `distributed` as in make_train_step."""
+    `from_features`, `distributed` and `debug_nans` as in
+    make_train_step."""
 
     def eval_fn(decoder, encoder, imgs, captions, row_mask=None,
                 n_rows=None):
@@ -386,7 +412,7 @@ def make_eval_step(dcfg: DecoderConfig, network: str, alpha_c: float,
                              bf16_encoder)
         return _eval(dcfg, alpha_c, decoder, features,
                      torch.as_tensor(captions, device=dev), row_mask,
-                     n_rows if distributed else None)
+                     n_rows if distributed else None, debug_nans)
 
     return eval_fn
 
@@ -508,15 +534,16 @@ def make_bank_train_block(dcfg: DecoderConfig, alpha_c: float,
 
 def make_bank_eval_block(dcfg: DecoderConfig, alpha_c: float,
                          distributed: bool = False,
-                         sharded_bank: bool = False):
+                         sharded_bank: bool = False,
+                         debug_nans: bool = False):
     """K eval batches in one dispatch: `block(decoder, feat_bank, caps_bank,
     img_idx (K, B), row_idx (K, B), row_mask (K, B) or None, n_rows=None)
     -> (metrics, tokens (K, B, T-1))`, each metric stacked to (K,), all on
     the device. No alphas: the blocked path serves VALIDATION, where
-    nothing reads them. On the card one eval step is captured per (B, T,
-    mask, n_rows) shape and replayed K times, as in
-    `make_bank_train_block`; on the CPU, and under gloo, the block is K
-    eval steps."""
+    nothing reads them (and `debug_nans` flags the metrics). On the card
+    one eval step is captured per (B, T, mask, n_rows) shape and replayed
+    K times, as in `make_bank_train_block`; on the CPU, and under gloo, the
+    block is K eval steps."""
     cache = GraphCache()
 
     def block_fn(decoder, feat_bank, caps_bank, img_idx, row_idx,
@@ -528,7 +555,7 @@ def make_bank_eval_block(dcfg: DecoderConfig, alpha_c: float,
             metrics, tokens, _ = _eval(dcfg, alpha_c, decoder,
                                        bank_rows(feat_bank, ii, sharded_bank),
                                        bank_caps(caps_bank, ri, sharded_bank),
-                                       mask, n)
+                                       mask, n, debug_nans, with_alphas=False)
             return metrics, tokens
 
         if _eager_block(feat_bank, distributed):

@@ -19,6 +19,16 @@ all-reduce, which gloo carries for CUDA tensors:
   - `model_gather`: every rank's tensor, stacked in group order (no
     gradient): the per-rank maxima and candidates that the argmax, the
     cross-entropy's stabilizer and the beam's merge read.
+  - `kth_largest`: the sampler's top-k cut over the whole row. Each rank
+    takes the top min(k, V/M) of its columns (ops/topk.py: the kernel on
+    the card; the min keeps a k past the rank's columns, such as 50 of
+    64 / 2, from reaching it), the group's values are gathered, and the
+    k-th largest of them is the whole row's k-th largest value. Only the
+    value is used, so the tie order does not matter.
+  - `whole_row`: the whole (B, V) row on every rank, from the group's
+    columns: the sampler's top-p reads it, as the nucleus needs the whole
+    sorted row's softmax prefix (sat_tpu's `jnp.sort` on the sharded axis
+    gathers it too).
 
 The orders are `lax.top_k`'s and argmax's over the whole vocabulary: a
 shard holds a contiguous range of global ids, so the lowest index among
@@ -31,6 +41,8 @@ from typing import NamedTuple
 
 import torch
 import torch.distributed
+
+from sat_tpu_torch.ops.topk import topk
 
 
 class VocabShard(NamedTuple):
@@ -166,3 +178,19 @@ def merge_top_k(values: torch.Tensor, flat: torch.Tensor, k: int,
     v, i = v.gather(1, by_index), i.gather(1, by_index)
     order = v.argsort(dim=1, descending=True, stable=True)[:, :k]
     return v.gather(1, order), i.gather(1, order)
+
+
+@torch.no_grad()
+def kth_largest(x: torch.Tensor, k: int, shard: VocabShard) -> torch.Tensor:
+    """(B, 1): the k-th largest value of each row of x (B, V/M) over the
+    sharded last dim, for 0 < k < V (module note)."""
+    values = topk(x, min(k, shard.rows))[0]
+    merged = model_gather(values, shard).permute(1, 0, 2).flatten(1)
+    return merged.sort(dim=1, descending=True).values[:, k - 1:k]
+
+
+@torch.no_grad()
+def whole_row(x: torch.Tensor, shard: VocabShard) -> torch.Tensor:
+    """(B, V): the group's columns of x (B, V/M) joined in order (module
+    note; a -0.0 comes back +0.0)."""
+    return model_gather(x, shard).permute(1, 0, 2).flatten(1)

@@ -37,6 +37,7 @@ import sat_tpu_torch.compat.torch_encoder  # noqa: F401
 import sat_tpu_torch.data.bert_prep  # noqa: F401
 import sat_tpu_torch.data.bert_vocab  # noqa: F401
 import sat_tpu_torch.data.vocab  # noqa: F401
+import sat_tpu_torch.demo_learnability  # noqa: F401
 import sat_tpu_torch.evaluate  # noqa: F401
 import sat_tpu_torch.export_reference_pth  # noqa: F401
 import sat_tpu_torch.generate_caption  # noqa: F401
@@ -313,7 +314,7 @@ def test_wandb_branches_import_it(tmp_path):
             sys.modules["wandb"] = saved
 
 
-def test_entry_points_default_to_cuda():
+def test_entry_points_default_to_cuda(tmp_path):
     """Without device=, an entry point on a host with no CUDA raises instead
     of quietly running on the CPU."""
     if torch.cuda.is_available():
@@ -338,6 +339,9 @@ def test_entry_points_default_to_cuda():
         main(["--data", "nowhere"])
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(Config(data="nowhere"))
+    from sat_tpu_torch.demo_learnability import main as demo
+    with pytest.raises(RuntimeError, match="CUDA"):
+        demo(["--epochs", "1", "--out-dir", str(tmp_path)])
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -1,8 +1,8 @@
 """train.py's tooling in the port: the parameter tables of
 utils/tables.py against sat_tpu's (vanilla and BERT, row for row),
 `--debug-nans` (a FloatingPointError naming the epoch and step, per batch
-and in K-step blocks, and the same bits as a run without it while
-everything is finite) and `--profile-dir` (a torch.profiler trace on the
+and in K-step blocks, and the same bits as a run without it while no NaN
+appears; against sat_tpu's jax_debug_nans: tests/test_torch_debug_nans.py) and `--profile-dir` (a torch.profiler trace on the
 CPU). On the synthetic dataset of tests/test_torch_trainer.py."""
 
 import contextlib
@@ -104,7 +104,7 @@ def _run(data, out, **kw):
 
 @pytest.mark.parametrize("k", [1, 2], ids=["per_batch", "blocked"])
 def test_debug_nans_keeps_the_bits(data, tmp_path, k):
-    """While everything is finite the flag changes nothing: the same
+    """While no NaN appears the flag changes nothing: the same
     parameters, Adam moments and metrics as the run without it."""
     plain, plain_res = _run(data, str(tmp_path / "plain"),
                             steps_per_dispatch=k)
@@ -127,10 +127,12 @@ def test_debug_nans_keeps_the_bits(data, tmp_path, k):
 def test_debug_nans_raises_naming_epoch_and_step(data, tmp_path, k):
     """At lr 1e37 the first update leaves finite parameters of about 1e37
     (Adam's first step moves each by lr / (1 - beta1)), and the second
-    step's loss is not finite: the run stops there. (At 1e38 the CPU's
-    uncaptured Adam refuses the step size, 1e39, before any NaN.)"""
+    step's outputs hold NaNs: the run stops there, as sat_tpu's does
+    (tests/test_torch_debug_nans.py). (At 1e38 the CPU's uncaptured Adam
+    refuses the step size, 1e39, before any NaN.)"""
     with pytest.raises(FloatingPointError,
-                       match="stopped being finite at epoch 1, step 1$"):
+                       match="a NaN in the output of the train step at epoch "
+                             "1, step 1$"):
         _run(data, str(tmp_path / "nan"), steps_per_dispatch=k,
              debug_nans=True, lr=1e37)
     # without the flag the same run goes on to its end
@@ -140,7 +142,7 @@ def test_debug_nans_raises_naming_epoch_and_step(data, tmp_path, k):
 
 @pytest.mark.parametrize("k", [1, 2], ids=["per_batch", "blocked"])
 def test_finite_flag_only_with_debug_nans(k):
-    """The step's metrics gain `finite` under the option and nothing
+    """The step's metrics gain `nan` under the option and nothing
     without it."""
     from sat_tpu_torch.compat.jax_params import decoder_from_jax
     from sat_tpu_torch.models.decoder import (DecoderConfig,
@@ -168,9 +170,9 @@ def test_finite_flag_only_with_debug_nans(k):
                 state, bank, caps, torch.tensor([[0, 2], [1, 1]]),
                 torch.tensor([[1, 4], [0, 3]]), 1e-3, None)
         keys[debug] = set(metrics)
-    assert keys[True] - keys[False] == {"finite"}
-    assert bool(metrics["finite"].all())
-    assert metrics["finite"].shape == (() if k == 1 else (2,))
+    assert keys[True] - keys[False] == {"nan"}
+    assert not bool(metrics["nan"].any())
+    assert metrics["nan"].shape == (() if k == 1 else (2,))
 
 
 def test_profile_dir_writes_a_trace(data, tmp_path):

@@ -219,7 +219,7 @@ def test_unported_training_flags_raise(flags, error, tmp_path, data,
     tests/test_torch_tensor_parallel.py, tests/test_torch_sharded_bank.py).
     --profile-dir and --debug-nans are ported: each trains an epoch of
     the synthetic dataset, the first writing its trace into the directory,
-    the second stopping at the step whose loss is not finite (the first
+    the second stopping at the step whose outputs hold a NaN (the first
     update at lr 1e37 leaves parameters of about 1e37;
     tests/test_torch_tooling.py has both per batch and blocked).
     --wandb is ported: without wandb installed it prints sat_tpu's message
