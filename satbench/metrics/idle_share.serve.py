@@ -1,0 +1,4 @@
+"""The device's idle share of the serve cell's traced slice, in %
+(satbench/readers.py::idle_share)."""
+
+from satbench.readers import idle_share as read  # noqa: F401
