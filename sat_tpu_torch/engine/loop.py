@@ -51,8 +51,9 @@ optimizer.
 
 `--profile-dir` runs the whole of `run_training` under torch.profiler
 (host and, on the card, device activity) and writes its trace into the
-directory, as sat_tpu's jax.profiler trace does. `--debug-nans` stops the
-run with FloatingPointError at the first NaN in what sat_tpu's
+directory, as sat_tpu's jax.profiler trace does, with the port's spans
+of the run (utils/spans.py) beside the profiler's events. `--debug-nans`
+stops the run with FloatingPointError at the first NaN in what sat_tpu's
 `jax_debug_nans` checks: the outputs of a train step (loss, metrics,
 parameters, Adam's moments), of an eval step (metrics, alphas) or block
 (metrics), and the features of the precompute; an inf goes on, as there.
@@ -141,6 +142,7 @@ from sat_tpu_torch.parallel.train_step import (init_train_state,
                                                make_eval_step,
                                                make_train_step,
                                                place_optimizer_state)
+from sat_tpu_torch.utils import spans
 from sat_tpu_torch.utils.logging import MetricLogger
 from sat_tpu_torch.utils.meters import AverageMeter
 from sat_tpu_torch.utils.tables import count_parameters
@@ -1065,7 +1067,9 @@ class Trainer:
 def run_training(cfg: Config, device="cuda") -> dict:
     """Train as `cfg` says; under --profile-dir the whole run is profiled
     (host activity, and the device's on the card) and its Chrome trace
-    written into that directory as `<host>_<pid>.<time>.pt.trace.json`."""
+    written into that directory as `<host>_<pid>.<time>.pt.trace.json`,
+    with the port's spans of the run (utils/spans.py: train.block,
+    graphs.capture) added as "X" events on the profiler's clock."""
     if not cfg.profile_dir:
         return Trainer(cfg, device=device).fit()
     from torch.profiler import (ProfilerActivity, profile,
@@ -1074,6 +1078,20 @@ def run_training(cfg: Config, device="cuda") -> dict:
     if resolve_device(device).type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(cfg.profile_dir, exist_ok=True)
-    with profile(activities=activities,
-                 on_trace_ready=tensorboard_trace_handler(cfg.profile_dir)):
-        return Trainer(cfg, device=device).fit()
+    before = set(os.listdir(cfg.profile_dir))
+    spans.enable()
+    try:
+        with profile(activities=activities,
+                     on_trace_ready=tensorboard_trace_handler(
+                         cfg.profile_dir)):
+            spans.anchor()
+            result = Trainer(cfg, device=device).fit()
+            spans.anchor()
+        recorded = spans.collect()
+    finally:
+        spans.disable()
+    for name in sorted(set(os.listdir(cfg.profile_dir)) - before):
+        if name.endswith(".pt.trace.json"):
+            spans.write_chrome_trace(os.path.join(cfg.profile_dir, name),
+                                     recorded)
+    return result

@@ -65,6 +65,7 @@ from sat_tpu_torch.models.beam import (BeamResult, beam_search_batched,
 from sat_tpu_torch.models.decoder import DecoderConfig
 from sat_tpu_torch.models.encoder import encoder_forward, encoder_grid
 from sat_tpu_torch.parallel.mesh import make_mesh, pad_batch, slice_bounds
+from sat_tpu_torch.utils import spans
 from sat_tpu_torch.utils.graphs import GraphCache
 
 
@@ -108,7 +109,9 @@ def build_caption_step(network: str, dcfg: DecoderConfig, beam_size: int,
     anywhere. `graphs=False` decodes eagerly on the card too. `step.graphs`
     is the step's GraphCache (None when eager; under a mesh, the list of
     the replicas'). `mesh_data` other than 1 (0: every card) serves over
-    a mesh of `devices` (module note)."""
+    a mesh of `devices` (module note). Each call's encoder and decode are
+    the spans `caption.encoder` and `caption.decode` (utils/spans.py),
+    with device time."""
     if decode not in ("beam", "greedy", "sample"):
         raise ValueError(f"unknown decode mode {decode!r}")
     if decode == "sample":
@@ -124,19 +127,21 @@ def build_caption_step(network: str, dcfg: DecoderConfig, beam_size: int,
     def caption_on(d, cache, encoder, decoder, images, generator=None,
                    noise=None) -> dict:
         images = torch.as_tensor(images, dtype=torch.float32, device=d)
-        feats = encoder_forward(encoder, network, images,
-                                torch.bfloat16 if bf16 else None)
-        if decode == "sample":
-            return pack_scan(dcfg, *sample_caption(
-                decoder, feats, generator, temperature, top_k, top_p,
-                with_alphas=True, graphs=cache, noise=noise))
-        if decode == "greedy":
-            return pack_scan(dcfg, *greedy_caption(decoder, feats,
-                                                   with_alphas=True,
-                                                   graphs=cache))
-        return beam_outputs(beam_search_batched(
-            decoder, feats, beam_size, bf16=bf16, graphs=cache,
-            fast_topk=fast_topk, pallas_topk=pallas_topk))
+        with spans.span("caption.encoder", device=d):
+            feats = encoder_forward(encoder, network, images,
+                                    torch.bfloat16 if bf16 else None)
+        with spans.span("caption.decode", device=d):
+            if decode == "sample":
+                return pack_scan(dcfg, *sample_caption(
+                    decoder, feats, generator, temperature, top_k, top_p,
+                    with_alphas=True, graphs=cache, noise=noise))
+            if decode == "greedy":
+                return pack_scan(dcfg, *greedy_caption(decoder, feats,
+                                                       with_alphas=True,
+                                                       graphs=cache))
+            return beam_outputs(beam_search_batched(
+                decoder, feats, beam_size, bf16=bf16, graphs=cache,
+                fast_topk=fast_topk, pallas_topk=pallas_topk))
 
     if mesh is None:
         cache = GraphCache() if graphs and dev.type == "cuda" else None

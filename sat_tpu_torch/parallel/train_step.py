@@ -70,6 +70,7 @@ from sat_tpu_torch.models.decoder import (Decoder, DecoderConfig,
 from sat_tpu_torch.models.encoder import encoder_forward
 from sat_tpu_torch.parallel import distributed as dist
 from sat_tpu_torch.parallel import vocab as vp
+from sat_tpu_torch.utils import spans
 from sat_tpu_torch.utils.graphs import GraphCache
 from sat_tpu_torch.utils.metrics import (attention_regularization,
                                          calculate_caption_lengths,
@@ -491,41 +492,45 @@ def make_bank_train_block(dcfg: DecoderConfig, alpha_c: float,
     gloo, and on the CPU, the block is K per-batch steps. Either way the
     block computes what K consecutive `make_bank_train_step` calls do, bit
     for bit. `block.graphs` is its GraphCache, `block.captured` whether
-    its last call replayed a graph."""
+    its last call replayed a graph. Each call is a `train.block` span
+    (utils/spans.py), with device time."""
     cache = GraphCache()
 
     def block_fn(state: TrainState, feat_bank, caps_bank, img_idx, row_idx,
                  lr, generator, row_mask=None, n_rows=None):
-        K = img_idx.shape[0]
-        set_lr(state.optimizer, lr)
+        with spans.span("train.block", device=feat_bank.device):
+            K = img_idx.shape[0]
+            set_lr(state.optimizer, lr)
 
-        def step(ii, ri, mask):
-            return _bank_step(dcfg, alpha_c, rep_penalty_beta, debug_nans,
-                              distributed, sharded_bank, state, feat_bank,
-                              caps_bank, ii, ri, generator, mask, n_rows)
+            def step(ii, ri, mask):
+                return _bank_step(dcfg, alpha_c, rep_penalty_beta, debug_nans,
+                                  distributed, sharded_bank, state, feat_bank,
+                                  caps_bank, ii, ri, generator, mask, n_rows)
 
-        block_fn.captured = not _eager_block(feat_bank, distributed)
-        if not block_fn.captured:
-            runs = [step(img_idx[i], row_idx[i],
-                         None if row_mask is None else row_mask[i])
-                    for i in range(K)]
-            return state, {k: torch.stack([m[k] for m in runs])
-                           for k in runs[0]}
+            block_fn.captured = not _eager_block(feat_bank, distributed)
+            if not block_fn.captured:
+                runs = [step(img_idx[i], row_idx[i],
+                             None if row_mask is None else row_mask[i])
+                        for i in range(K)]
+                return state, {k: torch.stack([m[k] for m in runs])
+                               for k in runs[0]}
 
-        gens = () if generator is None else (generator,)
-        slot = cache.slot(
-            ("train", img_idx.shape[1], caps_bank.shape[1], dcfg,
-             row_mask is None, n_rows),
-            (state.decoder, state.optimizer, feat_bank, caps_bank) + gens,
-            lambda: _index_slots(feat_bank, img_idx, row_idx, row_mask))
+            gens = () if generator is None else (generator,)
+            slot = cache.slot(
+                ("train", img_idx.shape[1], caps_bank.shape[1], dcfg,
+                 row_mask is None, n_rows),
+                (state.decoder, state.optimizer, feat_bank, caps_bank) + gens,
+                lambda: _index_slots(feat_bank, img_idx, row_idx, row_mask))
 
-        def body(b):
-            _write_out(b, **step(b["img_idx"], b["row_idx"], b["row_mask"]))
+            def body(b):
+                _write_out(b, **step(b["img_idx"], b["row_idx"],
+                                     b["row_mask"]))
 
-        step0 = state.step      # the host's count; a replay runs no Python
-        metrics = _replay_block(slot, body, gens, img_idx, row_idx, row_mask)
-        state.step = step0 + K
-        return state, metrics
+            step0 = state.step      # the host's count; a replay runs no Python
+            metrics = _replay_block(slot, body, gens, img_idx, row_idx,
+                                    row_mask)
+            state.step = step0 + K
+            return state, metrics
 
     block_fn.graphs = cache
     block_fn.captured = False

@@ -61,6 +61,7 @@ from sat_tpu_torch.data.bert_vocab import load_bert_vocab
 from sat_tpu_torch.data.transforms import (load_and_preprocess_image,
                                            native_enabled)
 from sat_tpu_torch.device import resolve_device, use_f32_math
+from sat_tpu_torch.utils import spans
 
 
 class CaptionServer:
@@ -69,6 +70,14 @@ class CaptionServer:
     Testable in-process: `start()` binds an ephemeral port (`.port`),
     `stop()` shuts the loop down. `stats` counts requests/batches/errors so
     tests can assert coalescing happened.
+
+    With tracing on (utils/spans.py) a request is a `serve.request` span,
+    from its enqueue to its reply, carrying its sequence number `seq` and
+    its `batch`, with a `serve.queue` child until the batch loop takes it;
+    each batch is `serve.gather`, `serve.load` (the images and the
+    bucket's stack), `serve.dispatch` (the caption step), `serve.hold`
+    (the one-behind wait until its finalize) and `serve.finalize`
+    (read-back and replies), on the batch loop's thread.
     """
 
     def __init__(self, caption_fn, image_size: int, decode_tokens,
@@ -104,9 +113,10 @@ class CaptionServer:
         self._latencies: "collections.deque[float]" = collections.deque(
             maxlen=1024)
 
-    def _count(self, key: str, n: int = 1) -> None:
+    def _count(self, key: str, n: int = 1) -> int:
         with self._stats_lock:   # += on a dict int is not atomic
             self.stats[key] += n
+            return self.stats[key]
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -245,48 +255,59 @@ class CaptionServer:
             self._count("errors")
             reply({"id": req.get("id"), "error": "missing 'path'"})
             return
-        self._count("requests")
-        t0 = time.monotonic()
+        seq = self._count("requests")
+        t0 = time.monotonic_ns()
+        request = spans.begin("serve.request", at=t0, seq=seq)
+        queued = spans.begin("serve.queue", parent=request, at=t0)
 
         def timed_reply(obj, _reply=reply):
-            # successful captions feed the latency ring
+            # successful captions feed the latency ring; its two clock
+            # reads are the request span's start and end
             if "caption" in obj:
+                t1 = time.monotonic_ns()
                 with self._stats_lock:
                     self.stats["captioned"] += 1
-                    self._latencies.append(time.monotonic() - t0)
+                    self._latencies.append((t1 - t0) / 1e9)
+                spans.end(request, at=t1)
+            else:
+                spans.end(request)
             _reply(obj)
 
-        self._requests.put((req, image, timed_reply, t0))
+        self._requests.put((req, image, timed_reply, t0, (request, queued)))
 
     # -- device side ---------------------------------------------------------
 
-    def _take(self, deadline):
+    def _take(self, deadline, batch_id=None):
         """Pop one queued request before `deadline`, expiring entries older
-        than the TTL (their clients have long timed out)."""
+        than the TTL (their clients have long timed out); the request's
+        spans take the id of the batch being gathered."""
         while True:
             remaining = deadline - time.monotonic()
             if remaining <= 0:
                 raise queue.Empty
-            req, image, reply, t = self._requests.get(timeout=remaining)
-            if self._ttl_s and time.monotonic() - t > self._ttl_s:
+            req, image, reply, t, (request, queued) = self._requests.get(
+                timeout=remaining)
+            spans.end(queued)
+            spans.tag(request, batch=batch_id)
+            if self._ttl_s and (time.monotonic_ns() - t) / 1e9 > self._ttl_s:
                 self._count("expired")
                 reply({"id": req.get("id"), "error": "expired in queue"})
                 continue
             return req, image, reply
 
-    def _gather_batch(self, first_wait: float = 0.2):
+    def _gather_batch(self, first_wait: float = 0.2, batch_id=None):
         """Block for the first request (up to `first_wait`), then coalesce
         stragglers for up to the batching window or until the batch is
         full."""
         try:
-            first = self._take(time.monotonic() + first_wait)
+            first = self._take(time.monotonic() + first_wait, batch_id)
         except queue.Empty:
             return []
         batch = [first]
         deadline = time.monotonic() + self._window_s
         while len(batch) < self._max_batch:
             try:
-                batch.append(self._take(deadline))
+                batch.append(self._take(deadline, batch_id))
             except queue.Empty:
                 break
         return batch
@@ -336,65 +357,75 @@ class CaptionServer:
             live.append((req, reply))
         return out_imgs, live
 
-    def _dispatch_batch(self, batch):
+    def _dispatch_batch(self, batch, batch_id=None):
         """Load images and launch the caption step; returns a finalize
         closure that copies the results to the host and answers the
         clients (None when every request failed at load time). CUDA work is
         asynchronous, so the batch loop gathers the next batch before it
         finalizes this one."""
-        imgs, live = self._load_images(batch)
-        if not live:
-            return None
-        n = len(live)
-        bucket = self._bucket(n)
-        arr = np.stack(imgs + [imgs[-1]] * (bucket - n)).astype(np.float32)
+        with spans.span("serve.load", batch=batch_id):
+            imgs, live = self._load_images(batch)
+            if not live:
+                return None
+            n = len(live)
+            bucket = self._bucket(n)
+            arr = np.stack(imgs + [imgs[-1]] * (bucket - n)).astype(
+                np.float32)
         try:
-            out = self._caption_fn(arr)
+            with spans.span("serve.dispatch", batch=batch_id):
+                out = self._caption_fn(arr)
         except Exception as e:
             self._count("errors", n)
             for req, reply in live:
                 reply({"id": req.get("id"), "error": f"decode failed: {e}"})
             return None
+        held = spans.begin("serve.hold", batch=batch_id)
 
         def finalize() -> None:
-            try:
-                # only what the replies need (skips the alphas); errors of
-                # asynchronous device work surface here
-                host = {k: out[k].cpu().numpy()
-                        for k in ("tokens", "length", "score", "found")}
-            except Exception as e:
-                self._count("errors", n)
-                for req, reply in live:
-                    reply({"id": req.get("id"),
-                           "error": f"decode failed: {e}"})
-                return
-            self._count("batches")
-            for i, (req, reply) in enumerate(live):
+            spans.end(held)
+            with spans.span("serve.finalize", batch=batch_id):
                 try:
-                    words = self._decode_tokens(host["tokens"][i],
-                                                int(host["length"][i]),
-                                                bool(host["found"][i]))
-                    reply({"id": req.get("id"),
-                           "caption": " ".join(words),
-                           "score": float(host["score"][i]),
-                           "completed": bool(host["found"][i])})
-                except Exception as e:  # one bad row must not kill the loop
-                    self._count("errors")
-                    reply({"id": req.get("id"), "error": f"postproc: {e}"})
+                    # only what the replies need (skips the alphas);
+                    # errors of asynchronous device work surface here
+                    host = {k: out[k].cpu().numpy()
+                            for k in ("tokens", "length", "score", "found")}
+                except Exception as e:
+                    self._count("errors", n)
+                    for req, reply in live:
+                        reply({"id": req.get("id"),
+                               "error": f"decode failed: {e}"})
+                    return
+                self._count("batches")
+                for i, (req, reply) in enumerate(live):
+                    try:
+                        words = self._decode_tokens(host["tokens"][i],
+                                                    int(host["length"][i]),
+                                                    bool(host["found"][i]))
+                        reply({"id": req.get("id"),
+                               "caption": " ".join(words),
+                               "score": float(host["score"][i]),
+                               "completed": bool(host["found"][i])})
+                    except Exception as e:  # one bad row must not kill
+                        self._count("errors")           # the loop
+                        reply({"id": req.get("id"),
+                               "error": f"postproc: {e}"})
 
         return finalize
 
     def _batch_loop(self) -> None:
         pending = None   # finalize closure of the batch still in flight
-        while not self._stop.is_set():
+        for batch_id in itertools.count():
+            if self._stop.is_set():
+                break
             # while a batch is in flight, wait only one batching window for
             # new work before flushing its replies
-            batch = self._gather_batch(
-                self._window_s if pending is not None else 0.2)
+            with spans.span("serve.gather", batch=batch_id):
+                batch = self._gather_batch(
+                    self._window_s if pending is not None else 0.2, batch_id)
             nxt = None
             if batch:
                 try:
-                    nxt = self._dispatch_batch(batch)
+                    nxt = self._dispatch_batch(batch, batch_id)
                     if not self._overlap and nxt is not None:
                         nxt()
                         nxt = None

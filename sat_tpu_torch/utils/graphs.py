@@ -45,6 +45,8 @@ from typing import Callable
 
 import torch
 
+from sat_tpu_torch.utils import spans
+
 
 def capture(fn: Callable, buffers, generators=()) -> torch.cuda.CUDAGraph:
     """Run `fn(buffers)` once eagerly on a side stream (the warm-up), then
@@ -75,7 +77,9 @@ _capturing = threading.Lock()   # one capture at a time in the process
 
 class Slot:
     """The buffers of one shape and the graphs captured over them, by
-    name, with the host seconds their captures took."""
+    name, with the host seconds their captures took (each capture also a
+    `graphs.capture` span, utils/spans.py, on the same two clock
+    reads)."""
 
     def __init__(self, buffers, owners):
         self.buffers = buffers
@@ -90,9 +94,12 @@ class Slot:
         if graph is not None:
             graph.replay()
             return
-        t0 = time.perf_counter()
+        t0 = time.monotonic_ns()
+        span = spans.begin("graphs.capture", at=t0, graph=name)
         self._graphs[name] = capture(fn, self.buffers, generators)
-        self.capture_seconds += time.perf_counter() - t0
+        t1 = time.monotonic_ns()
+        spans.end(span, at=t1)
+        self.capture_seconds += (t1 - t0) / 1e9
 
 
 class GraphCache:
