@@ -19,10 +19,11 @@ log2(--max-batch) + 1; the padded rows' results are dropped.
     python -m sat_tpu_torch.serve --model model/model_vgg19_8.npz \\
         --encoder-weights vgg19.npz --port 8765 --max-batch 32
 
-The flags are serve.py's; --device (default cuda) is added. The model's
-`model_config.json` names its encoder (vgg19, resnet152, densenet161) and
-whether the decoder is BERT's; the decoder may be a sat_tpu `.npz` or a
-reference `.pth`. A BERT model decodes its captions with the WordPiece
+The flags are serve.py's but --no-overlap (every batch is answered
+right after its own caption step); --device (default cuda) is added. The
+model's `model_config.json` names its encoder (vgg19, resnet152,
+densenet161) and whether the decoder is BERT's; the decoder may be a
+sat_tpu `.npz` or a reference `.pth`. A BERT model decodes its captions with the WordPiece
 vocabulary of --bert-vocab, which it needs (the port downloads
 nothing). --decode sample samples at --temperature, --top-k and --top-p:
 batch i draws its noise
@@ -71,27 +72,35 @@ class CaptionServer:
     `stop()` shuts the loop down. `stats` counts requests/batches/errors so
     tests can assert coalescing happened.
 
+    Replies: the batch loop answers each batch right after its caption
+    step returns, before it gathers the next. The beam's step reads its
+    exit test every few steps, so it returns with the decode nearly done.
+    `stop()` answers every request taken into a batch before it returns.
+
+    Counters besides the request counts: `hold_us`, the sum over batches
+    of microseconds from the caption step's return to the start of the
+    batch's replies, and `replied_before_next`, the batches whose replies
+    started before another caption step returned.
+
     With tracing on (utils/spans.py) a request is a `serve.request` span,
     from its enqueue to its reply, carrying its sequence number `seq` and
     its `batch`, with a `serve.queue` child until the batch loop takes it;
     each batch is `serve.gather`, `serve.load` (the images and the
     bucket's stack), `serve.dispatch` (the caption step), `serve.hold`
-    (the one-behind wait until its finalize) and `serve.finalize`
-    (read-back and replies), on the batch loop's thread.
+    (from the caption step's return to the start of its finalize) and
+    `serve.finalize` (read-back and replies), on the batch loop's thread.
     """
 
     def __init__(self, caption_fn, image_size: int, decode_tokens,
                  max_batch: int = 32, batch_window_ms: float = 5.0,
                  host: str = "127.0.0.1", port: int = 0,
                  request_ttl_s: float = 60.0, image_pool=None,
-                 overlap: bool = True, bucket_quantum: int = 1):
+                 bucket_quantum: int = 1):
         self._caption_fn = caption_fn     # (B,S,S,3) f32 -> dict of tensors
         self._image_size = image_size
         # Pre-decoded (N, S, S, 3) f32 rows for `{"cached": idx}` requests;
         # None = cached requests are rejected.
         self._image_pool = image_pool
-        # One-behind pipelining of the batch loop (see _dispatch_batch).
-        self._overlap = overlap
         self._decode_tokens = decode_tokens   # token row -> list of words
         self._max_batch = max(1, max_batch)
         # a mesh's card count: every bucket divides over the mesh
@@ -100,13 +109,15 @@ class CaptionServer:
         self._ttl_s = request_ttl_s
         self._host, self._port = host, port
         self._requests: "queue.Queue" = queue.Queue()
+        self._dispatched = 0   # caption steps returned, under _stats_lock
         self._stop = threading.Event()
         self._threads: list[threading.Thread] = []
         self._sock: socket.socket | None = None
         self._t_start = time.monotonic()
         self._stats_lock = threading.Lock()
         self.stats = {"requests": 0, "batches": 0, "errors": 0, "expired": 0,
-                      "captioned": 0, "native_rows": 0}
+                      "captioned": 0, "native_rows": 0, "hold_us": 0,
+                      "replied_before_next": 0}
         # End-to-end (enqueue -> reply) latencies of recent successful
         # captions, seconds; bounded so a long-lived daemon's stats cost
         # stays O(1).
@@ -295,12 +306,12 @@ class CaptionServer:
                 continue
             return req, image, reply
 
-    def _gather_batch(self, first_wait: float = 0.2, batch_id=None):
-        """Block for the first request (up to `first_wait`), then coalesce
-        stragglers for up to the batching window or until the batch is
-        full."""
+    def _gather_batch(self, batch_id=None):
+        """Block for the first request (up to 0.2 s, so that the loop sees
+        a stop), then coalesce stragglers for up to the batching window or
+        until the batch is full."""
         try:
-            first = self._take(time.monotonic() + first_wait, batch_id)
+            first = self._take(time.monotonic() + 0.2, batch_id)
         except queue.Empty:
             return []
         batch = [first]
@@ -360,9 +371,8 @@ class CaptionServer:
     def _dispatch_batch(self, batch, batch_id=None):
         """Load images and launch the caption step; returns a finalize
         closure that copies the results to the host and answers the
-        clients (None when every request failed at load time). CUDA work is
-        asynchronous, so the batch loop gathers the next batch before it
-        finalizes this one."""
+        clients (None when every request failed at load time or in the
+        step)."""
         with spans.span("serve.load", batch=batch_id):
             imgs, live = self._load_images(batch)
             if not live:
@@ -379,7 +389,11 @@ class CaptionServer:
             for req, reply in live:
                 reply({"id": req.get("id"), "error": f"decode failed: {e}"})
             return None
+        returned = time.monotonic_ns()
         held = spans.begin("serve.hold", batch=batch_id)
+        with self._stats_lock:
+            self._dispatched += 1
+            dispatched = self._dispatched
 
         def finalize() -> None:
             spans.end(held)
@@ -395,7 +409,12 @@ class CaptionServer:
                         reply({"id": req.get("id"),
                                "error": f"decode failed: {e}"})
                     return
-                self._count("batches")
+                held_us = (time.monotonic_ns() - returned) // 1000
+                with self._stats_lock:
+                    self.stats["batches"] += 1
+                    self.stats["hold_us"] += held_us
+                    if self._dispatched == dispatched:
+                        self.stats["replied_before_next"] += 1
                 for i, (req, reply) in enumerate(live):
                     try:
                         words = self._decode_tokens(host["tokens"][i],
@@ -413,40 +432,24 @@ class CaptionServer:
         return finalize
 
     def _batch_loop(self) -> None:
-        pending = None   # finalize closure of the batch still in flight
         for batch_id in itertools.count():
             if self._stop.is_set():
                 break
-            # while a batch is in flight, wait only one batching window for
-            # new work before flushing its replies
             with spans.span("serve.gather", batch=batch_id):
-                batch = self._gather_batch(
-                    self._window_s if pending is not None else 0.2, batch_id)
-            nxt = None
-            if batch:
-                try:
-                    nxt = self._dispatch_batch(batch, batch_id)
-                    if not self._overlap and nxt is not None:
-                        nxt()
-                        nxt = None
-                except Exception as e:
-                    # The batch consumer must never die: answer everyone
-                    # still waiting and keep serving.
-                    self._count("errors", len(batch))
-                    for req, _, reply in batch:
-                        reply({"id": req.get("id"),
-                               "error": f"server error: {e}"})
-            if pending is not None:
-                try:
-                    pending()   # answers its own errors; guard regardless
-                except Exception:
-                    pass
-            pending = nxt
-        if pending is not None:   # drain the in-flight batch on shutdown
+                batch = self._gather_batch(batch_id)
+            if not batch:
+                continue
             try:
-                pending()
-            except Exception:
-                pass
+                finalize = self._dispatch_batch(batch, batch_id)
+                if finalize is not None:
+                    finalize()
+            except Exception as e:
+                # The batch consumer must never die: answer everyone
+                # still waiting and keep serving.
+                self._count("errors", len(batch))
+                for req, _, reply in batch:
+                    reply({"id": req.get("id"),
+                           "error": f"server error: {e}"})
 
 
 def load_model(model_path: str, model_config_path: str | None = None,
@@ -598,7 +601,7 @@ def build_server(args) -> CaptionServer:
                          batch_window_ms=args.batch_window_ms,
                          host=args.host, port=args.port,
                          request_ttl_s=args.request_ttl_s,
-                         image_pool=image_pool, overlap=args.overlap,
+                         image_pool=image_pool,
                          bucket_quantum=len(mesh) if mesh else 1)
 
 
@@ -648,9 +651,6 @@ def build_parser() -> argparse.ArgumentParser:
                              "the cached-request pool at startup")
     parser.add_argument("--preload-count", type=int, default=32,
                         help="max images decoded into the pool")
-    parser.add_argument("--no-overlap", action="store_false", dest="overlap",
-                        default=True,
-                        help="disable one-behind batch pipelining")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
     return parser

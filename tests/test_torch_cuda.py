@@ -611,6 +611,65 @@ def test_graph_greedy_equals_eager(cuda, B):
     assert cache.captures == 1
 
 
+@pytest.mark.parametrize("decode", ["beam", "greedy"])
+def test_served_replies_equal_the_steps_own(cuda, decode):
+    """A B = 4 caption step serves 8 pool rows through CaptionServer, each
+    batch answered right after its own step: tokens, lengths, scores and
+    found flags are equal bit for bit to the step's own on the same
+    batches, and every batch counts as replied before the next."""
+    from sat_tpu_torch.engine.serving import build_caption_step
+    from sat_tpu_torch.models.decoder import Decoder, DecoderConfig
+    from sat_tpu_torch.models.encoder import build_encoder
+    from sat_tpu_torch.serve import CaptionServer
+    from tests.test_torch_spans import serve_requests
+
+    torch.manual_seed(0)
+    dcfg = DecoderConfig(vocab_size=300, encoder_dim=512, use_ado=True,
+                         use_attention=True)
+    with torch.device(cuda):
+        enc = build_encoder("vgg19").eval()
+        dec = Decoder(dcfg)
+    pool = np.random.default_rng(2).standard_normal(
+        (8, 32, 32, 3)).astype(np.float32)
+    step = build_caption_step("vgg19", dcfg, 5, decode=decode, device=cuda)
+
+    def caption_fn(arr):
+        return step(enc, dec, arr)
+
+    def words(tokens, length, found):      # the length, then every token
+        return [str(int(length))] + [str(int(t)) for t in tokens]
+
+    def rows(tokens, length, score, found):
+        return [(" ".join(words(t, n, f)), float(s), bool(f))
+                for t, n, s, f in zip(tokens, length, score, found)]
+
+    direct = []
+    for lo in (0, 4):
+        out = {k: v.cpu().numpy() for k, v in caption_fn(pool[lo:lo + 4])
+               .items()}
+        direct += rows(out["tokens"], out["length"], out["score"],
+                       out["found"])
+    server = CaptionServer(caption_fn, 32, words, max_batch=4,
+                           batch_window_ms=500, image_pool=pool)
+    server.start()
+    try:
+        replies = serve_requests(server, range(8))
+    finally:
+        server.stop()
+    stats = server.snapshot()
+    assert stats["batches"] == stats["replied_before_next"] == 2, stats
+    assert stats["errors"] == 0, stats
+    served = [(replies[i]["caption"], replies[i]["score"],
+               replies[i]["completed"]) for i in range(8)]
+
+    def bits(got):
+        return ([c for c, _, _ in got],
+                np.array([s for _, s, _ in got]).view(np.int64).tolist(),
+                [f for _, _, f in got])
+
+    assert bits(served) == bits(direct)
+
+
 def _bank_case(cuda, remat, dropout):
     import dataclasses
 

@@ -11,6 +11,7 @@ dict: tokens, length and found exactly, score and alphas within atol 1e-5
 import json
 import socket
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -254,3 +255,222 @@ def test_seeded_sample_server_replays_its_batches(ckpt):
     assert torch.equal(runs[0][0], runs[1][0])
     assert torch.equal(runs[0][1], runs[1][1])
     assert not torch.equal(runs[0][0], runs[0][1])
+
+
+# --------------------------------- each batch answered after its own step
+
+def _stub_step(arr, score=None):
+    """A caption step on the CPU: token i + 1 for row i; `score` in place
+    of the zero scores."""
+    n = len(arr)
+    tokens = torch.zeros((n, 4), dtype=torch.long)
+    tokens[:, 1] = torch.arange(n) + 1
+    return {"tokens": tokens, "length": torch.ones(n, dtype=torch.long),
+            "score": torch.zeros(n) if score is None else score,
+            "found": torch.ones(n, dtype=torch.bool)}
+
+
+def _token_words(tokens, length, found):
+    return [str(int(t)) for t in tokens[:length + 1]]
+
+
+class _Replies:
+    """A connection for `_handle_line` that keeps each reply by its id."""
+
+    def __init__(self):
+        self.got = {}
+        self.cond = threading.Condition()
+
+    def sendall(self, data):
+        reply = json.loads(data)
+        with self.cond:
+            self.got[reply["id"]] = reply
+            self.cond.notify_all()
+
+    def wait(self, ids, timeout=30.0):
+        with self.cond:
+            assert self.cond.wait_for(
+                lambda: set(ids) <= set(self.got), timeout), self.got
+        return [self.got[i] for i in ids]
+
+
+def _server(step, words=_token_words, server_class=CaptionServer, **kw):
+    """A server of pool rows, at most 2 requests a batch; the window is
+    wide, so that requests sent together fill each batch."""
+    kw = {"max_batch": 2, "batch_window_ms": 200} | kw
+    return server_class(step, SIZE, words,
+                        image_pool=np.zeros((8, SIZE, SIZE, 3), np.float32),
+                        **kw)
+
+
+def _send(server, conn, ids):
+    lock = threading.Lock()
+    for i in ids:
+        server._handle_line(json.dumps({"id": i, "cached": i}).encode(),
+                            conn, lock)
+
+
+def test_a_batch_is_answered_before_the_next_step_returns():
+    """The first batch's replies all arrive while the second batch's
+    caption step is still blocked; the counters see both batches answered
+    before the next step returned."""
+    entered, release = threading.Event(), threading.Event()
+    calls = []
+
+    def step(arr):
+        calls.append(len(arr))
+        if len(calls) == 2:
+            entered.set()
+            release.wait(60)
+        return _stub_step(arr)
+
+    server = _server(step)
+    conn = _Replies()
+    server.start()
+    try:
+        t0 = time.monotonic()
+        _send(server, conn, range(4))
+        assert entered.wait(30)
+        first = conn.wait([0, 1])
+        waited_us = (time.monotonic() - t0) * 1e6
+        assert not release.is_set() and len(calls) == 2
+        assert [r["caption"] for r in first] == ["0 1", "0 2"]
+        stats = server.snapshot()
+        assert stats["batches"] == stats["replied_before_next"] == 1
+        assert 0 <= stats["hold_us"] <= waited_us
+        release.set()
+        second = conn.wait([2, 3])
+    finally:
+        release.set()
+        server.stop()
+    assert [r["caption"] for r in second] == ["0 1", "0 2"]
+    assert server.stats["batches"] == server.stats[
+        "replied_before_next"] == 2
+
+
+def test_stop_answers_every_request_taken_into_a_batch():
+    """stop() while the batch loop is answering a batch: every request of
+    that batch is answered before stop() returns."""
+    replying, gate = threading.Event(), threading.Event()
+
+    def words(tokens, length, found):
+        replying.set()
+        gate.wait(60)
+        return _token_words(tokens, length, found)
+
+    server = _server(_stub_step, words)
+    conn = _Replies()
+    server.start()
+    stopper = threading.Thread(target=server.stop)
+    try:
+        _send(server, conn, range(2))
+        assert replying.wait(30)
+        stopper.start()
+        time.sleep(0.1)
+        assert stopper.is_alive() and not conn.got
+    finally:
+        gate.set()
+    stopper.join(timeout=30)
+    assert not stopper.is_alive()
+    assert sorted(conn.got) == [0, 1]
+    assert all("caption" in r for r in conn.got.values()), conn.got
+    assert server.stats["batches"] == 1
+
+
+def test_a_failed_read_back_answers_its_own_batch():
+    """The first batch's scores cannot be read back (a tensor that needs
+    its gradient has no numpy view): its requests are answered `decode
+    failed`, and the next batch is served."""
+    calls = []
+
+    def step(arr):
+        calls.append(len(arr))
+        return _stub_step(arr, torch.zeros(len(arr), requires_grad=True)
+                          if len(calls) == 1 else None)
+
+    server = _server(step)
+    conn = _Replies()
+    server.start()
+    try:
+        _send(server, conn, range(4))
+        got = conn.wait(range(4))
+    finally:
+        server.stop()
+    assert all(r["error"].startswith("decode failed:") for r in got[:2])
+    assert [r["caption"] for r in got[2:]] == ["0 1", "0 2"]
+    assert server.stats["errors"] == 2 and server.stats["batches"] == 1
+
+
+def test_each_batch_is_answered_before_the_next_gather():
+    """The batch loop answers a batch before it starts gathering the next:
+    gather, step and the batch's replies, in turn."""
+    log = []
+
+    class Logged(CaptionServer):
+        def _gather_batch(self, batch_id=None):
+            log.append("gather")
+            batch = super()._gather_batch(batch_id)
+            if not batch:
+                log.pop()
+            return batch
+
+    def step(arr):
+        log.append("step")
+        return _stub_step(arr)
+
+    def words(tokens, length, found):
+        log.append("reply")
+        return _token_words(tokens, length, found)
+
+    server = _server(step, words, Logged)
+    conn = _Replies()
+    server.start()
+    try:
+        t0 = time.monotonic()
+        _send(server, conn, range(6))
+        conn.wait(range(6))
+        waited_us = (time.monotonic() - t0) * 1e6
+    finally:
+        server.stop()
+    assert log == ["gather", "step", "reply", "reply"] * 3
+    stats = server.snapshot()
+    assert stats["batches"] == stats["replied_before_next"] == 3
+    assert 0 <= stats["hold_us"] <= 3 * waited_us
+
+
+def test_a_batch_answered_after_the_next_step_is_counted_late():
+    """A batch whose finalize is called only after another batch's caption
+    step has returned counts as late, and its hold holds the delay; the
+    other batch, answered at once, counts as replied before the next."""
+    server = _server(_stub_step)
+    replies = {}
+
+    def batch(ids):
+        return [({"id": i, "cached": i}, server._image_pool[i],
+                 lambda obj: replies.__setitem__(obj["id"], obj))
+                for i in ids]
+
+    first = server._dispatch_batch(batch([0, 1]))
+    time.sleep(0.05)
+    second = server._dispatch_batch(batch([2, 3]))
+    first()
+    second()
+    assert [replies[i]["caption"] for i in range(4)] == ["0 1", "0 2"] * 2
+    stats = server.snapshot()
+    assert stats["batches"] == 2 and stats["replied_before_next"] == 1
+    assert stats["hold_us"] >= 50_000
+
+
+@pytest.mark.parametrize("counters,lag_ms", [
+    ({"requests": 64, "batches": 4}, None),              # the parent's
+    ({}, None),
+    ({"requests": 0, "batches": 0, "hold_us": 0}, None),
+    ({"requests": 64, "batches": 4, "hold_us": 10_000}, 2.5)])
+def test_serve_reply_lag_reader(counters, lag_ms):
+    """satbench's `serve_reply_lag_ms`: hold_us over batches in ms, and
+    None where the server has no such counter or answered no batch."""
+    from satbench import spec
+
+    read = spec.reader("serve_reply_lag_ms")
+    assert read({"counters": counters}) == lag_ms
+    assert read({}) is None
